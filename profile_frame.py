@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Where the 1080p frame's time goes, on one CUDA card.
+
+    python3 profile_frame.py
+
+Renders chip_smoke.py's workload (the bench orbit at 1920x1080 on the
+314,988-triangle colonnade, default RenderConfig with SSR off) three times,
+N_FRAMES frames each, the first WARMUP_FRAMES of each unmeasured:
+
+1. plain: host wall time per frame, bracketed by torch.cuda.synchronize().
+2. per pass: a CUDA event pair and the host clock around each pass and each
+   step of the raster front end. Prints stream ms and host ms per frame.
+   Where stream ms equals host ms, the stream waits on the host's launches.
+3. busy share: the measured frames run under torch.profiler with only CUDA
+   activity recorded. The device time of every kernel and copy in those
+   frames is divided by the host wall time of the same frames.
+
+Needs a CUDA card; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import statistics
+import subprocess
+import sys
+import time
+
+from chip_smoke import HEIGHT, N_FRAMES, SCENE, WARMUP_FRAMES, WIDTH
+
+
+def timed_steps():
+    """(module, attribute, label) of every function timed in phase 2."""
+    from vkr_tpu_torch import frame
+    from vkr_tpu_torch.passes import downsample, gbuffer, gtao, shading, taa
+    from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
+
+    return [
+        (frame, "render_gbuffer", "pass.gbuffer"),
+        (downsample, "build_hiz", "pass.hiz"),
+        (gtao, "gtao_main_window", "pass.gtao_main (K4)"),
+        (gtao, "gtao_filter", "pass.gtao_filter"),
+        (gtao, "gtao_accumulate", "pass.gtao_accumulate (K5)"),
+        (shading, "deferred_shading", "pass.shading"),
+        (taa, "taa_resolve", "pass.taa (K6)"),
+        (gbuffer, "rasterize", "gbuffer.rasterize"),
+        (gbuffer, "_masked_alpha", "gbuffer.masked_alpha"),
+        (gbuffer, "sample_material_pair", "gbuffer.material_textures"),
+        (setup, "clip_near_corners_t", "raster.clip_near"),
+        (setup, "triangle_setup_t", "raster.triangle_setup"),
+        (setup, "bin_triangles_t", "raster.bin_triangles"),
+        (pair_rows, "build_tri_rows_t", "raster.build_tri_rows"),
+        (pair_rows, "expand_pair_rows", "raster.expand_pair_rows"),
+        (gbuf_kernel, "gbuf_tiles", "raster.gbuf_tiles (K1)"),
+    ]
+
+
+@contextlib.contextmanager
+def pass_timers(log):
+    """Wrap every timed step; each call appends (label, start event, end
+    event, host seconds) to log."""
+    import torch
+
+    saved = []
+
+    def wrap(fn, label):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            log.append((label, start, end, time.perf_counter() - t0))
+            return out
+        return timed
+
+    for mod, attr, label in timed_steps():
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrap(fn, label))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def frames(scene, res, cfg, device, measured):
+    """Render the orbit; frames from WARMUP_FRAMES on run inside
+    measured(). Returns the host seconds of each measured frame and of
+    the measured frames as one block."""
+    import torch
+
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import camera_frame, render_frame
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    secs = []
+    block = None
+    ctx = contextlib.ExitStack()
+    with ctx:
+        for i in range(N_FRAMES):
+            if i == WARMUP_FRAMES:
+                ctx.enter_context(measured())
+                torch.cuda.synchronize()
+                block = time.perf_counter()
+            cam = camera_frame(cfg, bench_orbit_view(i),
+                               bench_orbit_view(max(i - 1, 0)), i, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, _ = render_frame(scene, state, cam, res, cfg)
+            torch.cuda.synchronize()
+            if i >= WARMUP_FRAMES:
+                secs.append(time.perf_counter() - t0)
+        block = time.perf_counter() - block  # before measured() exits
+    return secs, block
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_frame: torch.cuda.is_available() is False: this "
+              "profile needs a CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip())
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.frame import build_ssr_resources
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+
+    kernels.build()
+    scene = upload_scene(colonnade_scene(**SCENE), device)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, enable_ssr=False)
+    res = build_ssr_resources(cfg.ssr.lut_size, device=device)
+    n_measured = N_FRAMES - WARMUP_FRAMES
+    label = f"frames {WARMUP_FRAMES}..{N_FRAMES - 1}"
+
+    # ---- 1. plain frames ----
+    secs, _ = frames(scene, res, cfg, device, contextlib.nullcontext)
+    print(f"plain: median {statistics.median(secs) * 1e3:.3f} ms over "
+          f"{label}; all {[round(s * 1e3, 3) for s in secs]}")
+
+    # ---- 2. per pass ----
+    log = []
+    secs, _ = frames(scene, res, cfg, device, lambda: pass_timers(log))
+    print(f"per pass: median frame {statistics.median(secs) * 1e3:.3f} ms "
+          f"over {label} (with the timers); ms per frame:")
+    stream, host = collections.Counter(), collections.Counter()
+    calls = collections.Counter()
+    for name, start, end, host_s in log:
+        stream[name] += start.elapsed_time(end)
+        host[name] += host_s * 1e3
+        calls[name] += 1
+    for mod, attr, name in timed_steps():
+        print(f"  {name:28s} stream {stream[name] / n_measured:9.3f}  "
+              f"host {host[name] / n_measured:9.3f}  "
+              f"calls/frame {calls[name] / n_measured:g}")
+
+    # ---- 3. busy share ----
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    secs, block = frames(scene, res, cfg, device, lambda: prof)
+    device_ms = collections.Counter()
+    launches = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            device_ms[e.key] += e.self_device_time_total / 1e3
+            launches[e.key] += e.count
+    busy_ms = sum(device_ms.values())
+    print(f"busy share: {label} under the profiler took {block * 1e3:.3f} "
+          f"ms of host wall time (median frame "
+          f"{statistics.median(secs) * 1e3:.3f} ms); device time "
+          f"{busy_ms:.3f} ms in {sum(launches.values())} kernels and copies "
+          f"({busy_ms / n_measured:.3f} ms and "
+          f"{sum(launches.values()) / n_measured:.1f} per frame); busy "
+          f"share {busy_ms / (block * 1e3):.4f}, idle share "
+          f"{1 - busy_ms / (block * 1e3):.4f}")
+    print("top device time (ms per frame, launches per frame):")
+    for key, ms in device_ms.most_common(12):
+        print(f"  {ms / n_measured:8.4f} {launches[key] / n_measured:7.1f}  "
+              f"{key[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""vkr_tpu_torch — the PyTorch + CUDA port of vkr_tpu for one NVIDIA H100.
+
+Mirrors vkr_tpu's module layout and names, so each module's counterpart is
+easy to find. Plain tensor code is PyTorch; every Pallas kernel of the
+ported path is a hand-written CUDA C++ kernel under csrc/, built with nvcc
+at first use (kernels.py) and bound with ctypes. Each kernel's wrapper
+keeps a plain PyTorch version beside it: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises.
+
+This package never imports jax or vkr_tpu.
+
+  config.py   — RenderConfig dataclasses (JSON-compatible with vkr_tpu)
+  mathlib/    — camera matrices, projection, octahedral normals, BRDF
+  core/       — storage-format emulation, FrameState
+  scene/      — glTF dataclasses, CompiledScene, the procedural colonnade
+  raster/     — SoA raster front end, pair rows, the G-buffer kernel (K1),
+                texture sampling, the window-gather kernels (K4/K5/K6)
+  passes/     — G-buffer, hi-Z, GTAO, deferred shading, TAA, BRDF LUT
+  frame.py    — render_frame: the frame chain and its history remaps
+  convert.py  — carry vkr_tpu's numpy scene / FrameState arrays across
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,49 @@
+"""Carry state across from vkr_tpu, so both packages render from identical
+inputs.
+
+vkr_tpu's CompiledScene is a NamedTuple of numpy arrays and its FrameState
+holds arrays that numpy can read; nothing here imports jax or vkr_tpu.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vkr_tpu_torch.core.framestate import FrameState
+from vkr_tpu_torch.passes.gbuffer import SceneDevice, upload_scene
+from vkr_tpu_torch.scene.scene import CompiledScene
+
+
+def scene_from_numpy(compiled_scene, device) -> SceneDevice:
+    """vkr_tpu CompiledScene (any object with its fields as numpy arrays)
+    -> the port's uploaded scene on `device`."""
+    if getattr(compiled_scene, "tex_images", None) is not None:
+        raise NotImplementedError(
+            "native-size textures are ROADMAP queue 1 item 13")
+    fields = {f: getattr(compiled_scene, f) for f in CompiledScene._fields}
+    return upload_scene(CompiledScene(**fields), device)
+
+
+def framestate_from_numpy(state_arrays, device) -> FrameState:
+    """FrameState from a mapping or object with FrameState's fields as
+    arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict)."""
+    def get(name):
+        if isinstance(state_arrays, dict):
+            return state_arrays[name]
+        return getattr(state_arrays, name)
+
+    tensors = {
+        name: torch.as_tensor(np.array(get(name), np.float32), device=device)
+        for name in FrameState.FIELDS if name != "frame_index"
+    }
+    return FrameState(frame_index=int(np.asarray(get("frame_index"))),
+                      **tensors)
+
+
+def framestate_to_numpy(state: FrameState) -> dict:
+    """FrameState -> dict of numpy arrays (frame_index as int32 0-d)."""
+    out = {name: getattr(state, name).detach().cpu().numpy()
+           for name in FrameState.FIELDS if name != "frame_index"}
+    out["frame_index"] = np.asarray(state.frame_index, np.int32)
+    return out

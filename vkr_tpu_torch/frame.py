@@ -1,0 +1,209 @@
+"""The frame function — the reference's main loop as a chain of passes.
+
+Mirrors main.cpp:338-402 frame order and vkr_tpu/frame.py: G-buffer raster
+-> hi-Z downsample -> GTAO (main/filter/accumulate) -> deferred shading ->
+TAA resolve. The reference's end-of-frame image remaps (main.cpp:416-420)
+become the returned FrameState.
+
+Ported so far: the frame with SSR off (RenderConfig.enable_ssr=False, the
+reference's SSR checkbox). Options whose passes are not ported raise
+NotImplementedError naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from vkr_tpu_torch.config import RenderConfig
+from vkr_tpu_torch.core.framestate import FrameState
+from vkr_tpu_torch.mathlib.transforms import perspective, taa_jitter_sequence
+from vkr_tpu_torch.passes import downsample as _down
+from vkr_tpu_torch.passes import gtao as _gtao
+from vkr_tpu_torch.passes import shading as _shading
+from vkr_tpu_torch.passes import ssr as _ssr
+from vkr_tpu_torch.passes import taa as _taa
+from vkr_tpu_torch.passes.gbuffer import SceneDevice, render_gbuffer
+
+# Reference numerics: float32 products in full precision (vkr_tpu runs its
+# corner transform at precision="highest"); no TF32 anywhere.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+class SSRResources(NamedTuple):
+    """Startup-preintegrated LUTs (advanced_ssr.cpp:95-136). The SSR slice
+    adds the PDF LUT and the halton table."""
+
+    brdf_lut: torch.Tensor   # (S, S, 2)
+
+
+def build_ssr_resources(lut_size: int = 1024, device="cpu") -> SSRResources:
+    """Preintegrate the LUTs on `device` (milliseconds on the card; nothing
+    is cached to disk)."""
+    return SSRResources(
+        brdf_lut=_ssr.preintegrate_brdf(lut_size, device=device))
+
+
+class CameraFrame(NamedTuple):
+    """Per-frame camera matrices (DrawTAAParams analog,
+    scene_renderer.hpp:26-33), float32 tensors."""
+
+    view: torch.Tensor        # (4,4)
+    prev_view: torch.Tensor
+    mvp: torch.Tensor         # proj @ view, unjittered
+    prev_mvp: torch.Tensor
+    jitter: torch.Tensor      # (2,) NDC offset
+
+
+def camera_frame(cfg: RenderConfig, view, prev_view, frame_index: int,
+                 device) -> CameraFrame:
+    proj = perspective(cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
+                       cfg.camera.zfar)
+    seq = taa_jitter_sequence(cfg.width, cfg.height)
+    jitter = seq[frame_index % 4] if cfg.taa.jitter else (
+        np.zeros(2, np.float32))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return CameraFrame(view=t(view), prev_view=t(prev_view),
+                       mvp=t(proj @ view), prev_mvp=t(proj @ prev_view),
+                       jitter=t(jitter))
+
+
+def _check_supported(cfg: RenderConfig):
+    todo = [
+        (cfg.enable_ssr, "enable_ssr: SSR trace/filter/blur and the "
+         "hi-Z march kernels K2+K3 are ROADMAP queue 1 items 5-6 (the next "
+         "slice); render with enable_ssr=False"),
+        (cfg.enable_probes, "enable_probes: probe GI is ROADMAP queue 1 "
+         "item 10"),
+        (cfg.gtao.use_ray_query, "gtao.use_ray_query: ray-traced GTAO is "
+         "ROADMAP queue 1 item 11"),
+        (cfg.trilinear_textures, "trilinear_textures: trilinear sampling "
+         "is ROADMAP queue 1 item 13"),
+    ]
+    for on, what in todo:
+        if on:
+            raise NotImplementedError(f"vkr_tpu_torch does not port {what}")
+
+
+def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
+                 ssr_res: SSRResources, cfg: RenderConfig):
+    """One frame: returns (final color (H, W, 3), new FrameState, aux)."""
+    _check_supported(cfg)
+    gbuf = render_gbuffer(
+        scene, cam.mvp, cam.prev_mvp, cam.jitter,
+        width=cfg.width, height=cfg.height, quantize=cfg.quantize_formats,
+        mask_peel_layers=cfg.raster.mask_peel_layers,
+    )
+    mid = frame_mid(gbuf, state, cam, ssr_res, cfg)
+    return frame_tail(gbuf, mid, state, cam, ssr_res, cfg)
+
+
+def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
+              ssr_res: SSRResources, cfg: RenderConfig):
+    """hi-Z downsample -> GTAO (main/filter/accumulate). Returns the dict of
+    products the tail consumes."""
+    _check_supported(cfg)
+    h, w = cfg.height, cfg.width
+    dev = gbuf.depth.device
+    hiz = _down.build_hiz(gbuf.depth, gbuf.normal, gbuf.velocity)
+    depth_half = hiz.mips[0]
+    # SSR off: shading sees no reflections
+    ssr_blurred = torch.zeros((h // 2, w // 2, 3), dtype=torch.float32,
+                              device=dev)
+
+    if cfg.enable_gtao:
+        inv_view = _inv4(cam.view)
+        # transpose(inverse(view)) (main.cpp:377)
+        gp = _gtao.GTAOParams(
+            normal_mat=inv_view.T, fovy=cfg.camera.fovy,
+            aspect=cfg.aspect, znear=cfg.camera.znear, zfar=cfg.camera.zfar,
+        )
+        base_angle = _gtao.frame_base_angle(state.frame_index)
+        dirs = 2 if cfg.gtao.two_directions else 1
+        # without SSR's occlusion estimate the MIS main pass cannot run;
+        # like vkr_tpu, the frame takes the single-strategy main pass
+        raw_ao = _gtao.gtao_main_window(depth_half, hiz.normal_half, gp,
+                                        base_angle, dirs)
+        filtered_ao = _gtao.gtao_filter(depth_half, raw_ao,
+                                        cfg.camera.znear, cfg.camera.zfar)
+        ap = _gtao.GTAOAccumParams(
+            inverse_camera=inv_view, prev_inverse_camera=_inv4(cam.prev_view),
+            mvp=cam.mvp, fovy=cfg.camera.fovy, aspect=cfg.aspect,
+            znear=cfg.camera.znear, zfar=cfg.camera.zfar,
+        )
+        gtao_accum = _gtao.gtao_accumulate(
+            depth_half, state.prev_depth_half, filtered_ao,
+            hiz.velocity_half, state.gtao_accum, ap,
+            clear_history=state.frame_index == 0)
+        occlusion = gtao_accum[..., 0]
+    else:
+        gtao_accum = state.gtao_accum
+        occlusion = torch.ones((h // 2, w // 2), dtype=torch.float32,
+                               device=dev)
+    return {"depth_half": depth_half, "ssr_blurred": ssr_blurred,
+            "gtao_accum": gtao_accum, "occlusion": occlusion}
+
+
+def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
+               ssr_res: SSRResources, cfg: RenderConfig):
+    """Deferred shading -> TAA -> end-of-frame history remaps
+    (main.cpp:416-420). Returns (final color, new FrameState, aux)."""
+    inv_view = _inv4(cam.view)
+    prev_inv_view = _inv4(cam.prev_view)
+    depth_half = mid["depth_half"]
+    occlusion = mid["occlusion"]
+
+    shade_params = _shading.ShadingParams(
+        inverse_camera=inv_view, fovy=cfg.camera.fovy, aspect=cfg.aspect,
+        znear=cfg.camera.znear, zfar=cfg.camera.zfar,
+        min_roughness=cfg.shading.min_roughness,
+        max_roughness=cfg.shading.max_roughness,
+        show_ao=cfg.show_ao_only,
+    )
+    color = _shading.deferred_shading(
+        gbuf, shade_params, occlusion=occlusion,
+        reflections=mid["ssr_blurred"], brdf_lut=ssr_res.brdf_lut,
+        depth_half=depth_half)
+
+    if cfg.enable_taa:
+        tp = _taa.TAAParams(
+            inverse_camera=inv_view, prev_inverse_camera=prev_inv_view,
+            fovy=cfg.camera.fovy, aspect=cfg.aspect,
+            znear=cfg.camera.znear, zfar=cfg.camera.zfar,
+        )
+        final = _taa.taa_resolve(state.taa_history, state.prev_depth,
+                                 gbuf.depth, gbuf.velocity, color, tp)
+    else:
+        final = color
+
+    # ---- history remaps (main.cpp:416-420) ----
+    new_state = state.replace(
+        prev_depth=gbuf.depth,
+        prev_depth_half=depth_half,
+        taa_history=final,
+        gtao_accum=mid["gtao_accum"],
+        gtao_prev=occlusion,
+        ssr_history=mid["ssr_blurred"],
+        prev_mvp=cam.mvp,
+        frame_index=state.frame_index + 1,
+    )
+    aux = {"gbuffer": gbuf, "hiz_depth": depth_half,
+           "ssr": mid["ssr_blurred"], "ao": occlusion,
+           "overflow": gbuf.overflow}
+    return final, new_state, aux
+
+
+def _inv4(view):
+    """Inverse of a rigid view matrix."""
+    r = view[:3, :3]
+    t = view[:3, 3]
+    out = torch.eye(4, dtype=view.dtype, device=view.device)
+    out[:3, :3] = r.T
+    out[:3, 3] = -r.T @ t
+    return out

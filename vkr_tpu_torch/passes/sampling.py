@@ -1,0 +1,137 @@
+"""Image sampling helpers shared by the image-space passes.
+
+The equivalent of the GLSL texture() / textureLod() calls against render
+targets (DEFAULT_SAMPLER: linear filter, clamp-to-edge — samplers.hpp:36-50)
+over (H, W[, C]) tensors with uv in [0, 1].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkr_tpu_torch.raster import gather_kernel as _gather
+
+
+def _prep(img):
+    squeeze = img.ndim == 2
+    return (img[..., None] if squeeze else img), squeeze
+
+
+def bilinear_sample(img, uv):
+    """texture(img, uv) with linear filter + clamp-to-edge.
+
+    img: (H, W) or (H, W, C); uv: (..., 2) in [0,1].
+    """
+    img, squeeze = _prep(img)
+    h, w = img.shape[:2]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0 = x0.long()
+    y0 = y0.long()
+
+    def tap(xi, yi):
+        return img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+
+    t00 = tap(x0, y0)
+    t10 = tap(x0 + 1, y0)
+    t01 = tap(x0, y0 + 1)
+    t11 = tap(x0 + 1, y0 + 1)
+    top = t00 + (t10 - t00) * fx
+    bot = t01 + (t11 - t01) * fx
+    out = top + (bot - top) * fy
+    return out[..., 0] if squeeze else out
+
+
+def upsample_half_bilinear(img_half, texel_offset=(0, 0)):
+    """Dense 2x bilinear upsample of a half-res target sampled at full-res
+    pixel centers (optionally with a half-res texel offset) — the regular
+    structure of texture(half_tex, full_uv) with linear filtering.
+
+    Full pixel x maps to half coordinate x/2 - 0.25: even pixels blend
+    columns (x/2 - 1, x/2) with weights (0.25, 0.75); odd pixels blend
+    (x/2, x/2 + 1) with (0.75, 0.25). Same along y. Edges clamp.
+    """
+    img, squeeze = _prep(img_half)
+    ox, oy = int(texel_offset[0]), int(texel_offset[1])
+    h, w, c = img.shape
+
+    def axis_interp(a, axis, off):
+        n = a.shape[axis]
+
+        def shifted(k):  # a[clamp(i + k)] along axis
+            idx = (torch.arange(n, device=a.device) + k).clamp(0, n - 1)
+            return a.index_select(axis, idx)
+
+        lo, mid, hi = shifted(off - 1), shifted(off), shifted(off + 1)
+        return 0.25 * lo + 0.75 * mid, 0.75 * mid + 0.25 * hi
+
+    e_y, o_y = axis_interp(img, 0, oy)
+    rows = torch.stack([e_y, o_y], dim=1).reshape(2 * h, w, c)
+    e_x, o_x = axis_interp(rows, 1, ox)
+    full = torch.stack([e_x, o_x], dim=2).reshape(2 * h, 2 * w, c)
+    return full[..., 0] if squeeze else full
+
+
+def quad_pack(img):
+    """Pack each texel's 2x2 bilinear footprint into one row:
+    out[y, x] = [p(y,x), p(y,x+1), p(y+1,x), p(y+1,x+1)] per channel
+    (edge-clamped)."""
+    img, _ = _prep(img)
+    xr = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
+    yd = torch.cat([img[1:], img[-1:]], dim=0)
+    yxd = torch.cat([xr[1:], xr[-1:]], dim=0)
+    return torch.cat([img, xr, yd, yxd], dim=-1)
+
+
+def bilinear_from_quad(qimg, channels: int, uv):
+    """texture(img, uv) from a quad_pack'ed image (H, W, 4*C): one row
+    fetch per sample. Returns (..., C)."""
+    h, w = qimg.shape[:2]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    # Left/top edge: both hardware taps clamp to texel 0, so the lerp
+    # weight must collapse to the first packed tap.
+    fx = torch.where(x0 < 0, 0.0, x - x0)[..., None]
+    fy = torch.where(y0 < 0, 0.0, y - y0)[..., None]
+    rows = qimg[y0.long().clamp(0, h - 1), x0.long().clamp(0, w - 1)]
+    rows = rows.float()
+    c = channels
+    t00 = rows[..., 0 * c: 1 * c]
+    t10 = rows[..., 1 * c: 2 * c]
+    t01 = rows[..., 2 * c: 3 * c]
+    t11 = rows[..., 3 * c: 4 * c]
+    top = t00 + (t10 - t00) * fx
+    bot = t01 + (t11 - t01) * fx
+    return top + (bot - top) * fy
+
+
+def reproject_bilinear(img, uv_offset, *, radius: int = 16,
+                       texel_offset=None):
+    """Bilinear sample at (pixel uv + uv_offset), the reprojection pattern
+    of TAA / temporal accumulation, through the window-gather kernel (K5):
+    offsets clamped to +-radius px. texel_offset: optional (dx, dy)
+    constant texel offset (textureOffset analog)."""
+    h, w = img.shape[:2]
+    off_x = uv_offset[..., 0] * w
+    off_y = uv_offset[..., 1] * h
+    if texel_offset is not None:
+        off_x = off_x + texel_offset[0]
+        off_y = off_y + texel_offset[1]
+    return _gather.window_gather_bilinear(img.contiguous(), off_y, off_x,
+                                          radius=radius)
+
+
+def screen_uv_grid(height: int, width: int, device):
+    """Per-pixel uv at pixel centers — the fullscreen-triangle varying
+    (screen_uv in the deferred shaders). (H, W, 2)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    u = (torch.arange(width, **f32) + 0.5) / width
+    v = (torch.arange(height, **f32) + 0.5) / height
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return torch.stack([uu, vv], dim=-1)

@@ -1,0 +1,187 @@
+"""K1 — the merged tile raster + attribute-resolve kernel, and its plain
+PyTorch version.
+
+One walk over each tile's binned pair segment performs the depth test and
+picks the winning pair per pixel; the winner's resolve planes (perspective
+denominator, 9 attribute/w planes, material id) are evaluated once per
+pixel: perspective-correct interpolation, every channel a plane (p, q, r)
+in screen (x, y) divided by the denominator plane.
+
+Replaces vkr_tpu/raster/gbuf_kernel.py:_gbuf_kernel (pallas_call at :202,
+wrapper gbuf_tiles :145). The CUDA kernel is csrc/gbuf_tiles.cu.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkr_tpu_torch import kernels
+from vkr_tpu_torch.raster.pair_rows import (
+    N_CHANNELS,
+    RESOLVE_BASE,
+    ROW_WIDTH,
+)
+
+_TRI_ID = 12
+_MATERIAL = RESOLVE_BASE + 3 + 3 * N_CHANNELS  # 46
+# background resolve planes: denominator (0, 0, 1), channels 0, material -1
+_BACKGROUND = [0.0, 0.0, 1.0] + [0.0] * (3 * N_CHANNELS) + [-1.0]
+
+
+def plane(a, b, c, px, py):
+    """Evaluate the screen-space plane a*px + b*py + c as fma(a, px, b*py)
+    + c: the contraction vkr_tpu's kernel gets from XLA (every covered
+    pixel of its interpret-mode output matches this form, not the
+    separately rounded one). The fma is exact in float64 — a*px has at most
+    48 significant bits — then rounded once to float32 (a double rounding
+    can differ from a true fma only when the float64 sum itself was
+    inexact and lands on a float32 tie). The CUDA kernel calls fmaf."""
+    t = (b * py).double()
+    return (a.double() * px.double() + t).float() + c
+
+
+def _tiles(width, height, tile_h, tile_w):
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile_h)
+    return tiles_x, tiles_y, tiles_y * tile_h, tiles_x * tile_w
+
+
+def _peel_floor(peel_depth, hp, wp, device):
+    """(hp, wp) peel floor: -1 (no peeling) outside peel_depth."""
+    peel = torch.full((hp, wp), -1.0, dtype=torch.float32, device=device)
+    if peel_depth is not None:
+        peel[:peel_depth.shape[0], :peel_depth.shape[1]] = peel_depth
+    return peel
+
+
+def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
+               width: int, height: int, tile_h: int = 8, tile_w: int = 128):
+    """Run the merged raster + resolve over binned pair segments.
+
+    pair_rows: (n_pairs, 64) f32 (or vkr_tpu's (n_rows, 128) view of it);
+    seg_starts/seg_counts: (n_tiles,) int32, tiles row-major;
+    peel_depth: optional (height, width) f32 — only fragments strictly
+    BEHIND it survive (the alpha-MASK depth-peel layer).
+
+    Returns (zbuf (H', W') f32, tri_id (H', W') int32,
+    attrs (N_CHANNELS + 1, H', W') f32 = [uv(2), normal(3), prev_clip(4),
+    mat_id]) on the tile-aligned grid; crop to (height, width).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    tiles_x, tiles_y, hp, wp = _tiles(width, height, tile_h, tile_w)
+    if rows.device.type == "cpu":
+        return gbuf_tiles_reference(rows, seg_starts, seg_counts, peel_depth,
+                                    width=width, height=height,
+                                    tile_h=tile_h, tile_w=tile_w)
+    if not rows.is_cuda:
+        raise ValueError(f"gbuf_tiles: unsupported device {rows.device}")
+    n_tiles = tiles_x * tiles_y
+    for name, t, dtype, shape in (
+            ("pair_rows", rows, torch.float32, None),
+            ("seg_starts", seg_starts, torch.int32, (n_tiles,)),
+            ("seg_counts", seg_counts, torch.int32, (n_tiles,))):
+        if t.device != rows.device or t.dtype != dtype:
+            raise ValueError(f"gbuf_tiles: {name} must be {dtype} on "
+                             f"{rows.device}, got {t.dtype} on {t.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"gbuf_tiles: {name} shape {tuple(t.shape)} "
+                             f"!= {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"gbuf_tiles: {name} must be contiguous")
+    if peel_depth is not None and (peel_depth.dtype != torch.float32
+                                   or peel_depth.device != rows.device):
+        raise ValueError("gbuf_tiles: peel_depth must be float32 on "
+                         f"{rows.device}")
+    peel = _peel_floor(peel_depth, hp, wp, rows.device)
+    zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
+    tid = torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
+    attrs = torch.empty((N_CHANNELS + 1, hp, wp), dtype=torch.float32,
+                        device=rows.device)
+    err = kernels.library("gbuf_tiles").vkr_gbuf_tiles(
+        rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
+        peel.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, zbuf.data_ptr(),
+        tid.data_ptr(), attrs.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    kernels.check(err, "gbuf_tiles")
+    kernels.LAUNCHES["gbuf_tiles"] += 1
+    return zbuf, tid, attrs
+
+
+def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
+                         *, width: int, height: int, tile_h: int = 8,
+                         tile_w: int = 128, chunk_evals: int = 1 << 24):
+    """Plain PyTorch version of gbuf_tiles (same arguments and results,
+    any device).
+
+    Instead of walking each segment in order, it uses what the in-order
+    LESS_OR_EQUAL walk computes: the final depth is the minimum covering
+    depth, and the winner is the LAST covering pair (in segment order)
+    whose depth equals that minimum. Pair-pixel tests run in chunks of
+    about chunk_evals: one pass takes the per-pixel minimum, a second the
+    winner."""
+    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    dev = rows.device
+    tiles_x, tiles_y, hp, wp = _tiles(width, height, tile_h, tile_w)
+    peel = _peel_floor(peel_depth, hp, wp, dev).reshape(-1)
+
+    counts = seg_counts.long()
+    n_tiles = counts.shape[0]
+    tile_of = torch.repeat_interleave(
+        torch.arange(n_tiles, device=dev), counts)   # walk order
+    n_walk = tile_of.shape[0]
+    first = torch.cumsum(counts, 0) - counts
+    order = torch.arange(n_walk, device=dev)
+    row_of = seg_starts.long()[tile_of] + (order - first[tile_of])
+    ly = torch.arange(tile_h, device=dev).repeat_interleave(tile_w)
+    lx = torch.arange(tile_w, device=dev).repeat(tile_h)
+    step = max(1, chunk_evals // (tile_h * tile_w))
+
+    def tests(lo, hi):
+        t = tile_of[lo:hi, None]
+        gx = (t % tiles_x) * tile_w + lx
+        gy = (t // tiles_x) * tile_h + ly
+        pix = gy * wp + gx
+        px = gx.float() + 0.5
+        py = gy.float() + 0.5
+        r = rows[row_of[lo:hi]]
+
+        def row_plane(ka, kb, kc):
+            return plane(r[:, ka:ka + 1], r[:, kb:kb + 1], r[:, kc:kc + 1],
+                         px, py)
+
+        d = row_plane(9, 10, 11)
+        cover = ((row_plane(0, 3, 6) >= 0.0) & (row_plane(1, 4, 7) >= 0.0)
+                 & (row_plane(2, 5, 8) >= 0.0) & (d >= 0.0) & (d <= 1.0)
+                 & (d > peel[pix]))
+        return pix, d, cover
+
+    zbuf = torch.ones(hp * wp, dtype=torch.float32, device=dev)
+    for lo in range(0, n_walk, step):
+        pix, d, cover = tests(lo, lo + step)
+        zbuf.scatter_reduce_(0, pix[cover], d[cover], reduce="amin")
+    win = torch.full((hp * wp,), -1, dtype=torch.long, device=dev)
+    for lo in range(0, n_walk, step):
+        pix, d, cover = tests(lo, lo + step)
+        hit = cover & (d == zbuf[pix])
+        walk = order[lo:lo + step, None].expand_as(pix)
+        win.scatter_reduce_(0, pix[hit], walk[hit], reduce="amax")
+
+    has = win >= 0
+    wrow = rows[row_of[win.clamp(min=0)] if n_walk else torch.zeros_like(win)]
+    background = torch.tensor(_BACKGROUND, dtype=torch.float32, device=dev)
+    coef = torch.where(has[:, None], wrow[:, RESOLVE_BASE:_MATERIAL + 1],
+                       background)
+    tid = torch.where(has, wrow[:, _TRI_ID], -1.0).to(torch.int32)
+    gy, gx = torch.meshgrid(torch.arange(hp, device=dev),
+                            torch.arange(wp, device=dev), indexing="ij")
+    px = gx.reshape(-1).float() + 0.5
+    py = gy.reshape(-1).float() + 0.5
+    denom = plane(coef[:, 0], coef[:, 1], coef[:, 2], px, py)
+    inv = 1.0 / torch.where(denom.abs() < 1e-20, 1e-20, denom)
+    chans = [plane(coef[:, 3 + 3 * ch], coef[:, 4 + 3 * ch],
+                   coef[:, 5 + 3 * ch], px, py) * inv
+             for ch in range(N_CHANNELS)]
+    attrs = torch.stack(chans + [coef[:, -1]]).reshape(N_CHANNELS + 1, hp, wp)
+    return zbuf.reshape(hp, wp), tid.reshape(hp, wp), attrs

@@ -1,0 +1,106 @@
+"""Raster pipeline (static-scene SoA path): pre-gathered corners in,
+visibility + resolved attributes out.
+
+Ties together near clip -> setup -> binning -> pair rows -> the merged
+raster + resolve kernel (K1). The analog of the reference's per-frame
+G-buffer draw (scene_renderer.cpp:140-215); vkr_tpu/raster/pipeline.py
+:46 with corners_t given and the Pallas merged path.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from vkr_tpu_torch.raster import gbuf_kernel as _gk
+from vkr_tpu_torch.raster import pair_rows as _rows
+from vkr_tpu_torch.raster import setup as _setup
+
+
+class RasterPrepared(NamedTuple):
+    """Everything K1 needs, independent of peel_depth."""
+
+    pair_rows: torch.Tensor   # (CAP, 64) f32
+    seg_starts: torch.Tensor  # (n_tiles,) int32
+    seg_counts: torch.Tensor  # (n_tiles,) int32
+
+
+class VisibilityBuffer(NamedTuple):
+    depth: torch.Tensor      # (H, W) f32 hardware depth, 1.0 = background
+    tri_id: torch.Tensor     # (H, W) int32 clipped-triangle id, -1 = none
+    overflow: torch.Tensor   # () int32 dropped bin pairs (0 = healthy)
+    # (N_CHANNELS + 1, H, W) = [uv(2), normal(3), prev_clip(4), mat_id]
+    resolved: torch.Tensor
+    # front-end products kept for a kernel rerun (the depth-peel layer);
+    # None unless keep_prepared=True
+    prepared: Optional[RasterPrepared] = None
+
+
+PAIR_FACTOR = 1.5  # bin pairs per source triangle (vkr_tpu pipeline.py:55)
+
+
+def rasterize(
+    corners_t,
+    corner_attrs_t,
+    tri_mat,
+    *,
+    width: int,
+    height: int,
+    tile_h: int = 8,
+    tile_w: int = 128,
+    jitter=None,
+    peel_depth=None,
+    keep_prepared: bool = False,
+    prepared: Optional[VisibilityBuffer] = None,
+) -> VisibilityBuffer:
+    """Rasterize T triangles given as pre-gathered corners.
+
+    corners_t (4, 3T): clip positions, component-major, corner-major
+    columns [c*T, (c+1)*T); corner_attrs_t (9, 3T): per-corner attributes
+    (uv 2, world normal 3, previous clip 4) in the same layout;
+    tri_mat (T,) int32 material ids.
+    jitter: optional (2,) NDC offset applied to coverage only (TAA).
+    Bin pairs beyond max(PAIR_FACTOR * T, 4 * n_tiles, 4096) are dropped
+    and counted in overflow.
+    peel_depth: optional (H, W) f32 — only fragments strictly BEHIND it
+    survive (depth peeling).
+    keep_prepared: keep the pair rows + segment table on the result.
+    prepared: a prior VisibilityBuffer of the SAME geometry and camera,
+    built with keep_prepared=True — skip the front end and rerun only K1
+    (the peel pass differs from the first masked pass only in peel_depth).
+    """
+    kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w)
+    if prepared is not None:
+        if prepared.prepared is None:
+            raise ValueError("prepared= rerun requires a VisibilityBuffer "
+                             "built with keep_prepared=True")
+        prep = prepared.prepared
+        overflow = torch.zeros((), dtype=torch.int32,
+                               device=prep.pair_rows.device)
+    else:
+        n_src = corners_t.shape[1] // 3
+        tri2, weights_t, valid = _setup.clip_near_corners_t(corners_t, n_src)
+        corners_c = _setup.corners_from_weights_t(tri2, weights_t)
+        setup_t = _setup.triangle_setup_t(corners_c, valid, width, height,
+                                          jitter)
+        # headroom for small scenes whose few triangles span many tiles
+        n_tiles = (-(-width // tile_w)) * (-(-height // tile_h))
+        capacity = max(int(n_src * PAIR_FACTOR), 4 * n_tiles, 4096)
+        pair_tri, seg_starts, seg_counts, overflow = _setup.bin_triangles_t(
+            setup_t.bbox, setup_t.valid, width, height, tile_h, tile_w,
+            capacity)
+        # clipped triangle i and i + T both come from source triangle i
+        mat2 = torch.cat([tri_mat, tri_mat])
+        cattrs_t = _rows.corner_attributes_pre_t(corner_attrs_t, weights_t,
+                                                 n_src)
+        tri_rows = _rows.build_tri_rows_t(setup_t, cattrs_t, mat2)
+        prep = RasterPrepared(_rows.expand_pair_rows(tri_rows, pair_tri),
+                              seg_starts, seg_counts)
+    zbuf, tid, attrs = _gk.gbuf_tiles(prep.pair_rows, prep.seg_starts,
+                                      prep.seg_counts, peel_depth, **kw)
+    return VisibilityBuffer(
+        depth=zbuf[:height, :width], tri_id=tid[:height, :width],
+        overflow=overflow, resolved=attrs[:, :height, :width],
+        prepared=prep if keep_prepared else None,
+    )

@@ -1,0 +1,248 @@
+"""Procedural benchmark scene: the colonnade hall.
+
+The same scene as vkr_tpu.scene.procedural (array-for-array, same seed):
+a Sponza-like hall of comparable workload — configurable up to Sponza
+scale (colonnade_scene(columns=24, tessellation=80, tex_size=1024) has
+314,988 triangles, 96 of them alpha-MASK foliage) — so the port renders
+the raster/shading load the reference benches on.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from vkr_tpu_torch.scene.gltf import DrawCall, GltfScene, Material, Primitive
+from vkr_tpu_torch.scene.scene import CompiledScene, compile_scene
+
+
+def _uv_sphere(rings: int, sectors: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    phi = np.linspace(0, np.pi, rings + 1)
+    theta = np.linspace(0, 2 * np.pi, sectors + 1)
+    pp, tt = np.meshgrid(phi, theta, indexing="ij")
+    x = np.sin(pp) * np.cos(tt)
+    y = np.cos(pp)
+    z = np.sin(pp) * np.sin(tt)
+    pos = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    nrm = pos.copy()
+    uv = np.stack([tt / (2 * np.pi), pp / np.pi], -1).reshape(-1, 2).astype(np.float32)
+    idx = []
+    cols = sectors + 1
+    for r in range(rings):
+        for s in range(sectors):
+            a = r * cols + s
+            idx += [[a, a + 1, a + cols], [a + 1, a + cols + 1, a + cols]]
+    return pos, nrm, uv, np.asarray(idx, np.uint32).reshape(-1)
+
+
+def _cylinder(sectors: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    theta = np.linspace(0, 2 * np.pi, sectors + 1)
+    ring = np.stack([np.cos(theta), np.zeros_like(theta), np.sin(theta)], -1)
+    bottom = ring.copy()
+    top = ring.copy()
+    top[:, 1] = 1.0
+    pos = np.concatenate([bottom, top]).astype(np.float32)
+    nrm = np.concatenate([ring, ring]).astype(np.float32)
+    nrm[:, 1] = 0
+    u = theta / (2 * np.pi)
+    uv = np.concatenate(
+        [np.stack([u, np.zeros_like(u)], -1), np.stack([u, np.ones_like(u)], -1)]
+    ).astype(np.float32)
+    n = sectors + 1
+    idx = []
+    for s in range(sectors):
+        idx += [[s, s + 1, s + n], [s + 1, s + n + 1, s + n]]
+    return pos, nrm, uv, np.asarray(idx, np.uint32).reshape(-1)
+
+
+def _quad() -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    pos = np.array(
+        [[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32
+    )
+    nrm = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint32)
+    return pos, nrm, uv, idx
+
+
+def _noise_texture(rng, size: int, base_color, kind: str) -> np.ndarray:
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    if kind == "checker":
+        pat = ((xx // (size // 8) + yy // (size // 8)) % 2).astype(np.float32)
+        pat = 0.6 + 0.4 * pat
+    elif kind == "stripes":
+        pat = 0.7 + 0.3 * np.sin(xx * 2 * np.pi * 6 / size) ** 2
+    else:
+        pat = 0.5 + 0.5 * rng.random((size, size)).astype(np.float32)
+        # cheap blur for low-frequency noise
+        for _ in range(2):
+            pat = 0.25 * (
+                np.roll(pat, 1, 0) + np.roll(pat, -1, 0)
+                + np.roll(pat, 1, 1) + np.roll(pat, -1, 1)
+            )
+        pat = 0.5 + (pat - pat.mean()) * 2.0
+    rgb = np.clip(
+        pat[..., None] * np.asarray(base_color, np.float32)[None, None], 0, 1
+    )
+    out = np.zeros((size, size, 4), np.uint8)
+    out[..., :3] = (rgb * 255).astype(np.uint8)
+    out[..., 3] = 255
+    return out
+
+
+def _leaf_texture(size: int) -> np.ndarray:
+    """Alpha-MASK foliage analog: opaque blob with zero-alpha surround."""
+    yy, xx = np.meshgrid(
+        np.linspace(-1, 1, size), np.linspace(-1, 1, size), indexing="ij"
+    )
+    r = np.sqrt(xx**2 + yy**2)
+    inside = (r + 0.25 * np.sin(np.arctan2(yy, xx) * 5) < 0.8)
+    out = np.zeros((size, size, 4), np.uint8)
+    out[..., 1] = np.where(inside, 140, 0)
+    out[..., 0] = np.where(inside, 60, 0)
+    out[..., 2] = np.where(inside, 40, 0)
+    out[..., 3] = np.where(inside, 255, 0)
+    return out
+
+
+def build_colonnade(
+    columns: int = 6,
+    tessellation: int = 24,
+    tex_size: int = 256,
+) -> GltfScene:
+    """A Sponza-like colonnade hall: stone floor, two rows of columns,
+    sphere 'capitals', MASK-alpha foliage planes."""
+    rng = np.random.default_rng(0)
+
+    geoms = []  # (pos, nrm, uv, idx, material, transform)
+    quad = _quad()
+    cyl = _cylinder(tessellation)
+    sph = _uv_sphere(tessellation // 2, tessellation)
+
+    def place(geom, material, scale, offset, uv_scale=1.0):
+        pos, nrm, uv, idx = geom
+        m = np.eye(4, dtype=np.float32)
+        m[0, 0], m[1, 1], m[2, 2] = scale
+        m[:3, 3] = offset
+        geoms.append((pos, nrm, uv * uv_scale, idx, material, m))
+
+    hall_l = max(8.0, columns * 2.5)
+    place(quad, 0, (hall_l, 1, 6), (0, 0, 0), uv_scale=8.0)        # floor
+    place(quad, 1, (hall_l, 1, 6), (0, 6, 0), uv_scale=8.0)        # ceiling
+    # walls (rotated quads as thin boxes via two quads)
+    wall = _quad()
+    for zs in (-6.0, 6.0):
+        m = np.eye(4, dtype=np.float32)
+        geoms.append(
+            (
+                np.array([[-hall_l, 0, zs], [hall_l, 0, zs],
+                          [hall_l, 6, zs], [-hall_l, 6, zs]], np.float32),
+                np.tile(np.array([[0, 0, -np.sign(zs)]], np.float32), (4, 1)),
+                np.array([[0, 0], [8, 0], [8, 3], [0, 3]], np.float32),
+                np.array([0, 1, 2, 0, 2, 3], np.uint32),
+                2,
+                m,
+            )
+        )
+    # end caps: the reference benches a fully-enclosed Sponza hall
+    # (main.cpp:217-218) — open ends leak background and flatten
+    # raster/shading cost (bench coverage 0.58 before)
+    for xs in (-hall_l, hall_l):
+        m = np.eye(4, dtype=np.float32)
+        geoms.append(
+            (
+                np.array([[xs, 0, -6], [xs, 0, 6],
+                          [xs, 6, 6], [xs, 6, -6]], np.float32),
+                np.tile(np.array([[-np.sign(xs), 0, 0]], np.float32),
+                        (4, 1)),
+                np.array([[0, 0], [4, 0], [4, 2], [0, 2]], np.float32),
+                np.array([0, 1, 2, 0, 2, 3], np.uint32),
+                2,
+                m,
+            )
+        )
+
+    for i in range(columns):
+        x = -hall_l * 0.8 + i * (1.6 * hall_l / max(columns - 1, 1))
+        for z in (-3.5, 3.5):
+            place(cyl, 3, (0.4, 5.0, 0.4), (x, 0, z), uv_scale=2.0)
+            place(sph, 4, (0.6, 0.45, 0.6), (x, 5.2, z))
+
+    for i in range(columns * 2):
+        x = rng.uniform(-hall_l * 0.8, hall_l * 0.8)
+        z = rng.uniform(-5, 5)
+        geoms.append(
+            (
+                np.array([[-0.8, 0, 0], [0.8, 0, 0],
+                          [0.8, 1.6, 0], [-0.8, 1.6, 0]], np.float32),
+                np.tile(np.array([[0, 0, 1]], np.float32), (4, 1)),
+                np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
+                np.array([0, 1, 2, 0, 2, 3], np.uint32),
+                5,
+                np.array(
+                    [[np.cos(i), 0, -np.sin(i), x],
+                     [0, 1, 0, rng.uniform(1.0, 4.0)],
+                     [np.sin(i), 0, np.cos(i), z],
+                     [0, 0, 0, 1]], np.float32,
+                ),
+            )
+        )
+
+    # Assemble a GltfScene with one mesh per geom and one draw call each.
+    positions, normals, uvs, indices = [], [], [], []
+    meshes, draw_calls = [], []
+    v_off = i_off = 0
+    for mesh_id, (pos, nrm, uv, idx, material, m) in enumerate(geoms):
+        positions.append(pos)
+        normals.append(nrm)
+        uvs.append(uv)
+        indices.append(idx.astype(np.uint32))
+        meshes.append(
+            [Primitive(vertex_offset=v_off, index_offset=i_off,
+                       index_count=len(idx), material=material)]
+        )
+        draw_calls.append(DrawCall(mesh=mesh_id, transform=m))
+        v_off += len(pos)
+        i_off += len(idx)
+
+    materials = [
+        Material(albedo_tex=0, mr_tex=6),
+        Material(albedo_tex=1, mr_tex=6),
+        Material(albedo_tex=2, mr_tex=6),
+        Material(albedo_tex=3, mr_tex=7),
+        Material(albedo_tex=4, mr_tex=7),
+        Material(albedo_tex=5, mr_tex=6, clip_alpha=True),
+    ]
+    images = [
+        _noise_texture(rng, tex_size, (0.75, 0.72, 0.68), "checker"),
+        _noise_texture(rng, tex_size, (0.7, 0.68, 0.66), "noise"),
+        _noise_texture(rng, tex_size, (0.72, 0.65, 0.55), "noise"),
+        _noise_texture(rng, tex_size, (0.78, 0.75, 0.7), "stripes"),
+        _noise_texture(rng, tex_size, (0.8, 0.78, 0.72), "noise"),
+        _leaf_texture(tex_size),
+        _noise_texture(rng, tex_size, (0.2, 0.55, 0.1), "noise"),   # MR: rough
+        _noise_texture(rng, tex_size, (0.2, 0.25, 0.8), "noise"),   # MR: metal
+    ]
+    return GltfScene(
+        positions=np.concatenate(positions).astype(np.float32),
+        normals=np.concatenate(normals).astype(np.float32),
+        uvs=np.concatenate(uvs).astype(np.float32),
+        indices=np.concatenate(indices),
+        meshes=meshes,
+        materials=materials,
+        images=images,
+        texture_image=list(range(len(images))),
+        texture_wrap=[0] * len(images),
+        draw_calls=draw_calls,
+        nodes=[],
+    )
+
+
+def colonnade_scene(
+    columns: int = 6, tessellation: int = 24, tex_size: int = 256,
+) -> CompiledScene:
+    return compile_scene(
+        build_colonnade(columns, tessellation, tex_size),
+        tex_size=tex_size,
+    )
