@@ -6,23 +6,32 @@
 1. Needs a CUDA card (exits 1 without one) and prints nvidia-smi's name and
    power limit of the card.
 2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
-   vkr_tpu_torch/build/) and prints the build seconds.
-3. Frame phase: renders 8 frames of the bench orbit at 1920x1080 on the
+   vkr_tpu_torch/build/, one nvcc per source, all in parallel) and prints
+   the build seconds.
+3. Main phase: renders 8 frames of the bench orbit at 1920x1080 on the
    procedural colonnade (columns=24, tessellation=80, tex_size=1024:
-   314,988 triangles, 96 alpha-MASK) with the default RenderConfig and SSR
-   off. Launch counters are cleared just before and read just after; every
-   kernel must have launched (per frame at least K1 x3, K4 x1, K5 x2,
-   K6 x1). Fails unless each frame covers >= 98% of the pixels, drops no
-   bin pair and is finite. Prints the median frame time (synchronised host
-   clock, the first two frames excluded as warm-up).
-4. Kernel phase: every kernel call of frame 1, captured with its inputs, is
-   run again through the kernel and through its plain PyTorch version on
-   the card; each pair must agree within the stated tolerance. Prints both
-   times (CUDA events).
-5. Renders the same 8 frames with the plain versions substituted for the
-   kernels, and requires >= 40 dB PSNR on every G-buffer channel, the AO
-   and the final colour of every frame.
-6. Prints one JSON line {"kernels": [...]} and, last, the line
+   314,988 triangles, 96 alpha-MASK) with the default RenderConfig (SSR on,
+   MIS GTAO). Launch counters are cleared just before and read just after;
+   every kernel of the path must have launched (per frame at least K1 x3,
+   the march x1, K4 x1, K5 x3, K6 x1). Fails unless each frame covers >= 98%
+   of the pixels, drops no bin pair and is finite on every channel, SSR
+   included. Prints the median frame time (synchronised host clock, the
+   first two frames excluded as warm-up).
+4. SSR-off phase: 3 frames of the same orbit with enable_ssr=False (the
+   single-strategy GTAO pass), with its own counters and checks.
+5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
+   shading's LIGHT_POS through K7; counters cleared before, read after.
+   Fails unless it launched K7, covers >= 50% of the texels and is finite.
+6. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+   captured with its inputs, is run again through the kernel and through
+   its plain PyTorch version on the card; each pair must agree within the
+   stated tolerance. Prints both times (CUDA events), the time of one
+   PyTorch library call computing the same function where there is one,
+   and the roofline bound from this run's inputs.
+7. Renders the main phase's 8 frames with the plain versions substituted
+   for the kernels, and requires >= 40 dB PSNR on every G-buffer channel,
+   the SSR, the AO and the final colour of every frame.
+8. Prints one JSON line {"kernels": [...]} and, last, the line
    {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed.
@@ -31,6 +40,7 @@ Any failed check exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -40,29 +50,51 @@ import time
 
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
+SSR_OFF_FRAMES = 3
 WARMUP_FRAMES = 2
 CAPTURE_FRAME = 1
 SCENE = dict(columns=24, tessellation=80, tex_size=1024)
 SCENE_TRIANGLES, SCENE_MASKED = 314_988, 96
+SHADOW_SIZE = 1024
 MIN_COVERAGE = 0.98
+MIN_SHADOW_COVERAGE = 0.5
 MIN_PSNR_DB = 40.0
-FRAME_CHANNELS = ("albedo", "normal", "material", "velocity", "depth", "ao",
-                  "color")
+FRAME_CHANNELS = ("albedo", "normal", "material", "velocity", "depth", "ssr",
+                  "ao", "color")
 SLEEP_CYCLES_PER_S = 2e9  # about the H100's SM clock (1.98 GHz boost)
-MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "window_gather_bilinear_multi": 1,
-                          "window_gather_bilinear": 2,
+MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
+                          "window_gather_bilinear_multi": 1,
+                          "window_gather_bilinear": 3,
                           "taa_history_gather": 1}
+SSR_OFF_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3,
+                                  "window_gather_bilinear_multi": 1,
+                                  "window_gather_bilinear": 2,
+                                  "taa_history_gather": 1}
+# The H100 SXM's published peaks at 700 W:
+# HBM bytes/s and float32 FLOP/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# float32 operations of one march iteration (csrc/ssr_march.cu): level
+# scale 2, fetch position 2, the two xy plane crossings 10, the z crossing
+# 2, the minima 2, the new position 6, linearize_depth 4, the horizon
+# vector 12, its length 6, the cosine 8, the running max 1
+MARCH_FLOPS_PER_ITERATION = 55
+PLANE_FLOPS = 4  # fma(a, px, b*py) + c
 
-# name -> (source, the TPU kernel it replaces)
+# name -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
     "gbuf_tiles": ("vkr_tpu_torch/csrc/gbuf_tiles.cu",
                    "vkr_tpu/raster/gbuf_kernel.py:41"),
+    "hierarchical_march": ("vkr_tpu_torch/csrc/ssr_march.cu",
+                           "vkr_tpu/passes/ssr_march.py:149 and :368"),
     "window_gather_bilinear_multi": ("vkr_tpu_torch/csrc/window_gather.cu",
                                      "vkr_tpu/raster/gather_kernel.py:192"),
     "window_gather_bilinear": ("vkr_tpu_torch/csrc/window_gather.cu",
                                "vkr_tpu/raster/gather_kernel.py:56"),
     "taa_history_gather": ("vkr_tpu_torch/csrc/window_gather.cu",
                            "vkr_tpu/raster/gather_kernel.py:333"),
+    "rasterize_tiles": ("vkr_tpu_torch/csrc/gbuf_tiles.cu",
+                        "vkr_tpu/raster/kernel.py:67"),
 }
 
 
@@ -77,16 +109,20 @@ def check(ok: bool, what: str) -> None:
 
 def plain_versions():
     """kernel wrapper name -> (module, its plain PyTorch version)."""
-    from vkr_tpu_torch.raster import gather_kernel, gbuf_kernel
+    from vkr_tpu_torch.passes import ssr_march
+    from vkr_tpu_torch.raster import gather_kernel, gbuf_kernel, kernel
 
     return {
         "gbuf_tiles": (gbuf_kernel, gbuf_kernel.gbuf_tiles_reference),
+        "hierarchical_march": (ssr_march,
+                               ssr_march.hierarchical_march_reference),
         "window_gather_bilinear_multi": (
             gather_kernel, gather_kernel.window_gather_multi_reference),
         "window_gather_bilinear": (gather_kernel,
                                    gather_kernel.window_gather_reference),
         "taa_history_gather": (gather_kernel,
                                gather_kernel.taa_history_gather_reference),
+        "rasterize_tiles": (kernel, kernel.rasterize_tiles_reference),
     }
 
 
@@ -123,9 +159,9 @@ def recording(log):
     return make
 
 
-def render(scene, res, cfg, device, on_frame=None):
+def render(scene, res, cfg, device, n_frames, on_frame=None):
     """The bench loop (bench.py): frame i sees orbit view i after view i-1.
-    Returns per-frame outputs, per-frame seconds and per-frame overflow."""
+    Returns per-frame outputs and per-frame seconds."""
     import torch
 
     from vkr_tpu_torch.core.framestate import FrameState
@@ -134,23 +170,50 @@ def render(scene, res, cfg, device, on_frame=None):
 
     state = FrameState.initial(HEIGHT, WIDTH, device)
     outs, secs = [], []
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         cam = camera_frame(cfg, bench_orbit_view(i),
                            bench_orbit_view(max(i - 1, 0)), i, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if on_frame is not None:
-            with on_frame(i):
-                color, state, aux = render_frame(scene, state, cam, res, cfg)
-        else:
+        with (on_frame(i) if on_frame is not None
+              else contextlib.nullcontext()):
             color, state, aux = render_frame(scene, state, cam, res, cfg)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         g = aux["gbuffer"]
         out = {k: getattr(g, k) for k in FRAME_CHANNELS[:5]}
-        out.update(ao=aux["ao"], color=color, overflow=int(aux["overflow"]))
+        out.update(ssr=aux["ssr"], ao=aux["ao"], color=color,
+                   overflow=int(aux["overflow"]))
         outs.append(out)
     return outs, secs
+
+
+def check_frames(outs, launches, n_frames, min_per_frame, label):
+    import torch
+
+    for i, o in enumerate(outs):
+        cov = float((o["depth"] < 1.0).float().mean())
+        check(cov >= MIN_COVERAGE, f"{label} frame {i}: coverage {cov:.4f}")
+        check(o["overflow"] == 0, f"{label} frame {i}: {o['overflow']} bin "
+              "pairs dropped")
+        for k in FRAME_CHANNELS:
+            check(bool(torch.isfinite(o[k]).all()), f"{label} frame {i}: "
+                  f"{k} is not finite")
+        check(tuple(o["color"].shape) == (HEIGHT, WIDTH, 3),
+              f"{label} frame {i}: colour shape {tuple(o['color'].shape)}")
+    for name, per_frame in min_per_frame.items():
+        check(launches.get(name, 0) >= per_frame * n_frames,
+              f"{label}: {name} launched {launches.get(name, 0)} times in "
+              f"{n_frames} frames")
+
+
+def print_medians(label, secs):
+    median_ms = statistics.median(s * 1e3 for s in secs[WARMUP_FRAMES:])
+    print(f"{label} frame ms: median {median_ms:.3f} over frames "
+          f"{WARMUP_FRAMES}..{len(secs) - 1} "
+          f"{[round(s * 1e3, 3) for s in secs[WARMUP_FRAMES:]]}; warm-up "
+          f"{[round(s * 1e3, 3) for s in secs[:WARMUP_FRAMES]]}")
+    return median_ms
 
 
 def psnr(a, b) -> float:
@@ -186,15 +249,18 @@ def time_ms(fn, args, kw, budget_s=0.5):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, want):
-    """(max abs error, within tolerance) of a kernel's outputs against its
-    plain version's.
+def compare(name, got, want, args):
+    """(max abs error, within tolerance, note) of a kernel's outputs against
+    its plain version's.
 
     K1: depth and triangle id equal (the same fma-form plane evaluation
     and the same d <= z walk), attributes within 1e-6 + 1e-6 |x| (a
     float64-emulated fma may round differently from fmaf on a float32
-    tie). K4/K5/K6: the same clamp/floor/lerp sequence in float32 without
-    contraction, atol 1e-6."""
+    tie). K7: depth and triangle id equal. K4/K5/K6: the same
+    clamp/floor/lerp sequence in float32 without contraction, atol 1e-6.
+    The march: the same operations in the same order, so bit-equal
+    rays are expected; required are validity agreement >= 0.9999 and
+    |position| and |hor| within 1e-5 over rays valid in both."""
     import torch
 
     if name == "gbuf_tiles":
@@ -204,9 +270,26 @@ def compare(name, got, want):
         ok = (torch.equal(z, z0) and torch.equal(tid, tid0)
               and bool(((attrs - attrs0).abs()
                         <= 1e-6 + 1e-6 * attrs0.abs()).all()))
-        return err, ok
+        return err, ok, ""
+    if name == "rasterize_tiles":
+        (z, tid), (z0, tid0) = got, want
+        return (float((z - z0).abs().max()),
+                torch.equal(z, z0) and torch.equal(tid, tid0), "")
+    if name == "hierarchical_march":
+        (pos, hor, it), (pos0, hor0, it0) = got, want[:3]
+        max_it = args[6]
+        valid, valid0 = it <= max_it, it0 <= max_it
+        both = valid & valid0
+        agree = float((valid == valid0).float().mean())
+        err = max(float((pos - pos0).abs().amax(-1)[both].max()),
+                  float((hor - hor0).abs()[both].max()))
+        bit_equal = float((torch.eq(pos, pos0).all(-1) & torch.eq(hor, hor0)
+                           & torch.eq(it, it0)).float().mean())
+        return (err, agree >= 0.9999 and err <= 1e-5,
+                f"validity agreement {agree:.6f}, bit-equal rays "
+                f"{bit_equal:.6f}")
     err = float((got - want).abs().max())
-    return err, err <= 1e-6
+    return err, err <= 1e-6, ""
 
 
 def shape_of(name, args, kw):
@@ -214,7 +297,96 @@ def shape_of(name, args, kw):
         return (f"{kw['tile_h']}x{kw['tile_w']} tiles, "
                 f"{int(args[2].sum())} pairs"
                 + (", peel" if args[3] is not None else ""))
+    if name == "rasterize_tiles":
+        return (f"{kw['width']}x{kw['height']}, {int(args[2].sum())} pairs")
+    if name == "hierarchical_march":
+        return (f"{tuple(args[1].shape[:-1])} rays, "
+                f"{len(args[0].offsets)} levels, max {args[6]} iterations")
     return " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
+
+
+def work_of(name, args, kw, plain):
+    """(bytes, float32 operations) the call needs on this run's inputs:
+    each input read once, each output written once; data-dependent work
+    as this run's data needs it."""
+    import torch
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if isinstance(t, torch.Tensor))
+
+    if name in ("gbuf_tiles", "rasterize_tiles"):
+        rows, starts, counts = args[:3]
+        tile_px = kw["tile_h"] * kw["tile_w"]
+        tiles_x = -(-kw["width"] // kw["tile_w"])
+        tiles_y = -(-kw["height"] // kw["tile_h"])
+        px = tiles_x * tiles_y * tile_px
+        n_pairs = int(counts.sum())
+        if name == "gbuf_tiles":
+            peel = args[3] if len(args) > 3 else None
+            out_bytes = px * 4 * (2 + 10)
+            in_bytes = n_pairs * 64 * 4 + nbytes(peel)
+            # 4 planes per pair-pixel, then 10 resolve planes per pixel
+            ops = (n_pairs * tile_px * 4 + px * 10) * PLANE_FLOPS
+        else:
+            out_bytes = px * 4 * 2
+            in_bytes = n_pairs * 13 * 4  # raster fields and the id
+            ops = n_pairs * tile_px * 4 * PLANE_FLOPS
+        return in_bytes + nbytes(starts, counts) + out_bytes, ops
+    if name == "hierarchical_march":
+        pyr, rays = args[0], args[1:5]
+        steps = plain[3]
+        n_rays = rays[0].numel() // 3
+        return (nbytes(pyr.flat, *rays) + n_rays * 5 * 4,
+                int(steps.sum()) * MARCH_FLOPS_PER_ITERATION)
+    # window gathers: about 10 float32 operations per bilinear tap
+    out = plain
+    taps = out.numel() // (out.shape[-1] if name == "window_gather_bilinear"
+                           and out.ndim == 3 else 1)
+    return nbytes(*args) + nbytes(out), taps * 10
+
+
+def library_call(name, args, kw):
+    """One PyTorch call computing the same function on the same inputs,
+    where there is one: F.grid_sample (bilinear, border padding, pixel
+    centres) for K4 and K5. The sample positions are built outside the
+    call. None for K1, K6, K7 and the march: no single PyTorch call walks
+    binned triangles or marches a hi-Z pyramid, and K6's six taps with
+    their texel offsets are six calls."""
+    import torch
+    import torch.nn.functional as F
+
+    if name not in ("window_gather_bilinear", "window_gather_bilinear_multi"):
+        return None
+    img, off_y, off_x = args[:3]
+    h, w = img.shape[:2]
+    ys = torch.arange(h, device=img.device, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=img.device, dtype=torch.float32)
+    gx = (xs + off_x + 0.5) / w * 2.0 - 1.0
+    gy = (ys + off_y + 0.5) / h * 2.0 - 1.0
+    grid = torch.stack([gx, gy], -1).reshape(1, -1, w, 2)
+    src = (img.permute(2, 0, 1) if img.ndim == 3 else img[None])[None]
+    src = src.contiguous()
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+    return call
+
+
+def light_view_proj():
+    """A light at shading's LIGHT_POS looking straight down over the hall
+    (90 degrees, near 0.5, far 40), float32."""
+    import numpy as np
+
+    from vkr_tpu_torch.mathlib.transforms import look_at, perspective
+    from vkr_tpu_torch.passes.shading import LIGHT_POS
+
+    eye = np.asarray(LIGHT_POS, np.float32)
+    view = look_at(eye, eye - np.asarray([0.0, 1.0, 0.0], np.float32),
+                   (0.0, 0.0, 1.0))
+    return (perspective(np.radians(90.0), 1.0, 0.5, 40.0) @ view).astype(
+        np.float32)
 
 
 def main() -> int:
@@ -238,6 +410,7 @@ def main() -> int:
     from vkr_tpu_torch.config import RenderConfig
     from vkr_tpu_torch.frame import build_ssr_resources
     from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.passes.shadows import render_shadow_map
     from vkr_tpu_torch.scene.procedural import colonnade_scene
 
     build_s = kernels.build()
@@ -248,18 +421,22 @@ def main() -> int:
     t0 = time.perf_counter()
     scene_np = colonnade_scene(**SCENE)
     scene = upload_scene(scene_np, device)
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, enable_ssr=False)
-    res = build_ssr_resources(cfg.ssr.lut_size, device=device)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    check(cfg.enable_ssr and cfg.gtao.mis, "the main phase renders the "
+          "default RenderConfig (SSR on, MIS GTAO)")
+    res = build_ssr_resources(cfg.ssr.lut_size)
+    check(res.pdf_lut.is_cuda and res.brdf_lut.is_cuda,
+          "build_ssr_resources() did not put its LUTs on the card")
     torch.cuda.synchronize()
     n_tri = len(scene.tri_opaque_mat) + len(scene.tri_masked_mat)
     print(f"scene: {n_tri} triangles ({len(scene.tri_masked_mat)} "
-          f"alpha-MASK), BRDF LUT {cfg.ssr.lut_size}^2, "
+          f"alpha-MASK), PDF and BRDF LUTs {cfg.ssr.lut_size}^2, "
           f"{time.perf_counter() - t0:.1f} s")
     check(n_tri == SCENE_TRIANGLES and
           len(scene.tri_masked_mat) == SCENE_MASKED,
           f"scene has {n_tri} triangles, expected {SCENE_TRIANGLES}")
 
-    # ---- frame phase: the main path, through the kernels ----
+    # ---- main phase: the default frame, through the kernels ----
     captured = []
 
     def capture(i):
@@ -267,61 +444,98 @@ def main() -> int:
                 else contextlib.nullcontext())
 
     kernels.LAUNCHES.clear()
-    outs, secs = render(scene, res, cfg, device, on_frame=capture)
+    outs, secs = render(scene, res, cfg, device, N_FRAMES, on_frame=capture)
     launches = dict(kernels.LAUNCHES)
-    for i, o in enumerate(outs):
-        cov = float((o["depth"] < 1.0).float().mean())
-        check(cov >= MIN_COVERAGE, f"frame {i}: coverage {cov:.4f}")
-        check(o["overflow"] == 0, f"frame {i}: {o['overflow']} bin pairs "
-              "dropped")
-        for k in FRAME_CHANNELS:
-            check(bool(torch.isfinite(o[k]).all()), f"frame {i}: {k} is "
-                  "not finite")
-        check(tuple(o["color"].shape) == (HEIGHT, WIDTH, 3),
-              f"frame {i}: colour shape {tuple(o['color'].shape)}")
-    for name, per_frame in MIN_LAUNCHES_PER_FRAME.items():
-        check(launches.get(name, 0) >= per_frame * N_FRAMES,
-              f"{name} launched {launches.get(name, 0)} times in "
-              f"{N_FRAMES} frames")
-    median_ms = statistics.median(s * 1e3 for s in secs[WARMUP_FRAMES:])
-    print(f"frames: {N_FRAMES} at {WIDTH}x{HEIGHT}, coverage "
+    check_frames(outs, launches, N_FRAMES, MIN_LAUNCHES_PER_FRAME, "main")
+    print(f"main: {N_FRAMES} frames at {WIDTH}x{HEIGHT} (SSR on, MIS "
+          f"GTAO), coverage "
           f"{min(float((o['depth'] < 1.0).float().mean()) for o in outs):.4f}"
-          f" (min), overflow 0, launches {launches}")
-    print(f"frame ms: median {median_ms:.3f} over frames "
-          f"{WARMUP_FRAMES}..{N_FRAMES - 1} "
-          f"{[round(s * 1e3, 3) for s in secs[WARMUP_FRAMES:]]}; warm-up "
-          f"{[round(s * 1e3, 3) for s in secs[:WARMUP_FRAMES]]}")
+          f" (min), overflow 0, SSR max "
+          f"{max(float(o['ssr'].max()) for o in outs):.4f}, launches "
+          f"{launches}")
+    print_medians("main", secs)
 
-    # ---- kernel phase: frame 1's kernel calls against the plain versions
+    # ---- SSR-off phase: the first slice's frame ----
+    cfg_off = dataclasses.replace(cfg, enable_ssr=False)
+    kernels.LAUNCHES.clear()
+    off_outs, off_secs = render(scene, res, cfg_off, device, SSR_OFF_FRAMES)
+    off_launches = dict(kernels.LAUNCHES)
+    check_frames(off_outs, off_launches, SSR_OFF_FRAMES,
+                 SSR_OFF_MIN_LAUNCHES_PER_FRAME, "ssr-off")
+    check("hierarchical_march" not in off_launches,
+          "ssr-off: the march launched with SSR off")
+    print(f"ssr-off: {SSR_OFF_FRAMES} frames, launches {off_launches}")
+    print_medians("ssr-off", off_secs)
+    del off_outs
+
+    # ---- shadow phase: K7 ----
+    mvp = torch.as_tensor(light_view_proj(), device=device)
+    kernels.LAUNCHES.clear()
+    with Substitute(recording(captured)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shadow = render_shadow_map(scene, mvp, size=SHADOW_SIZE)
+        torch.cuda.synchronize()
+        shadow_s = time.perf_counter() - t0
+    shadow_launches = dict(kernels.LAUNCHES)
+    check(shadow_launches.get("rasterize_tiles", 0) >= 1,
+          f"shadow: rasterize_tiles launched "
+          f"{shadow_launches.get('rasterize_tiles', 0)} times")
+    shadow_cov = float((shadow < 1.0).float().mean())
+    check(tuple(shadow.shape) == (SHADOW_SIZE, SHADOW_SIZE)
+          and bool(torch.isfinite(shadow).all())
+          and shadow_cov >= MIN_SHADOW_COVERAGE,
+          f"shadow: shape {tuple(shadow.shape)}, coverage {shadow_cov:.4f}")
+    print(f"shadow: {SHADOW_SIZE}^2 map, coverage {shadow_cov:.4f}, "
+          f"{shadow_s * 1e3:.3f} ms, launches {shadow_launches}")
+    launches["rasterize_tiles"] = shadow_launches["rasterize_tiles"]
+
+    # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
     wrappers = {name: getattr(mod, name) for name, (mod, _) in plain.items()}
     results = {}
     failures = []
     for name, args, kw in captured:
         got = wrappers[name](*args, **kw)
-        want = plain[name][1](*args, **kw)
+        pkw = dict(kw, return_steps=True) if name == "hierarchical_march" \
+            else kw
+        want = plain[name][1](*args, **pkw)
         torch.cuda.synchronize()
-        err, ok = compare(name, got, want)
+        err, ok, note = compare(name, got, want, args)
+        nbytes, ops = work_of(name, args, kw, want)
+        bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
         ms = time_ms(wrappers[name], args, kw)
         plain_ms = time_ms(plain[name][1], args, kw)
+        lib = library_call(name, args, kw)
+        library_ms = None if lib is None else time_ms(lib, (), {})
         case = {"shape": shape_of(name, args, kw), "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations")}
         results.setdefault(name, []).append(case)
+        if name == "hierarchical_march":
+            note += f", sum of iterations {int(want[3].sum())}"
         print(f"kernel {name} [{case['shape']}]: max_abs_err {err:.3g} "
-              f"({'ok' if ok else 'OUT OF TOLERANCE'}), {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"({'ok' if ok else 'OUT OF TOLERANCE'}{', ' + note if note else ''}"
+              f"), {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+              f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
         if not ok:
             failures.append(f"{name} [{case['shape']}] max_abs_err {err}")
     check(not failures, "kernel disagrees with its plain version: "
           + "; ".join(failures))
     for name in KERNELS:
-        check(name in results, f"{name} was not called in frame "
-              f"{CAPTURE_FRAME}")
+        check(name in results, f"{name} was not called in main frame "
+              f"{CAPTURE_FRAME} or the shadow phase")
+    del captured
 
     # ---- the same frames through the plain versions ----
     kernels.LAUNCHES.clear()
     with Substitute(lambda name, wrapper, p: p):
-        plain_outs, plain_secs = render(scene, res, cfg, device)
+        plain_outs, plain_secs = render(scene, res, cfg, device, N_FRAMES)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
     worst = {}
@@ -330,10 +544,7 @@ def main() -> int:
             worst[k] = min(worst.get(k, math.inf), psnr(o[k], p[k]))
     print("psnr kernels vs plain versions (dB, min over frames): "
           + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
-    plain_median_ms = statistics.median(
-        s * 1e3 for s in plain_secs[WARMUP_FRAMES:])
-    print(f"plain-version frame ms: median {plain_median_ms:.3f} over "
-          f"frames {WARMUP_FRAMES}..{N_FRAMES - 1}")
+    print_medians("plain-version", plain_secs)
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"{k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
@@ -341,13 +552,20 @@ def main() -> int:
     table = []
     for name, (source, replaces) in KERNELS.items():
         cases = results[name]
+
+        def total(key):
+            vals = [c[key] for c in cases]
+            return None if None in vals else sum(vals)
+
+        bound_by = max(cases, key=lambda c: c["bound_ms"])["bound_by"]
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            # per frame: the sum over the frame's calls of this kernel
-            "ms": sum(c["ms"] for c in cases),
-            "plain_ms": sum(c["plain_ms"] for c in cases),
+            # per frame (per shadow map for K7): the sum over its calls
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": bound_by,
+            "library_ms": total("library_ms"),
         })
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

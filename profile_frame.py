@@ -3,9 +3,10 @@
 
     python3 profile_frame.py
 
-Renders chip_smoke.py's workload (the bench orbit at 1920x1080 on the
-314,988-triangle colonnade, default RenderConfig with SSR off) three times,
-N_FRAMES frames each, the first WARMUP_FRAMES of each unmeasured:
+Renders chip_smoke.py's main workload (the bench orbit at 1920x1080 on the
+314,988-triangle colonnade, the default RenderConfig: SSR on, MIS GTAO)
+three times, N_FRAMES frames each, the first WARMUP_FRAMES of each
+unmeasured:
 
 1. plain: host wall time per frame, bracketed by torch.cuda.synchronize().
 2. per pass: a CUDA event pair and the host clock around each pass and each
@@ -33,13 +34,17 @@ from chip_smoke import HEIGHT, N_FRAMES, SCENE, WARMUP_FRAMES, WIDTH
 def timed_steps():
     """(module, attribute, label) of every function timed in phase 2."""
     from vkr_tpu_torch import frame
-    from vkr_tpu_torch.passes import downsample, gbuffer, gtao, shading, taa
+    from vkr_tpu_torch.passes import (downsample, gbuffer, gtao, shading,
+                                      ssr, ssr_march, taa)
     from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
 
     return [
         (frame, "render_gbuffer", "pass.gbuffer"),
         (downsample, "build_hiz", "pass.hiz"),
-        (gtao, "gtao_main_window", "pass.gtao_main (K4)"),
+        (ssr, "ssr_trace", "pass.ssr_trace"),
+        (ssr, "ssr_filter", "pass.ssr_filter"),
+        (ssr, "ssr_blur", "pass.ssr_blur (K5)"),
+        (gtao, "gtao_main_mis", "pass.gtao_main_mis (K4)"),
         (gtao, "gtao_filter", "pass.gtao_filter"),
         (gtao, "gtao_accumulate", "pass.gtao_accumulate (K5)"),
         (shading, "deferred_shading", "pass.shading"),
@@ -53,6 +58,7 @@ def timed_steps():
         (pair_rows, "build_tri_rows_t", "raster.build_tri_rows"),
         (pair_rows, "expand_pair_rows", "raster.expand_pair_rows"),
         (gbuf_kernel, "gbuf_tiles", "raster.gbuf_tiles (K1)"),
+        (ssr_march, "hierarchical_march", "ssr.march (K2+K3)"),
     ]
 
 
@@ -141,7 +147,7 @@ def main() -> int:
 
     kernels.build()
     scene = upload_scene(colonnade_scene(**SCENE), device)
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, enable_ssr=False)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     res = build_ssr_resources(cfg.ssr.lut_size, device=device)
     n_measured = N_FRAMES - WARMUP_FRAMES
     label = f"frames {WARMUP_FRAMES}..{N_FRAMES - 1}"

@@ -173,7 +173,7 @@ def test_port_imports_no_jax():
     assert int(done.stdout.strip()) > 20
 
 
-@pytest.mark.parametrize("option", ["enable_ssr", "enable_probes",
+@pytest.mark.parametrize("option", ["trilinear_textures", "enable_probes",
                                     "use_ray_query"])
 def test_unported_options_raise(option):
     """An option whose passes are not ported raises NotImplementedError

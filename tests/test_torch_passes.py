@@ -230,7 +230,7 @@ class TestShadingAndTAA:
         rng = np.random.default_rng(4)
         occ = rng.random(half_res[1]["depth_half"].shape).astype(np.float32)
         refl = (0.2 * rng.random(occ.shape + (3,))).astype(np.float32)
-        lut = _np(tssr.preintegrate_brdf(32, num_samples=16))
+        lut = _np(tssr.preintegrate_brdf(32, num_samples=16, device="cpu"))
         return cfg, gbuf, cams, occ, refl, lut, half_res[1]["depth_half"]
 
     @pytest.mark.parametrize("show_ao", [False, True])
@@ -298,7 +298,7 @@ def test_preintegrate_brdf_64():
     """64x64 LUT, 128 samples: float32 sums of the same terms in the same
     order; sqrt/pow may differ by an ulp per sample, so 2e-6."""
     want = np.asarray(jssr.preintegrate_brdf(64))
-    got = _np(tssr.preintegrate_brdf(64))
+    got = _np(tssr.preintegrate_brdf(64, device="cpu"))
     assert got.shape == want.shape == (64, 64, 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
 

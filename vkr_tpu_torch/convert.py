@@ -25,6 +25,17 @@ def scene_from_numpy(compiled_scene, device) -> SceneDevice:
     return upload_scene(CompiledScene(**fields), device)
 
 
+def ssr_resources_from_numpy(resources, device):
+    """vkr_tpu's SSRResources (pdf_lut, brdf_lut, halton: any arrays numpy
+    can read) -> the port's frame.SSRResources on `device`."""
+    from vkr_tpu_torch.frame import SSRResources
+
+    return SSRResources(**{
+        name: torch.as_tensor(np.array(getattr(resources, name), np.float32),
+                              device=device)
+        for name in SSRResources._fields})
+
+
 def framestate_from_numpy(state_arrays, device) -> FrameState:
     """FrameState from a mapping or object with FrameState's fields as
     arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict)."""

@@ -1,6 +1,11 @@
-// K1: merged tile raster + attribute resolve for the G-buffer.
+// K1: merged tile raster + attribute resolve for the G-buffer, and K7: the
+// same tile walk without the resolve (visibility only: depth and tri id).
 //
-// Replaces vkr_tpu/raster/gbuf_kernel.py:_gbuf_kernel (wrapper gbuf_tiles).
+// K1 replaces vkr_tpu/raster/gbuf_kernel.py:_gbuf_kernel (wrapper
+// gbuf_tiles); K7 replaces vkr_tpu/raster/kernel.py:_raster_kernel (wrapper
+// rasterize_tiles), which the shadow-map pass uses. Both are one template:
+// kWithResolve = false drops the peel floor and the attribute resolve.
+//
 // Per screen tile it walks the tile's binned pair segment in order; each
 // pair gives edge-function coverage, a depth plane and a LESS_OR_EQUAL test
 // with an optional strict peel floor. The winning pair's resolve planes
@@ -48,7 +53,8 @@ __device__ __forceinline__ float plane(float a, float b, float c, float px,
   return fmaf(a, px, b * py) + c;
 }
 
-__global__ void __launch_bounds__(kThreads) gbuf_tiles_kernel(
+template <bool kWithResolve>
+__global__ void __launch_bounds__(kThreads) tile_raster_kernel(
     const float* __restrict__ pairs, const int* __restrict__ seg_starts,
     const int* __restrict__ seg_counts, const float* __restrict__ peel,
     int tiles_x, int tile_h, int tile_w, float* __restrict__ zbuf,
@@ -68,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) gbuf_tiles_kernel(
   const float px = (float)gx + 0.5f;
   const float py = (float)gy + 0.5f;
   // depth-peel floor: only fragments strictly behind it survive
-  const float floor_d = live ? peel[pix] : 2.0f;
+  const float floor_d = kWithResolve && live ? peel[pix] : -1.0f;
 
   const int start = seg_starts[tile];
   const int count = seg_counts[tile];
@@ -100,6 +106,7 @@ __global__ void __launch_bounds__(kThreads) gbuf_tiles_kernel(
   zbuf[pix] = z;
   const float* w = win >= 0 ? pairs + (long long)win * kRow : nullptr;
   tid[pix] = w ? (int)w[kTriId] : -1;
+  if (!kWithResolve) return;
   // background: denominator plane (0, 0, 1), channel planes 0, material -1
   const float* c = w ? w + kResolve : nullptr;
   float den = c ? plane(c[0], c[1], c[2], px, py) : 1.0f;
@@ -125,8 +132,22 @@ extern "C" int vkr_gbuf_tiles(const float* pairs, const int* seg_starts,
   threads = (threads + 31) / 32 * 32;
   const dim3 grid(tiles_x * tiles_y, (tile_px + threads - 1) / threads);
   const long long stride = (long long)tiles_y * tile_h * tiles_x * tile_w;
-  gbuf_tiles_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  tile_raster_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
       pairs, seg_starts, seg_counts, peel, tiles_x, tile_h, tile_w, zbuf, tid,
       attrs, stride);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vkr_rasterize_tiles(const float* pairs, const int* seg_starts,
+                                   const int* seg_counts, int tiles_x,
+                                   int tiles_y, int tile_h, int tile_w,
+                                   float* zbuf, int* tid, void* stream) {
+  const int tile_px = tile_h * tile_w;
+  int threads = tile_px < kThreads ? tile_px : kThreads;
+  threads = (threads + 31) / 32 * 32;
+  const dim3 grid(tiles_x * tiles_y, (tile_px + threads - 1) / threads);
+  tile_raster_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+      pairs, seg_starts, seg_counts, nullptr, tiles_x, tile_h, tile_w, zbuf,
+      tid, nullptr, 0);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("gbuf_tiles", "window_gather")
+SOURCES = ("gbuf_tiles", "window_gather", "ssr_march")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -39,11 +39,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gbuf_tiles": {
         "vkr_gbuf_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "vkr_rasterize_tiles": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
     "window_gather": {
         "vkr_window_gather": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
         "vkr_window_gather_multi": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
         "vkr_taa_history_gather": [_P, _P, _I, _I, _P, _P, _F, _P, _P],
+    },
+    "ssr_march": {
+        "vkr_ssr_march": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     },
 }
 

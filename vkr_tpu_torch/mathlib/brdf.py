@@ -59,11 +59,24 @@ def brdf_g2(n_dot_v, n_dot_l, alpha2):
     return 2.0 / (l1 + l2)
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once: exact in float64 for float32 operands (the
+    product has at most 48 significant bits), then rounded to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def sample_ggx_vndf(ve, alpha_x, alpha_y, u1, u2):
     """Heitz 2018 GGX VNDF sampling (brdf.glsl:147-167).
 
     ve: view direction in tangent space (..., 3), z up. u1/u2: uniforms
     (tensors or floats). Returns the sampled microfacet normal (..., 3).
+
+    Where ve.z <= 0 (the view below the surface) 1 - p1^2 - p2^2 cancels
+    to rounding noise, and the square root of that noise decides the
+    sample. So the three cancelling steps are written as fmas, the form
+    XLA's CPU jit and GPU shader compilers give them, and cos/sin of the
+    sample angle are taken in float64 and rounded once: the port then
+    follows vkr_tpu's samples there instead of drawing its own noise.
     """
     vh = torch.stack(
         [alpha_x * ve[..., 0], alpha_y * ve[..., 1], ve[..., 2]], dim=-1
@@ -84,18 +97,15 @@ def sample_ggx_vndf(ve, alpha_x, alpha_y, u1, u2):
     u1 = torch.as_tensor(u1, dtype=vh.dtype, device=vh.device)
     u2 = torch.as_tensor(u2, dtype=vh.dtype, device=vh.device)
     r = torch.sqrt(u1)
-    phi = 2.0 * PI * u2
-    p1 = r * torch.cos(phi)
-    p2 = r * torch.sin(phi)
+    phi = (2.0 * PI * u2).double()
+    p1 = r * torch.cos(phi).float()
+    p2 = r * torch.sin(phi).float()
     s = 0.5 * (1.0 + vh[..., 2])
-    p2 = (1.0 - s) * torch.sqrt(1.0 - p1 * p1) + s * p2
-
-    nh = (
-        p1[..., None] * t1
-        + p2[..., None] * t2
-        + torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))[..., None]
-        * vh
-    )
+    one = torch.ones_like(p1)
+    p2 = _fma(s, p2, (1.0 - s) * torch.sqrt(_fma(-p1, p1, one)))
+    rad = torch.clamp(_fma(-p2, p2, _fma(-p1, p1, one)), min=0.0)
+    nh = _fma(torch.sqrt(rad)[..., None], vh,
+              p1[..., None] * t1 + p2[..., None] * t2)
     ne = torch.stack(
         [alpha_x * nh[..., 0], alpha_y * nh[..., 1],
          torch.clamp(nh[..., 2], min=0.0)], dim=-1

@@ -8,9 +8,9 @@ break (MAX_THIKNESS=0.1), integrate the GTAO arc term; then a 4x4
 depth-bilateral filter and a velocity-reprojected temporal accumulation
 with world-space validation.
 
-Ported here: the single-direction main pass gtao_main_window (the frame's
-choice when SSR is off; the MIS variant needs SSR's occlusion estimate and
-comes with the SSR slice), gtao_filter and gtao_accumulate.
+Ported here: the MIS main pass gtao_main_mis (the default frame's, with
+SSR's occlusion estimate), the single-strategy main pass gtao_main_window
+(the frame's choice when SSR is off), gtao_filter and gtao_accumulate.
 """
 
 from __future__ import annotations
@@ -129,8 +129,6 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
     cls = gtao_direction_pattern(H, W, depth_half.device).float() / 16.0
     size = torch.tensor([W, H], dtype=torch.float32,
                         device=depth_half.device)
-    fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
-                       device=depth_half.device) / N_STEPS)[:, None, None]
 
     total = torch.zeros_like(depth_half)
     for d in range(dirs_count):
@@ -139,28 +137,100 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
             [torch.cos(angle), torch.sin(angle)], -1) / size
         n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
                                          params)
-        off_x = fr * (dir_uv[..., 0] * W)[None]
-        off_y = fr * (dir_uv[..., 1] * H)[None]
-        sds = _gather.window_gather_bilinear_multi(
-            depth_half.contiguous(), off_y, off_x, radius=N_STEPS)
-
-        h_cos = torch.full_like(depth_half, -1.0)
-        prev_z = camera_pos[..., 2]
-        alive = torch.ones_like(depth_half, dtype=torch.bool)
-        for i in range(1, N_STEPS + 1):
-            tc = uv + (float(i) / N_STEPS) * dir_uv
-            sp = reconstruct_view_vec(tc, sds[i - 1], params.fovy,
-                                      params.aspect, params.znear,
-                                      params.zfar)
-            alive = alive & ~(sp[..., 2] > prev_z + MAX_THICKNESS)
-            prev_z = torch.where(alive, sp[..., 2], prev_z)
-            off = sp - camera_pos
-            s_cos = (w0 * off).sum(-1) / _norm(off).clamp(min=1e-20)
-            h_cos = torch.where(alive, torch.maximum(h_cos, s_cos), h_cos)
+        h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params)
         total = total + _arc_integral(h_cos, n_proj_len, n_angle)
 
     ao = 2.0 * total / dirs_count
     return torch.where(depth_half >= 1.0, 0.0, ao)
+
+
+def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params):
+    """Max horizon cosine along dir_uv (find_horizon in gtao_camera_space,
+    main.comp:195-225): 16 bilinear depth taps at fractions 1/16..16/16 of
+    the per-pixel direction, all fetched by ONE K4 call, with the
+    thickness break."""
+    H, W = depth_half.shape
+    fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
+                       device=depth_half.device) / N_STEPS)[:, None, None]
+    sds = _gather.window_gather_bilinear_multi(
+        depth_half.contiguous(), fr * (dir_uv[..., 1] * H)[None],
+        fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS)
+    h_cos = torch.full_like(depth_half, -1.0)
+    prev_z = camera_pos[..., 2]
+    alive = torch.ones_like(depth_half, dtype=torch.bool)
+    for i in range(1, N_STEPS + 1):
+        tc = uv + (float(i) / N_STEPS) * dir_uv
+        sp = reconstruct_view_vec(tc, sds[i - 1], params.fovy, params.aspect,
+                                  params.znear, params.zfar)
+        alive = alive & ~(sp[..., 2] > prev_z + MAX_THICKNESS)
+        prev_z = torch.where(alive, sp[..., 2], prev_z)
+        off = sp - camera_pos
+        s_cos = (w0 * off).sum(-1) / _norm(off).clamp(min=1e-20)
+        h_cos = torch.where(alive, torch.maximum(h_cos, s_cos), h_cos)
+    return h_cos
+
+
+def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
+                  params: GTAOParams, base_angle: float,
+                  weight_ratio: float = 1.0, reflections_only: bool = False):
+    """main.comp mis_gtao (219-274): MIS-combine one uniform-direction GTAO
+    arc with the SSR trace's GGX-importance occlusion estimate
+    (ssr_occlusion (h, w, 2) = (sum, pdf), ssr.ssr_trace's second output).
+    The reference's default main-pass mode (gtao.hpp:112 mis_gtao = true).
+
+    The 16 horizon taps come from one K4 call, as in vkr_tpu's
+    use_kernel=True path; the radius is at most 16 px = N_STEPS, so K4's
+    +-radius clamp never binds and this equals vkr_tpu's bilinear_sample
+    loop (use_kernel=False) up to rounding. material: FULL-res G-buffer
+    material (roughness in .g) or an already-half-res (h, w, C) tensor.
+    Returns (h, w) raw AO."""
+    from vkr_tpu_torch.passes.sampling import downsample_full_to_half
+    from vkr_tpu_torch.passes.ssr import sample_ggx_dir_pdf
+
+    H, W = depth_half.shape
+    uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
+                                                   params)
+    cls = gtao_direction_pattern(H, W, depth_half.device).float() / 16.0
+    size = torch.tensor([W, H], dtype=torch.float32,
+                        device=depth_half.device)
+    angle = 2.0 * PI * (cls + base_angle)
+    dir_uv = radius_px[..., None] * torch.stack(
+        [torch.cos(angle), torch.sin(angle)], -1) / size
+
+    sample_end = reconstruct_view_vec(uv + dir_uv, depth_half, params.fovy,
+                                      params.aspect, params.znear,
+                                      params.zfar)
+    ldir = sample_end - camera_pos
+    ldir = ldir / _norm(ldir, True).clamp(min=1e-20)
+    n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
+                                     params)
+
+    h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params)
+    occlusion = (1.0 / PI) * _arc_integral(h_cos, n_proj_len, n_angle)
+
+    # roughness = texture(gbuffer_material, screen_uv).g: half-res pixel
+    # centres land between full-res texels, so bilinear = the 2x2 mean
+    rough_half = (material[..., 1] if material.shape[:2] == (H, W)
+                  else downsample_full_to_half(material[..., 1]))
+    ao = ssr_occlusion
+    pdf_ggx = sample_ggx_dir_pdf(pdf_lut, w0, cam_n, ldir,
+                                 rough_half * rough_half)
+    pdf_uniform = 1.0 / (2.0 * PI)
+
+    if reflections_only:
+        res = ao[..., 0] / torch.where(ao[..., 1].abs() < 1e-20, 1e-20,
+                                       ao[..., 1])
+        res = torch.where(torch.isnan(res), 1.0, res)
+        return torch.where(depth_half >= 1.0, 0.0, res)
+
+    alpha = 1.0 / (weight_ratio + 1.0)
+    beta = 1.0 - alpha
+    mw1 = alpha / (alpha * ao[..., 1] + beta * pdf_uniform)
+    mw2 = beta / (alpha * pdf_ggx + beta * pdf_uniform)
+    mis_ao = ao[..., 0] * mw1 + occlusion * mw2
+    mis_ao = torch.where(torch.isnan(mis_ao), occlusion / pdf_uniform,
+                         mis_ao)
+    return torch.where(depth_half >= 1.0, 0.0, mis_ao)
 
 
 def gtao_filter(depth_half, raw_ao, znear: float, zfar: float):

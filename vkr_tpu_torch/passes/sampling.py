@@ -76,6 +76,32 @@ def upsample_half_bilinear(img_half, texel_offset=(0, 0)):
     return full[..., 0] if squeeze else full
 
 
+def downsample_full_to_half(img_full):
+    """Dense equivalent of bilinear-sampling a full-res image at half-res
+    pixel centers: full coordinate 2x + 0.5 -> equal-weight 2x2 average."""
+    img, squeeze = _prep(img_full)
+    h, w, c = img.shape
+    h2, w2 = h // 2, w // 2
+    out = img[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2, c).mean(dim=(1, 3))
+    return out[..., 0] if squeeze else out
+
+
+def downsample_full_to_half_corner(img_full):
+    """Dense equivalent of bilinear-sampling a full-res image at half-res
+    CORNER-convention uv (uv = pixel/size, as sssr filter.comp uses): full
+    coordinate 2x - 0.5 -> equal-weight average of texels (2x-1, 2x),
+    clamped at the edge."""
+    img, squeeze = _prep(img_full)
+
+    def shift_avg(a, dim):
+        shifted = torch.cat([a.narrow(dim, 0, 1),
+                             a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
+        return 0.5 * (shifted + a)
+
+    out = shift_avg(shift_avg(img, 0), 1)[::2, ::2]
+    return out[..., 0] if squeeze else out
+
+
 def quad_pack(img):
     """Pack each texel's 2x2 bilinear footprint into one row:
     out[y, x] = [p(y,x), p(y,x+1), p(y+1,x), p(y+1,x+1)] per channel

@@ -109,23 +109,20 @@ def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
     return zbuf, tid, attrs
 
 
-def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
-                         *, width: int, height: int, tile_h: int = 8,
-                         tile_w: int = 128, chunk_evals: int = 1 << 24):
-    """Plain PyTorch version of gbuf_tiles (same arguments and results,
-    any device).
+def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,
+                   tile_h: int, tile_w: int, chunk_evals: int = 1 << 24):
+    """The in-order LESS_OR_EQUAL walk of every tile's pair segment, shared
+    by the plain versions of K1 and K7. rows (n_pairs, 64); peel (hp*wp,)
+    strict depth floor. Returns (zbuf (hp*wp,), winning pair row per pixel
+    (hp*wp,) int64, -1 = background).
 
     Instead of walking each segment in order, it uses what the in-order
-    LESS_OR_EQUAL walk computes: the final depth is the minimum covering
-    depth, and the winner is the LAST covering pair (in segment order)
-    whose depth equals that minimum. Pair-pixel tests run in chunks of
-    about chunk_evals: one pass takes the per-pixel minimum, a second the
-    winner."""
-    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    walk computes: the final depth is the minimum covering depth, and the
+    winner is the LAST covering pair (in segment order) whose depth equals
+    that minimum. Pair-pixel tests run in chunks of about chunk_evals: one
+    pass takes the per-pixel minimum, a second the winner."""
     dev = rows.device
-    tiles_x, tiles_y, hp, wp = _tiles(width, height, tile_h, tile_w)
-    peel = _peel_floor(peel_depth, hp, wp, dev).reshape(-1)
-
+    wp = tiles_x * tile_w
     counts = seg_counts.long()
     n_tiles = counts.shape[0]
     tile_of = torch.repeat_interleave(
@@ -157,19 +154,37 @@ def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
                  & (d > peel[pix]))
         return pix, d, cover
 
-    zbuf = torch.ones(hp * wp, dtype=torch.float32, device=dev)
+    zbuf = torch.ones(peel.shape[0], dtype=torch.float32, device=dev)
     for lo in range(0, n_walk, step):
         pix, d, cover = tests(lo, lo + step)
         zbuf.scatter_reduce_(0, pix[cover], d[cover], reduce="amin")
-    win = torch.full((hp * wp,), -1, dtype=torch.long, device=dev)
+    win = torch.full(peel.shape, -1, dtype=torch.long, device=dev)
     for lo in range(0, n_walk, step):
         pix, d, cover = tests(lo, lo + step)
         hit = cover & (d == zbuf[pix])
         walk = order[lo:lo + step, None].expand_as(pix)
         win.scatter_reduce_(0, pix[hit], walk[hit], reduce="amax")
+    win_row = torch.where(win >= 0, row_of[win.clamp(min=0)] if n_walk
+                          else win, -1)
+    return zbuf, win_row
+
+
+def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
+                         *, width: int, height: int, tile_h: int = 8,
+                         tile_w: int = 128, chunk_evals: int = 1 << 24):
+    """Plain version of gbuf_tiles (same arguments and results, any
+    device): walk_reference, then the winner's resolve planes per pixel."""
+    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    dev = rows.device
+    tiles_x, tiles_y, hp, wp = _tiles(width, height, tile_h, tile_w)
+    peel = _peel_floor(peel_depth, hp, wp, dev).reshape(-1)
+    zbuf, win = walk_reference(rows, seg_starts, seg_counts, peel,
+                               tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
+                               chunk_evals=chunk_evals)
 
     has = win >= 0
-    wrow = rows[row_of[win.clamp(min=0)] if n_walk else torch.zeros_like(win)]
+    wrow = rows[win.clamp(min=0)] if rows.shape[0] else torch.zeros(
+        (win.shape[0], ROW_WIDTH), dtype=torch.float32, device=dev)
     background = torch.tensor(_BACKGROUND, dtype=torch.float32, device=dev)
     coef = torch.where(has[:, None], wrow[:, RESOLVE_BASE:_MATERIAL + 1],
                        background)

@@ -1,0 +1,83 @@
+"""K7 — the visibility-only tile raster (depth and triangle id), and its
+plain PyTorch version.
+
+Per screen tile, the binned pair segment is walked in order: coverage from
+the three edge functions plus 0 <= d <= 1, and a LESS_OR_EQUAL depth test
+(d <= zbuf) against the 1.0 clear. No attributes are resolved. The
+shadow-map pass (passes/shadows.py) is its caller.
+
+Replaces vkr_tpu/raster/kernel.py:_raster_kernel (pallas_call at :184,
+wrapper rasterize_tiles :145). The CUDA kernel is K1's tile walk in
+csrc/gbuf_tiles.cu with the resolve and the peel floor compiled out, so
+its planes take K1's fma form (gbuf_kernel.plane).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkr_tpu_torch import kernels
+from vkr_tpu_torch.raster.gbuf_kernel import _TRI_ID, _tiles, walk_reference
+from vkr_tpu_torch.raster.pair_rows import ROW_WIDTH
+
+
+def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
+                    height: int, tile_h: int = 8, tile_w: int = 128):
+    """Run the visibility raster over binned pair segments.
+
+    pair_rows: (n_pairs, 64) f32 (or vkr_tpu's (n_rows, 128) view of it);
+    only the raster fields [0:13) are read. seg_starts/seg_counts:
+    (n_tiles,) int32, tiles row-major.
+
+    Returns (zbuf (H', W') f32, 1.0 clear; tri_id (H', W') int32, -1 none)
+    on the tile-aligned grid; crop to (height, width).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    tiles_x, tiles_y, hp, wp = _tiles(width, height, tile_h, tile_w)
+    if rows.device.type == "cpu":
+        return rasterize_tiles_reference(rows, seg_starts, seg_counts,
+                                         width=width, height=height,
+                                         tile_h=tile_h, tile_w=tile_w)
+    if not rows.is_cuda:
+        raise ValueError(f"rasterize_tiles: unsupported device {rows.device}")
+    n_tiles = tiles_x * tiles_y
+    for name, t, dtype, shape in (
+            ("pair_rows", rows, torch.float32, None),
+            ("seg_starts", seg_starts, torch.int32, (n_tiles,)),
+            ("seg_counts", seg_counts, torch.int32, (n_tiles,))):
+        if t.device != rows.device or t.dtype != dtype:
+            raise ValueError(f"rasterize_tiles: {name} must be {dtype} on "
+                             f"{rows.device}, got {t.dtype} on {t.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"rasterize_tiles: {name} shape "
+                             f"{tuple(t.shape)} != {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"rasterize_tiles: {name} must be contiguous")
+    zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
+    tid = torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
+    err = kernels.library("gbuf_tiles").vkr_rasterize_tiles(
+        rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
+        tiles_x, tiles_y, tile_h, tile_w, zbuf.data_ptr(), tid.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    kernels.check(err, "rasterize_tiles")
+    kernels.LAUNCHES["rasterize_tiles"] += 1
+    return zbuf, tid
+
+
+def rasterize_tiles_reference(pair_rows, seg_starts, seg_counts, *,
+                              width: int, height: int, tile_h: int = 8,
+                              tile_w: int = 128, chunk_evals: int = 1 << 24):
+    """Plain version of rasterize_tiles (same arguments and results, any
+    device): gbuf_kernel.walk_reference without a peel floor."""
+    rows = pair_rows.reshape(-1, ROW_WIDTH)
+    tiles_x, _, hp, wp = _tiles(width, height, tile_h, tile_w)
+    no_peel = torch.full((hp * wp,), -1.0, dtype=torch.float32,
+                         device=rows.device)
+    zbuf, win = walk_reference(rows, seg_starts, seg_counts, no_peel,
+                               tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
+                               chunk_evals=chunk_evals)
+    won = rows[win.clamp(min=0), _TRI_ID] if rows.shape[0] else -1.0
+    tid = torch.where(win >= 0, won, -1.0).to(torch.int32)
+    return zbuf.reshape(hp, wp), tid.reshape(hp, wp)

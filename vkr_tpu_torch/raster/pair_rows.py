@@ -44,16 +44,24 @@ def corner_attributes_pre_t(attr_t, weights, n_src: int):
              for k in range(K)] for c in range(3)]
 
 
-def build_tri_rows_t(setup_t, cattrs, tri_mat):
+def build_tri_rows_t(setup_t, cattrs=None, tri_mat=None):
     """(TC, 64) rows, one per clipped triangle.
 
     setup_t: setup.TriangleSetupT; cattrs: [c][k] lists of (TC,);
-    tri_mat: (TC,) int32."""
+    tri_mat: (TC,) int32. Without cattrs the rows carry the raster fields
+    only: resolve fields 0 and material -1 (visibility-only raster, K7)."""
     a, b, c = setup_t.a, setup_t.b, setup_t.c
     iw = setup_t.inv_w
     tc = a[0].shape[0]
     ids = torch.arange(tc, dtype=torch.float32, device=a[0].device)
     zero = torch.zeros_like(ids)
+    cols = list(a) + list(b) + list(c) + list(setup_t.zplane)
+    cols += [ids, zero, zero, zero]
+    if cattrs is None:
+        cols += [zero] * (RESOLVE_BASE + 3 + 3 * N_CHANNELS - len(cols))
+        cols.append(torch.full_like(ids, -1.0))
+        cols += [zero] * (ROW_WIDTH - len(cols))
+        return torch.stack(cols, dim=-1)
 
     denom = [
         _sum3(a[0] * iw[0], a[1] * iw[1], a[2] * iw[2]),
@@ -62,8 +70,7 @@ def build_tri_rows_t(setup_t, cattrs, tri_mat):
     ]
     aw = [[cattrs[i][k] * iw[i] for k in range(N_CHANNELS)]
           for i in range(3)]
-    cols = list(a) + list(b) + list(c) + list(setup_t.zplane)
-    cols += [ids, zero, zero, zero] + denom
+    cols += denom
     for k in range(N_CHANNELS):  # interleaved [p_k, q_k, r_k]
         cols.append(_sum3(a[0] * aw[0][k], a[1] * aw[1][k],
                           a[2] * aw[2][k]))

@@ -2,9 +2,10 @@
 visibility + resolved attributes out.
 
 Ties together near clip -> setup -> binning -> pair rows -> the merged
-raster + resolve kernel (K1). The analog of the reference's per-frame
+raster + resolve kernel (K1), or, without corner attributes, the
+visibility-only kernel (K7). The analog of the reference's per-frame
 G-buffer draw (scene_renderer.cpp:140-215); vkr_tpu/raster/pipeline.py
-:46 with corners_t given and the Pallas merged path.
+:46 with corners_t given and the Pallas path (:177-206).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from vkr_tpu_torch.raster import gbuf_kernel as _gk
+from vkr_tpu_torch.raster import kernel as _kernel
 from vkr_tpu_torch.raster import pair_rows as _rows
 from vkr_tpu_torch.raster import setup as _setup
 
@@ -30,8 +32,9 @@ class VisibilityBuffer(NamedTuple):
     depth: torch.Tensor      # (H, W) f32 hardware depth, 1.0 = background
     tri_id: torch.Tensor     # (H, W) int32 clipped-triangle id, -1 = none
     overflow: torch.Tensor   # () int32 dropped bin pairs (0 = healthy)
-    # (N_CHANNELS + 1, H, W) = [uv(2), normal(3), prev_clip(4), mat_id]
-    resolved: torch.Tensor
+    # (N_CHANNELS + 1, H, W) = [uv(2), normal(3), prev_clip(4), mat_id];
+    # None for a visibility-only raster
+    resolved: Optional[torch.Tensor]
     # front-end products kept for a kernel rerun (the depth-peel layer);
     # None unless keep_prepared=True
     prepared: Optional[RasterPrepared] = None
@@ -42,8 +45,8 @@ PAIR_FACTOR = 1.5  # bin pairs per source triangle (vkr_tpu pipeline.py:55)
 
 def rasterize(
     corners_t,
-    corner_attrs_t,
-    tri_mat,
+    corner_attrs_t=None,
+    tri_mat=None,
     *,
     width: int,
     height: int,
@@ -59,7 +62,9 @@ def rasterize(
     corners_t (4, 3T): clip positions, component-major, corner-major
     columns [c*T, (c+1)*T); corner_attrs_t (9, 3T): per-corner attributes
     (uv 2, world normal 3, previous clip 4) in the same layout;
-    tri_mat (T,) int32 material ids.
+    tri_mat (T,) int32 material ids. With corner_attrs_t None the raster
+    is visibility only (depth and clipped-triangle id, K7): resolved is
+    None, and peel_depth / prepared do not apply.
     jitter: optional (2,) NDC offset applied to coverage only (TAA).
     Bin pairs beyond max(PAIR_FACTOR * T, 4 * n_tiles, 4096) are dropped
     and counted in overflow.
@@ -71,6 +76,10 @@ def rasterize(
     (the peel pass differs from the first masked pass only in peel_depth).
     """
     kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w)
+    visibility_only = corner_attrs_t is None and prepared is None
+    if visibility_only and (peel_depth is not None or keep_prepared):
+        raise ValueError("peel_depth and keep_prepared need the merged "
+                         "raster + resolve (pass corner_attrs_t)")
     if prepared is not None:
         if prepared.prepared is None:
             raise ValueError("prepared= rerun requires a VisibilityBuffer "
@@ -90,6 +99,14 @@ def rasterize(
         pair_tri, seg_starts, seg_counts, overflow = _setup.bin_triangles_t(
             setup_t.bbox, setup_t.valid, width, height, tile_h, tile_w,
             capacity)
+        if visibility_only:
+            tri_rows = _rows.build_tri_rows_t(setup_t)
+            zbuf, tid = _kernel.rasterize_tiles(
+                _rows.expand_pair_rows(tri_rows, pair_tri), seg_starts,
+                seg_counts, **kw)
+            return VisibilityBuffer(depth=zbuf[:height, :width],
+                                    tri_id=tid[:height, :width],
+                                    overflow=overflow, resolved=None)
         # clipped triangle i and i + T both come from source triangle i
         mat2 = torch.cat([tri_mat, tri_mat])
         cattrs_t = _rows.corner_attributes_pre_t(corner_attrs_t, weights_t,
