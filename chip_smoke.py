@@ -7,7 +7,8 @@
    power limit of the card.
 2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
    vkr_tpu_torch/build/, one nvcc per source, all in parallel) and prints
-   the build seconds.
+   the build seconds, and the SASS instruction count and loop-body sizes
+   of K1/K7's and the march's kernels (cuobjdump -sass).
 3. Main phase: renders 8 frames of the bench orbit at 1920x1080 on the
    procedural colonnade (columns=24, tessellation=80, tex_size=1024:
    314,988 triangles, 96 alpha-MASK) with the default RenderConfig (SSR on,
@@ -27,7 +28,16 @@
    its plain PyTorch version on the card; each pair must agree within the
    stated tolerance. Prints both times (CUDA events), the time of one
    PyTorch library call computing the same function where there is one,
-   and the roofline bound from this run's inputs.
+   and the roofline bound from this run's inputs (K1 and K7: the pair
+   rows' raster fields, the winning rows' resolve fields, and 4 planes per
+   pair-pixel the pair covers). Also prints each K1/K7 call's pairs per
+   tile and the (pair, 8x16 patch) items its patch reject keeps, against
+   the covered pair-pixels, and the march's steps per ray and SIMT
+   efficiency under one-ray-per-lane warps of 32x1, 8x4 and 4x8 rays.
+   Then stress calls, K1 and K7 held to their plain versions on one tile
+   of many chunks with equal depths and +0.0/-0.0 depths: 8x128 with
+   20,480 pairs, and 8x512 (four cells) with 2,048 pairs, K1 there with
+   a peel floor.
 7. Renders the main phase's 8 frames with the plain versions substituted
    for the kernels, and requires >= 40 dB PSNR on every G-buffer channel,
    the SSR, the AO and the final colour of every frame.
@@ -80,6 +90,9 @@ PEAK_F32_FLOPS = 67e12
 # vector 12, its length 6, the cosine 8, the running max 1
 MARCH_FLOPS_PER_ITERATION = 55
 PLANE_FLOPS = 4  # fma(a, px, b*py) + c
+# K1/K7 stress calls on one tile: (tile width, pairs, K1 with a peel floor).
+# 8x128: one cell, 160 chunks; 8x512: four cells of 16 chunks each.
+STRESS = ((128, 20_480, False), (512, 2_048, True))
 
 # name -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
@@ -305,6 +318,101 @@ def shape_of(name, args, kw):
     return " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
 
 
+def walk_pairs(rows, starts, counts):
+    """(tile, pair row) of every pair of the walk, in segment order."""
+    import torch
+
+    dev = rows.device
+    cnt = counts.long()
+    tile = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    order = torch.arange(tile.numel(), device=dev)
+    return tile, rows.reshape(-1, 64)[starts.long()[tile] + order
+                                      - first[tile]]
+
+
+def covered_pair_pixels(rows, starts, counts, kw, chunk_evals=1 << 24):
+    """Pair-pixels of the walk that their pair covers under plane() (all
+    three edges >= 0): the tests any walk must make, whatever it skips. It
+    depends on the inputs alone, not on how a kernel walks them."""
+    import torch
+
+    from vkr_tpu_torch.raster.gbuf_kernel import plane
+
+    tile_h, tile_w = kw["tile_h"], kw["tile_w"]
+    tiles_x = -(-kw["width"] // tile_w)
+    tile, r = walk_pairs(rows, starts, counts)
+    dev = rows.device
+    ly = torch.arange(tile_h, device=dev).repeat_interleave(tile_w)
+    lx = torch.arange(tile_w, device=dev).repeat(tile_h)
+    step = max(1, chunk_evals // (tile_h * tile_w))
+    total = 0
+    for lo in range(0, tile.numel(), step):
+        t = tile[lo:lo + step, None]
+        px = ((t % tiles_x) * tile_w + lx).float() + 0.5
+        py = ((t // tiles_x) * tile_h + ly).float() + 0.5
+        q = r[lo:lo + step]
+        cover = torch.ones(px.shape, dtype=torch.bool, device=dev)
+        for i in range(3):
+            cover &= plane(q[:, i, None], q[:, 3 + i, None],
+                           q[:, 6 + i, None], px, py) >= 0.0
+        total += int(cover.sum())
+    return total
+
+
+def patch_survivors(rows, starts, counts, kw):
+    """(pair, 8x16 patch) items that csrc/gbuf_tiles.cu's warp-uniform
+    reject keeps, and all of them: its edge_rejects transcribed in float32
+    (the plane at the patch corner that maximises it, against the margin
+    ((|a| x1 + |b| y1) + |c|) 2^-20 + 2^-100). The walk tests the 128
+    pixels of each kept item."""
+    import torch
+
+    from vkr_tpu_torch.raster.gbuf_kernel import plane
+
+    tile_h, tile_w = kw["tile_h"], kw["tile_w"]
+    tiles_x = -(-kw["width"] // tile_w)
+    tile, r = walk_pairs(rows, starts, counts)
+    dev = rows.device
+    py0 = torch.arange(0, tile_h, 8, device=dev)[:, None]
+    px0 = torch.arange(0, tile_w, 16, device=dev)[None, :]
+    x0 = ((tile % tiles_x) * tile_w)[:, None, None] + px0 + 0.5
+    y0 = ((tile // tiles_x) * tile_h)[:, None, None] + py0 + 0.5
+    x0, y0 = x0.float(), y0.float()
+    x1, y1 = x0 + 15.0, y0 + 7.0
+    rejected = torch.zeros(x0.shape, dtype=torch.bool, device=dev)
+    for i in range(3):
+        a, b, c = (r[:, k, None, None] for k in (i, 3 + i, 6 + i))
+        e = plane(a, b, c, torch.where(a > 0, x1, x0),
+                  torch.where(b > 0, y1, y0))
+        m = ((a.abs() * x1 + b.abs() * y1) + c.abs()) * 2.0 ** -20 \
+            + 2.0 ** -100
+        rejected |= e < -m
+    return int((~rejected).sum()), rejected.numel()
+
+
+def winning_rows(tid, kw):
+    """Distinct pair rows that win a pixel of the plain version's output: a
+    segment holds one row per (tile, clipped triangle), so the distinct
+    (tile, triangle id) of the covered pixels."""
+    import torch
+
+    hp, wp = tid.shape
+    dev = tid.device
+    tiles_x = wp // kw["tile_w"]
+    gy = torch.arange(hp, device=dev)[:, None] // kw["tile_h"]
+    gx = torch.arange(wp, device=dev)[None, :] // kw["tile_w"]
+    key = (gy * tiles_x + gx) * (int(tid.max()) + 1) + tid.long()
+    return int(torch.unique(key[tid >= 0]).numel())
+
+
+def quantiles(t):
+    t = t.double().flatten()
+    return (f"min {float(t.min()):.0f}, median {float(t.median()):.0f}, p99 "
+            f"{float(t.quantile(0.99)):.1f}, max {float(t.max()):.0f}, mean "
+            f"{float(t.mean()):.1f}")
+
+
 def work_of(name, args, kw, plain):
     """(bytes, float32 operations) the call needs on this run's inputs:
     each input read once, each output written once; data-dependent work
@@ -322,16 +430,22 @@ def work_of(name, args, kw, plain):
         tiles_y = -(-kw["height"] // kw["tile_h"])
         px = tiles_x * tiles_y * tile_px
         n_pairs = int(counts.sum())
+        # 4 planes per pair-pixel a walk must test: those its pair covers
+        pair_px = covered_pair_pixels(rows, starts, counts, kw)
+        # every pair's 12 raster floats; the winners' fields once each
+        wins = winning_rows(plain[1], kw)
         if name == "gbuf_tiles":
             peel = args[3] if len(args) > 3 else None
             out_bytes = px * 4 * (2 + 10)
-            in_bytes = n_pairs * 64 * 4 + nbytes(peel)
-            # 4 planes per pair-pixel, then 10 resolve planes per pixel
-            ops = (n_pairs * tile_px * 4 + px * 10) * PLANE_FLOPS
+            # the id and the resolve fields (denominator, 9 channel planes,
+            # material): 32 floats
+            in_bytes = n_pairs * 12 * 4 + wins * 32 * 4 + nbytes(peel)
+            # then 10 resolve planes per pixel
+            ops = (pair_px * 4 + px * 10) * PLANE_FLOPS
         else:
             out_bytes = px * 4 * 2
-            in_bytes = n_pairs * 13 * 4  # raster fields and the id
-            ops = n_pairs * tile_px * 4 * PLANE_FLOPS
+            in_bytes = n_pairs * 12 * 4 + wins * 4  # and the winners' ids
+            ops = pair_px * 4 * PLANE_FLOPS
         return in_bytes + nbytes(starts, counts) + out_bytes, ops
     if name == "hierarchical_march":
         pyr, rays = args[0], args[1:5]
@@ -344,6 +458,111 @@ def work_of(name, args, kw, plain):
     taps = out.numel() // (out.shape[-1] if name == "window_gather_bilinear"
                            and out.ndim == 3 else 1)
     return nbytes(*args) + nbytes(out), taps * 10
+
+
+def simt_efficiency(steps, patch_w, patch_h):
+    """Sum of steps / sum of (32 x the warp's longest) for warps of
+    patch_w x patch_h = 32 rays of the (h, w) ray grid, one ray per lane
+    and no refill."""
+    h, w = steps.shape
+    s = steps[:h // patch_h * patch_h, :w // patch_w * patch_w].double()
+    peak = s.reshape(h // patch_h, patch_h, w // patch_w, patch_w).amax(
+        dim=(1, 3))
+    return float(s.sum() / (peak.sum() * patch_w * patch_h))
+
+
+def stress_rows(device, n_pairs, w, seed):
+    """One 8 x w tile holding n_pairs pair rows, built by the port's own
+    triangle setup (fill-rule biased c) from corners on pixel centres, so
+    edges run through pixel centres. Large triangles get random depth
+    planes in [0.3, 0.95], or (a third of them) the constant depth 0.25:
+    equal depths over most of the tile, decided by segment order. One in
+    500 is a small triangle of depth +0.0 or -0.0 (every plane coefficient
+    -0.0 evaluates to -0.0): where they overlap, the two zeros tie."""
+    import numpy as np
+    import torch
+
+    from vkr_tpu_torch.raster import setup
+
+    rng = np.random.default_rng(seed)
+    h, pad = 8, w * 5 // 16
+    kind = rng.integers(0, 1000, n_pairs)  # 0: +0.0, 1: -0.0, 2-333: 0.25
+    small = kind <= 1
+    cx = rng.integers(0, w, n_pairs)
+    cy = rng.integers(0, h, n_pairs)
+    xs = np.where(small, cx + rng.integers(-5, 6, (3, n_pairs)),
+                  rng.integers(-pad, w + pad, (3, n_pairs))) + 0.5
+    ys = np.where(small, cy + rng.integers(-5, 6, (3, n_pairs)),
+                  rng.integers(-24, 32, (3, n_pairs))) + 0.5
+    zs = rng.uniform(0.3, 0.95, (3, n_pairs))
+    corners = [[torch.tensor(v, dtype=torch.float32) for v in (
+        xs[c] * 2.0 / w - 1.0, ys[c] * 2.0 / h - 1.0, zs[c],
+        np.ones(n_pairs))] for c in range(3)]
+    st = setup.triangle_setup_t(corners, torch.ones(n_pairs, dtype=torch.bool),
+                                w, h)
+    rows = torch.zeros((n_pairs, 64), dtype=torch.float32)
+    for i, v in enumerate(list(st.a) + list(st.b) + list(st.c)
+                          + list(st.zplane)):
+        rows[:, i] = v
+    for sel, z in ((kind == 0, 0.0), (kind == 1, -0.0),
+                   ((kind >= 2) & (kind <= 333), 0.25)):
+        sel = torch.as_tensor(sel)
+        rows[sel, 9:11] = math.copysign(0.0, z)
+        rows[sel, 11] = z
+    rows[:, 12] = torch.arange(n_pairs, dtype=torch.float32)
+    rows[:, 16:19] = torch.tensor([0.0, 0.0, 1.0])
+    rows[:, 19:46] = torch.tensor(rng.uniform(-1, 1, (n_pairs, 27)),
+                                  dtype=torch.float32)
+    rows[:, 46] = torch.tensor(rng.integers(0, 8, n_pairs),
+                               dtype=torch.float32)
+    return (rows.to(device),
+            torch.zeros(1, dtype=torch.int32, device=device),
+            torch.full((1,), n_pairs, dtype=torch.int32, device=device))
+
+
+def stress_peel(device, w, seed):
+    """An 8 x w peel floor: none (-1), 0.0 (peels both zeros), the tie
+    depth 0.25, or random in [0.3, 0.7]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    floor = rng.choice([-1.0, 0.0, 0.25, 0.5], (8, w))
+    floor[floor == 0.5] = rng.uniform(0.3, 0.7, int((floor == 0.5).sum()))
+    return torch.tensor(floor, dtype=torch.float32, device=device)
+
+
+def sass_loops(lib):
+    """{kernel: (instructions, loop bodies longest first)} of a built
+    library, from cuobjdump -sass: a loop body is the instructions that a
+    backward branch spans."""
+    import re
+
+    from vkr_tpu_torch import kernels
+
+    cuobjdump = kernels.nvcc_path()[:-len("nvcc")] + "cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(kernels.library_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        short = re.search(r"\d([a-z_]+_kernel)(ILb([01])E)?", name)
+        if short:
+            name = short.group(1) + (
+                "" if short.group(3) is None
+                else ("<true>" if short.group(3) == "1" else "<false>"))
+        insns = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, ins in insns:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) < addr:
+                loops.append(sum(1 for a, _ in insns
+                                 if int(m.group(1), 16) <= a <= addr))
+        out[name] = (sum(1 for _, i in insns if not re.search(r"\bNOP\b", i)),
+                     sorted(loops, reverse=True))
+    return out
 
 
 def library_call(name, args, kw):
@@ -417,6 +636,10 @@ def main() -> int:
     for name in kernels.SOURCES:
         kernels.library(name)
     print(f"build: {build_s:.2f} s ({', '.join(kernels.SOURCES)})")
+    for lib in ("gbuf_tiles", "ssr_march"):
+        for fn, (n, loops) in sass_loops(lib).items():
+            print(f"sass {lib} {fn}: {n} instructions, loop bodies "
+                  f"{loops[:6]}")
 
     t0 = time.perf_counter()
     scene_np = colonnade_scene(**SCENE)
@@ -516,7 +739,25 @@ def main() -> int:
                              else "operations")}
         results.setdefault(name, []).append(case)
         if name == "hierarchical_march":
-            note += f", sum of iterations {int(want[3].sum())}"
+            steps = want[3]
+            note += f", sum of iterations {int(steps.sum())}"
+            print(f"march steps per ray: {quantiles(steps)}; at the cap "
+                  f"{float((steps >= args[6]).double().mean()):.4f}")
+            print(f"march SIMT efficiency (steps / 32 x warp longest): "
+                  f"32x1 rays of a row (one ray per thread in raster order) "
+                  f"{simt_efficiency(steps, 32, 1):.4f}, 8x4 patches (this "
+                  f"kernel's mapping) {simt_efficiency(steps, 8, 4):.4f}, "
+                  f"4x8 {simt_efficiency(steps, 4, 8):.4f}")
+        if name in ("gbuf_tiles", "rasterize_tiles"):
+            tile_px = kw["tile_h"] * kw["tile_w"]
+            every = int(args[2].sum()) * tile_px
+            kept, items = patch_survivors(*args[:3], kw)
+            print(f"{name} [{case['shape']}]: pairs per tile "
+                  f"{quantiles(args[2])}; the patch reject keeps {kept} of "
+                  f"{items} (pair, 8x16 patch) items ({kept / items:.4f}): "
+                  f"{kept * 128} pair-pixel tests, against "
+                  f"{covered_pair_pixels(*args[:3], kw)} covered and {every} "
+                  "in all")
         print(f"kernel {name} [{case['shape']}]: max_abs_err {err:.3g} "
               f"({'ok' if ok else 'OUT OF TOLERANCE'}{', ' + note if note else ''}"
               f"), {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -525,6 +766,28 @@ def main() -> int:
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
         if not ok:
             failures.append(f"{name} [{case['shape']}] max_abs_err {err}")
+    # K1 and K7 on one tile of many chunks: ties and -0.0 depths
+    for w, n_pairs, with_peel in STRESS:
+        srows, sstart, scount = stress_rows(device, n_pairs, w, seed=w)
+        skw = dict(width=w, height=8, tile_h=8, tile_w=w)
+        for name in ("gbuf_tiles", "rasterize_tiles"):
+            peel = with_peel and name == "gbuf_tiles"
+            sargs = (srows, sstart, scount) + (
+                (stress_peel(device, w, seed=w + 1),) if peel else ())
+            got = wrappers[name](*sargs, **skw)
+            want = plain[name][1](*sargs, **skw)
+            torch.cuda.synchronize()
+            err, ok, _ = compare(name, got, want, sargs)
+            covered = float((want[1] >= 0).float().mean())
+            label = (f"one 8x{w} tile, {n_pairs} pairs, equal and -0.0 "
+                     f"depths{', peel floor' if peel else ''}")
+            print(f"kernel {name} stress [{label}]: max_abs_err {err:.3g} "
+                  f"({'ok' if ok else 'OUT OF TOLERANCE'}), covered "
+                  f"{covered:.4f}, {time_ms(wrappers[name], sargs, skw):.4f}"
+                  f" ms, plain {time_ms(plain[name][1], sargs, skw):.4f} ms")
+            if not ok or covered < 0.5:
+                failures.append(f"{name} stress [{label}]: max_abs_err "
+                                f"{err}, covered {covered}")
     check(not failures, "kernel disagrees with its plain version: "
           + "; ".join(failures))
     for name in KERNELS:

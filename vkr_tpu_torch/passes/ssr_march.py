@@ -1,7 +1,8 @@
 """The SSR hierarchical hi-Z march, and its plain PyTorch version.
 
-One CUDA kernel (csrc/ssr_march.cu, one thread per ray) replaces vkr_tpu's
-two Pallas kernels: K2 `_phase_a_kernel` (vkr_tpu/passes/ssr_march.py:149,
+One CUDA kernel (csrc/ssr_march.cu: one ray per lane, each warp taking
+8x4 patches of rays from a global counter) replaces vkr_tpu's two Pallas
+kernels: K2 `_phase_a_kernel` (vkr_tpu/passes/ssr_march.py:149,
 iterations 0-15 at mip 0) and K3 `_phase_b_kernel` (:368, the hierarchical
 iterations with compaction), both behind `hierarchical_march_pallas`
 (:887). It ports the math of `_hierarchical_march`'s body
@@ -21,6 +22,8 @@ float to [-1, 2^24] (a saturating cast: -0.3 texel fetches texel 0).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -75,6 +78,10 @@ def hierarchical_march(mips, origin, direction, camera_start, w0, params,
                          f"{origin.device}")
     lead = origin.shape[:-1]
     n_levels = len(pyr.offsets)
+    if int(max_iterations) - FIND_HOR_PREFIX >= 127:
+        raise ValueError("hierarchical_march: the kernel builds 2^-mip from "
+                         f"its bits, mip < 127; max_iterations "
+                         f"{max_iterations} allows more")
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"hierarchical_march: {n_levels} levels, the "
                          f"kernel takes 1..{MAX_LEVELS}")
@@ -90,19 +97,23 @@ def hierarchical_march(mips, origin, direction, camera_start, w0, params,
                              f"{tuple(t.shape)} != {tuple(lead) + (3,)}")
     rays = [t.contiguous() for t in (origin, direction, camera_start, w0)]
     flat = pyr.flat.contiguous()
-    levels = torch.tensor([pyr.offsets, pyr.widths, pyr.heights],
-                          dtype=torch.int32).to(origin.device)
+    # the level table goes to the kernel by value: no host-to-device copy
+    levels = (ctypes.c_int * (3 * n_levels))(*pyr.offsets, *pyr.widths,
+                                              *pyr.heights)
     n = int(np.prod(lead))
+    ray_w = int(lead[-1]) if len(lead) and n else 1
     position = torch.empty(tuple(lead) + (3,), dtype=torch.float32,
                            device=origin.device)
     hor = torch.empty(tuple(lead), dtype=torch.float32, device=origin.device)
     iters = torch.empty(tuple(lead), dtype=torch.int32, device=origin.device)
+    counter = torch.empty(1, dtype=torch.int32, device=origin.device)
     tg, aspect, k_nf, k_fn, zfar = _constants(params)
     err = kernels.library("ssr_march").vkr_ssr_march(
-        *(t.data_ptr() for t in rays), n, flat.data_ptr(),
-        levels.data_ptr(), n_levels, pyr.widths[0], pyr.heights[0],
+        *(t.data_ptr() for t in rays), n // ray_w, ray_w, flat.data_ptr(),
+        levels, n_levels, pyr.widths[0], pyr.heights[0],
         tg, aspect, k_nf, k_fn, zfar, int(max_iterations),
         position.data_ptr(), hor.data_ptr(), iters.data_ptr(),
+        counter.data_ptr(),
         torch.cuda.current_stream(origin.device).cuda_stream)
     kernels.check(err, "hierarchical_march")
     kernels.LAUNCHES["hierarchical_march"] += 1

@@ -91,22 +91,46 @@ def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
         if not t.is_contiguous():
             raise ValueError(f"gbuf_tiles: {name} must be contiguous")
     if peel_depth is not None and (peel_depth.dtype != torch.float32
-                                   or peel_depth.device != rows.device):
-        raise ValueError("gbuf_tiles: peel_depth must be float32 on "
+                                   or peel_depth.device != rows.device
+                                   or peel_depth.ndim != 2):
+        raise ValueError("gbuf_tiles: peel_depth must be 2-D float32 on "
                          f"{rows.device}")
-    peel = _peel_floor(peel_depth, hp, wp, rows.device)
+    # the kernel reads the floor in place: -1 (none) outside it
+    peel = None if peel_depth is None else peel_depth[:hp, :wp].contiguous()
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     tid = torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
     attrs = torch.empty((N_CHANNELS + 1, hp, wp), dtype=torch.float32,
                         device=rows.device)
+    keys, table = walk_scratch(rows, n_tiles, tile_h, tile_w, hp, wp,
+                               "gbuf_tiles")
     err = kernels.library("gbuf_tiles").vkr_gbuf_tiles(
         rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
-        peel.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, zbuf.data_ptr(),
-        tid.data_ptr(), attrs.data_ptr(),
+        None if peel is None else peel.data_ptr(),
+        *((0, 0) if peel is None else peel.shape), tiles_x, tiles_y, tile_h,
+        tile_w, zbuf.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
+        keys.data_ptr(), table.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream)
     kernels.check(err, "gbuf_tiles")
     kernels.LAUNCHES["gbuf_tiles"] += 1
     return zbuf, tid, attrs
+
+
+def walk_scratch(rows, n_tiles: int, tile_h: int, tile_w: int, hp: int,
+                 wp: int, what: str):
+    """The CUDA walk's scratch on rows' device: one 64-bit merge key per
+    pixel and the int32 work-item table (item starts, counter, a done count
+    per 8x128 cell). The kernel cuts tiles into 8x128 cells and stages
+    each row's raster fields as 16-byte pieces, so tiles must be whole
+    cells and rows 16-byte aligned."""
+    if tile_h % 8 or tile_w % 128:
+        raise ValueError(f"{what}: the CUDA kernel takes tiles of 8k x 128k "
+                         f"pixels, got {tile_h}x{tile_w}")
+    if rows.data_ptr() % 16:
+        raise ValueError(f"{what}: pair_rows must be 16-byte aligned")
+    n_cells = tile_h // 8 * (tile_w // 128)
+    return (torch.empty(hp * wp, dtype=torch.int64, device=rows.device),
+            torch.empty(n_tiles * (1 + n_cells) + 2, dtype=torch.int32,
+                        device=rows.device))
 
 
 def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from vkr_tpu_torch import kernels
-from vkr_tpu_torch.raster.gbuf_kernel import _TRI_ID, _tiles, walk_reference
+from vkr_tpu_torch.raster.gbuf_kernel import (_TRI_ID, _tiles, walk_reference,
+                                             walk_scratch)
 from vkr_tpu_torch.raster.pair_rows import ROW_WIDTH
 
 
@@ -57,9 +58,12 @@ def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
             raise ValueError(f"rasterize_tiles: {name} must be contiguous")
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     tid = torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
+    keys, table = walk_scratch(rows, n_tiles, tile_h, tile_w, hp, wp,
+                               "rasterize_tiles")
     err = kernels.library("gbuf_tiles").vkr_rasterize_tiles(
         rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
         tiles_x, tiles_y, tile_h, tile_w, zbuf.data_ptr(), tid.data_ptr(),
+        keys.data_ptr(), table.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream)
     kernels.check(err, "rasterize_tiles")
     kernels.LAUNCHES["rasterize_tiles"] += 1
