@@ -23,26 +23,36 @@
 5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
    shading's LIGHT_POS through K7; counters cleared before, read after.
    Fails unless it launched K7, covers >= 50% of the texels and is finite.
-6. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
-   captured with its inputs, is run again through the kernel and through
-   its plain PyTorch version on the card; each pair must agree within the
-   stated tolerance. Prints both times (CUDA events), the time of one
-   PyTorch library call computing the same function where there is one,
-   and the roofline bound from this run's inputs (K1 and K7: the pair
-   rows' raster fields, the winning rows' resolve fields, and 4 planes per
-   pair-pixel the pair covers). Also prints each K1/K7 call's pairs per
-   tile and the (pair, 8x16 patch) items its patch reject keeps, against
-   the covered pair-pixels, and the march's steps per ray and SIMT
-   efficiency under one-ray-per-lane warps of 32x1, 8x4 and 4x8 rays.
-   Then stress calls, K1 and K7 held to their plain versions on one tile
-   of many chunks with equal depths and +0.0/-0.0 depths: 8x128 with
-   20,480 pairs, and 8x512 (four cells) with 2,048 pairs, K1 there with
-   a peel floor.
-7. Renders the main phase's 8 frames with the plain versions substituted
-   for the kernels, and requires >= 40 dB PSNR on every G-buffer channel,
-   the SSR, the AO and the final colour of every frame.
-8. Prints one JSON line {"kernels": [...]} and, last, the line
-   {"ok": true, "device": {...}}.
+6. Probe phase (probe GI, BASELINE config 5): builds the default probe
+   grid (4x4 probes, 96 cubemap faces of 128^2 through K1, octahedral maps
+   of 256^2) with build_probe_grid and prints its start-up time and each
+   face's covered share; fails unless every face drops no bin pair. Then
+   renders 3 frames of RenderConfig(enable_probes=True) (SSR on) with the
+   grid, frame 2 measured, with the main phase's checks, and fails unless
+   probe hits fill part of the pixels SSR left empty in every frame.
+7. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+   and K1's opaque and masked calls on the first probe face, captured with
+   their inputs, are run again through the kernel and through its plain
+   PyTorch version on the card; each pair must agree within the stated
+   tolerance. Prints both times (CUDA events), the time of one PyTorch
+   library call computing the same function where there is one, and the
+   roofline bound from this run's inputs (K1 and K7: the pair rows' raster
+   fields, the winning rows' resolve fields, the kept pixels' outputs and
+   4 planes per pair-pixel the pair covers). For K5 it also times an empty
+   kernel on K5's grid. Also prints each K1/K7 call's pairs per tile and
+   the (pair, 8x16 patch) items its patch reject keeps, against the
+   covered pair-pixels, and the march's steps per ray and SIMT efficiency
+   under one-ray-per-lane warps of 32x1, 8x4 and 4x8 rays. Then stress
+   calls, K1 and K7 held to their plain versions on one tile of many
+   chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
+   and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
+8. Renders the main phase's 8 frames and the probe phase's 3 with the
+   plain versions substituted for the kernels, and requires >= 40 dB PSNR
+   on every G-buffer channel, the SSR (with probe reflections composed in
+   the probe frames), the AO and the final colour of every frame.
+9. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+   on the probe faces (times per face, launches per start-up), and, last,
+   the line {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed.
 """
@@ -61,6 +71,7 @@ import time
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
 SSR_OFF_FRAMES = 3
+PROBE_FRAMES = 3
 WARMUP_FRAMES = 2
 CAPTURE_FRAME = 1
 SCENE = dict(columns=24, tessellation=80, tex_size=1024)
@@ -109,6 +120,9 @@ KERNELS = {
     "rasterize_tiles": ("vkr_tpu_torch/csrc/gbuf_tiles.cu",
                         "vkr_tpu/raster/kernel.py:67"),
 }
+# K1 on the probe grid's cubemap faces at start-up: a row of its own
+PROBE_FACE_ROW = "gbuf_tiles (probe faces)"
+KERNELS[PROBE_FACE_ROW] = KERNELS["gbuf_tiles"]
 
 
 class SmokeFailure(Exception):
@@ -158,23 +172,28 @@ class Substitute:
             setattr(mod, name, fn)
 
 
-def recording(log):
-    """Substitute factory: call the kernel, keeping a copy of its inputs."""
+def recording(log, limit=None):
+    """Substitute factory: call the kernel, keeping a copy of its inputs
+    (of the first `limit` calls only, where a limit is given)."""
     import torch
 
     def make(name, wrapper, plain):
         def rec(*args, **kw):
-            kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                         for a in args)
-            log.append((name, kept, dict(kw)))
+            if limit is None or len(log) < limit:
+                kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                log.append((name, kept, dict(kw)))
             return wrapper(*args, **kw)
         return rec
     return make
 
 
-def render(scene, res, cfg, device, n_frames, on_frame=None):
+def render(scene, res, cfg, device, n_frames, on_frame=None,
+           probe_grid=None):
     """The bench loop (bench.py): frame i sees orbit view i after view i-1.
-    Returns per-frame outputs and per-frame seconds."""
+    Returns per-frame outputs and per-frame seconds. With a probe grid, an
+    output also holds the share of the pixels SSR left empty that a probe
+    hit filled."""
     import torch
 
     from vkr_tpu_torch.core.framestate import FrameState
@@ -190,13 +209,18 @@ def render(scene, res, cfg, device, n_frames, on_frame=None):
         t0 = time.perf_counter()
         with (on_frame(i) if on_frame is not None
               else contextlib.nullcontext()):
-            color, state, aux = render_frame(scene, state, cam, res, cfg)
+            color, state, aux = render_frame(scene, state, cam, res, cfg,
+                                             probe_grid=probe_grid)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         g = aux["gbuffer"]
         out = {k: getattr(g, k) for k in FRAME_CHANNELS[:5]}
         out.update(ssr=aux["ssr"], ao=aux["ao"], color=color,
                    overflow=int(aux["overflow"]))
+        if aux["probe"] is not None:
+            empty = aux["ssr_rays"][..., 3] >= 1.0
+            out["probe_filled"] = float(
+                (empty & (aux["probe"][..., 3] > 0.0)).sum() / empty.sum())
         outs.append(out)
     return outs, secs
 
@@ -307,7 +331,8 @@ def compare(name, got, want, args):
 
 def shape_of(name, args, kw):
     if name == "gbuf_tiles":
-        return (f"{kw['tile_h']}x{kw['tile_w']} tiles, "
+        return (f"{kw['width']}x{kw['height']}, "
+                f"{kw['tile_h']}x{kw['tile_w']} tiles, "
                 f"{int(args[2].sum())} pairs"
                 + (", peel" if args[3] is not None else ""))
     if name == "rasterize_tiles":
@@ -425,10 +450,9 @@ def work_of(name, args, kw, plain):
 
     if name in ("gbuf_tiles", "rasterize_tiles"):
         rows, starts, counts = args[:3]
-        tile_px = kw["tile_h"] * kw["tile_w"]
-        tiles_x = -(-kw["width"] // kw["tile_w"])
-        tiles_y = -(-kw["height"] // kw["tile_h"])
-        px = tiles_x * tiles_y * tile_px
+        # the pixels the caller keeps: a 128-wide probe face is one quarter
+        # of an 8x512 tile
+        px = kw["width"] * kw["height"]
         n_pairs = int(counts.sum())
         # 4 planes per pair-pixel a walk must test: those its pair covers
         pair_px = covered_pair_pixels(rows, starts, counts, kw)
@@ -593,6 +617,18 @@ def library_call(name, args, kw):
     return call
 
 
+def k5_empty_grid(img):
+    """An empty kernel launched on K5's grid for img: the part of K5's time
+    that no kernel body can remove (csrc/window_gather.cu)."""
+    import torch
+
+    from vkr_tpu_torch import kernels
+
+    h, w = img.shape[:2]
+    kernels.check(kernels.library("window_gather").vkr_window_gather_empty(
+        h, w, torch.cuda.current_stream().cuda_stream), "K5 empty grid")
+
+
 def light_view_proj():
     """A light at shading's LIGHT_POS looking straight down over the hall
     (90 degrees, near 0.5, far 40), float32."""
@@ -627,7 +663,7 @@ def main() -> int:
 
     from vkr_tpu_torch import kernels
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.frame import build_ssr_resources
+    from vkr_tpu_torch.frame import build_probe_grid, build_ssr_resources
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.passes.shadows import render_shadow_map
     from vkr_tpu_torch.scene.procedural import colonnade_scene
@@ -713,12 +749,60 @@ def main() -> int:
           f"{shadow_s * 1e3:.3f} ms, launches {shadow_launches}")
     launches["rasterize_tiles"] = shadow_launches["rasterize_tiles"]
 
+    # ---- probe phase: probe GI (BASELINE config 5) at start-up and per frame
+    cfg_probe = dataclasses.replace(cfg, enable_probes=True)
+    face_captured = []
+    kernels.LAUNCHES.clear()
+    with Substitute(recording(face_captured, limit=2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = build_probe_grid(scene_np, cfg_probe, device=device)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+    grid_launches = dict(kernels.LAUNCHES)
+    n_faces = 6 * cfg_probe.probes.grid ** 2
+    check(grid_launches.get("gbuf_tiles", 0) == 2 * n_faces,
+          f"probe grid: gbuf_tiles launched {grid_launches} for {n_faces} "
+          "faces (an opaque and a masked call each)")
+    check(int(grid.face_overflow.max()) == 0,
+          f"probe grid: bin pairs dropped on faces {grid.face_overflow}")
+    check(bool(torch.isfinite(grid.colors).all()
+               and torch.isfinite(grid.depth_flat).all()),
+          "probe grid: not finite")
+    print(f"probe grid: {cfg_probe.probes.grid}^2 probes, {n_faces} faces of "
+          f"{cfg_probe.probes.cube_size}^2, octahedral "
+          f"{cfg_probe.probes.oct_size}^2, start-up {grid_s:.3f} s, overflow "
+          f"0 on every face, launches {grid_launches}")
+    print("probe grid: covered share per face (+x, -x, +y, -y, +z, -z), "
+          "probe by probe: " + "; ".join(
+              " ".join(f"{c:.3f}" for c in row)
+              for row in grid.face_coverage.tolist()))
+    kernels.LAUNCHES.clear()
+    probe_outs, probe_secs = render(scene, res, cfg_probe, device,
+                                    PROBE_FRAMES, probe_grid=grid)
+    probe_launches = dict(kernels.LAUNCHES)
+    check_frames(probe_outs, probe_launches, PROBE_FRAMES,
+                 MIN_LAUNCHES_PER_FRAME, "probe")
+    filled = [o["probe_filled"] for o in probe_outs]
+    check(min(filled) > 0.0, f"probe: probes filled {filled} of the pixels "
+          "SSR left empty")
+    print(f"probe: {PROBE_FRAMES} frames (SSR on, probes on), launches "
+          f"{probe_launches}; share of SSR-empty pixels filled by a probe "
+          f"hit per frame {[round(f, 4) for f in filled]}")
+    print_medians("probe", probe_secs)
+
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
     wrappers = {name: getattr(mod, name) for name, (mod, _) in plain.items()}
     results = {}
     failures = []
-    for name, args, kw in captured:
+    # (row of the kernels line, wrapper, args, kw): main frame 1's calls and
+    # the shadow map's, then K1's opaque and masked calls on one probe face
+    calls = [(name, name, args, kw) for name, args, kw in captured] + [
+        (PROBE_FACE_ROW, name, args, kw) for name, args, kw in face_captured]
+    check([c[1] for c in calls[-2:]] == ["gbuf_tiles"] * 2,
+          "probe grid: K1's calls on the first face were not captured")
+    for row, name, args, kw in calls:
         got = wrappers[name](*args, **kw)
         pkw = dict(kw, return_steps=True) if name == "hierarchical_march" \
             else kw
@@ -737,7 +821,10 @@ def main() -> int:
                 "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                 "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                              else "operations")}
-        results.setdefault(name, []).append(case)
+        results.setdefault(row, []).append(case)
+        if name == "window_gather_bilinear":
+            note += (f"empty kernel on its grid "
+                     f"{time_ms(k5_empty_grid, (args[0],), {}):.4f} ms")
         if name == "hierarchical_march":
             steps = want[3]
             note += f", sum of iterations {int(steps.sum())}"
@@ -758,14 +845,14 @@ def main() -> int:
                   f"{kept * 128} pair-pixel tests, against "
                   f"{covered_pair_pixels(*args[:3], kw)} covered and {every} "
                   "in all")
-        print(f"kernel {name} [{case['shape']}]: max_abs_err {err:.3g} "
+        print(f"kernel {row} [{case['shape']}]: max_abs_err {err:.3g} "
               f"({'ok' if ok else 'OUT OF TOLERANCE'}{', ' + note if note else ''}"
               f"), {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
               f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
         if not ok:
-            failures.append(f"{name} [{case['shape']}] max_abs_err {err}")
+            failures.append(f"{row} [{case['shape']}] max_abs_err {err}")
     # K1 and K7 on one tile of many chunks: ties and -0.0 depths
     for w, n_pairs, with_peel in STRESS:
         srows, sstart, scount = stress_rows(device, n_pairs, w, seed=w)
@@ -792,8 +879,8 @@ def main() -> int:
           + "; ".join(failures))
     for name in KERNELS:
         check(name in results, f"{name} was not called in main frame "
-              f"{CAPTURE_FRAME} or the shadow phase")
-    del captured
+              f"{CAPTURE_FRAME}, the shadow phase or the probe grid")
+    del captured, face_captured
 
     # ---- the same frames through the plain versions ----
     kernels.LAUNCHES.clear()
@@ -811,7 +898,20 @@ def main() -> int:
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"{k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
+    with Substitute(lambda name, wrapper, p: p):
+        plain_probe, _ = render(scene, res, cfg_probe, device, PROBE_FRAMES,
+                                probe_grid=grid)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          "a kernel launched while the plain versions were substituted")
+    worst = {k: min(psnr(o[k], p[k]) for o, p in zip(probe_outs, plain_probe))
+             for k in FRAME_CHANNELS}
+    print("probe psnr kernels vs plain versions (dB, min over frames): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= MIN_PSNR_DB, f"probe {k}: {v:.2f} dB against the plain "
+              f"versions (< {MIN_PSNR_DB})")
 
+    launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]
     table = []
     for name, (source, replaces) in KERNELS.items():
         cases = results[name]
@@ -825,7 +925,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            # per frame (per shadow map for K7): the sum over its calls
+            # per frame (per shadow map for K7, per probe face for K1 on
+            # the faces, whose launches are per start-up): the sum over
+            # its calls
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"), "bound_by": bound_by,
             "library_ms": total("library_ms"),

@@ -4,9 +4,10 @@
     python3 profile_frame.py
 
 Renders chip_smoke.py's main workload (the bench orbit at 1920x1080 on the
-314,988-triangle colonnade, the default RenderConfig: SSR on, MIS GTAO)
-three times, N_FRAMES frames each, the first WARMUP_FRAMES of each
-unmeasured:
+314,988-triangle colonnade, the default RenderConfig: SSR on, MIS GTAO),
+then the same with probe GI (enable_probes, the default 4x4 probe grid
+built first), each three times, N_FRAMES frames each, the first
+WARMUP_FRAMES of each unmeasured:
 
 1. plain: host wall time per frame, bracketed by torch.cuda.synchronize().
 2. per pass: a CUDA event pair and the host clock around each pass and each
@@ -15,6 +16,8 @@ unmeasured:
 3. busy share: the measured frames run under torch.profiler with only CUDA
    activity recorded. The device time of every kernel and copy in those
    frames is divided by the host wall time of the same frames.
+4. with probes: the kernels, copies and device ms of one probe_trace call
+   on the last frame's inputs, under torch.profiler.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -34,8 +38,8 @@ from chip_smoke import HEIGHT, N_FRAMES, SCENE, WARMUP_FRAMES, WIDTH
 def timed_steps():
     """(module, attribute, label) of every function timed in phase 2."""
     from vkr_tpu_torch import frame
-    from vkr_tpu_torch.passes import (downsample, gbuffer, gtao, shading,
-                                      ssr, ssr_march, taa)
+    from vkr_tpu_torch.passes import (downsample, gbuffer, gtao, probes,
+                                      shading, ssr, ssr_march, taa)
     from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
 
     return [
@@ -44,6 +48,7 @@ def timed_steps():
         (ssr, "ssr_trace", "pass.ssr_trace"),
         (ssr, "ssr_filter", "pass.ssr_filter"),
         (ssr, "ssr_blur", "pass.ssr_blur (K5)"),
+        (probes, "probe_trace", "pass.trace_probes"),
         (gtao, "gtao_main_mis", "pass.gtao_main_mis (K4)"),
         (gtao, "gtao_filter", "pass.gtao_filter"),
         (gtao, "gtao_accumulate", "pass.gtao_accumulate (K5)"),
@@ -93,7 +98,7 @@ def pass_timers(log):
             setattr(mod, attr, fn)
 
 
-def frames(scene, res, cfg, device, measured):
+def frames(scene, res, cfg, device, measured, probe_grid=None):
     """Render the orbit; frames from WARMUP_FRAMES on run inside
     measured(). Returns the host seconds of each measured frame and of
     the measured frames as one block."""
@@ -117,7 +122,8 @@ def frames(scene, res, cfg, device, measured):
                                bench_orbit_view(max(i - 1, 0)), i, device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, state, _ = render_frame(scene, state, cam, res, cfg)
+            _, state, _ = render_frame(scene, state, cam, res, cfg,
+                                       probe_grid=probe_grid)
             torch.cuda.synchronize()
             if i >= WARMUP_FRAMES:
                 secs.append(time.perf_counter() - t0)
@@ -141,25 +147,44 @@ def main() -> int:
 
     from vkr_tpu_torch import kernels
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.frame import build_ssr_resources
+    from vkr_tpu_torch.frame import build_probe_grid, build_ssr_resources
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.scene.procedural import colonnade_scene
 
     kernels.build()
-    scene = upload_scene(colonnade_scene(**SCENE), device)
+    scene_np = colonnade_scene(**SCENE)
+    scene = upload_scene(scene_np, device)
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     res = build_ssr_resources(cfg.ssr.lut_size, device=device)
+    cfg_probe = dataclasses.replace(cfg, enable_probes=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = build_probe_grid(scene_np, cfg_probe, device=device)
+    torch.cuda.synchronize()
+    print(f"probe grid: start-up {time.perf_counter() - t0:.3f} s")
+    for what, c, g in (("default frame", cfg, None),
+                       ("probe frame", cfg_probe, grid)):
+        print(f"==== {what}")
+        profile(scene, res, c, device, g)
+    return 0
+
+
+def profile(scene, res, cfg, device, grid):
+    import torch
+
+    from vkr_tpu_torch.passes import probes
+
     n_measured = N_FRAMES - WARMUP_FRAMES
     label = f"frames {WARMUP_FRAMES}..{N_FRAMES - 1}"
 
     # ---- 1. plain frames ----
-    secs, _ = frames(scene, res, cfg, device, contextlib.nullcontext)
+    secs, _ = frames(scene, res, cfg, device, contextlib.nullcontext, grid)
     print(f"plain: median {statistics.median(secs) * 1e3:.3f} ms over "
           f"{label}; all {[round(s * 1e3, 3) for s in secs]}")
 
     # ---- 2. per pass ----
     log = []
-    secs, _ = frames(scene, res, cfg, device, lambda: pass_timers(log))
+    secs, _ = frames(scene, res, cfg, device, lambda: pass_timers(log), grid)
     print(f"per pass: median frame {statistics.median(secs) * 1e3:.3f} ms "
           f"over {label} (with the timers); ms per frame:")
     stream, host = collections.Counter(), collections.Counter()
@@ -176,13 +201,8 @@ def main() -> int:
     # ---- 3. busy share ----
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    secs, block = frames(scene, res, cfg, device, lambda: prof)
-    device_ms = collections.Counter()
-    launches = collections.Counter()
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            device_ms[e.key] += e.self_device_time_total / 1e3
-            launches[e.key] += e.count
+    secs, block = frames(scene, res, cfg, device, lambda: prof, grid)
+    device_ms, launches = device_time(prof)
     busy_ms = sum(device_ms.values())
     print(f"busy share: {label} under the profiler took {block * 1e3:.3f} "
           f"ms of host wall time (median frame "
@@ -196,7 +216,37 @@ def main() -> int:
     for key, ms in device_ms.most_common(12):
         print(f"  {ms / n_measured:8.4f} {launches[key] / n_measured:7.1f}  "
               f"{key[:100]}")
-    return 0
+
+    # ---- 4. one probe trace ----
+    if grid is not None:
+        trace = probes.probe_trace
+        kept = []
+        probes.probe_trace = lambda *a: kept.append(a) or trace(*a)
+        try:
+            frames(scene, res, cfg, device, contextlib.nullcontext, grid)
+        finally:
+            probes.probe_trace = trace
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            trace(*kept[-1])
+            torch.cuda.synchronize()
+        device_ms, launches = device_time(p)
+        print(f"probe trace: one call on the last frame's inputs, "
+              f"{sum(launches.values())} kernels and copies, "
+              f"{sum(device_ms.values()):.3f} device ms; top:")
+        for key, ms in device_ms.most_common(6):
+            print(f"  {ms:8.4f} {launches[key]:7d}  {key[:100]}")
+
+
+def device_time(prof):
+    """(device ms, launches) by kernel name of a finished profile."""
+    device_ms = collections.Counter()
+    launches = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            device_ms[e.key] += e.self_device_time_total / 1e3
+            launches[e.key] += e.count
+    return device_ms, launches
 
 
 if __name__ == "__main__":

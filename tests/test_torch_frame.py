@@ -173,8 +173,7 @@ def test_port_imports_no_jax():
     assert int(done.stdout.strip()) > 20
 
 
-@pytest.mark.parametrize("option", ["trilinear_textures", "enable_probes",
-                                    "use_ray_query"])
+@pytest.mark.parametrize("option", ["trilinear_textures", "use_ray_query"])
 def test_unported_options_raise(option):
     """An option whose passes are not ported raises NotImplementedError
     naming its ROADMAP item; it never renders something else."""
@@ -191,3 +190,30 @@ def test_unported_options_raise(option):
         cfg = dataclasses.replace(cfg, **{option: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(None, None, None, None, cfg)
+
+
+def test_probes_without_grid_render_the_probeless_frame():
+    """enable_probes with no probe grid is the probeless frame, as in
+    vkr_tpu (frame.py: the probe pass needs both)."""
+    import dataclasses
+
+    from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import (build_ssr_resources, camera_frame,
+                                     render_frame)
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+
+    cfg = RenderConfig(width=32, height=16, enable_ssr=False)
+    scene = upload_scene(colonnade_scene(columns=2, tessellation=6,
+                                         tex_size=32), "cpu")
+    res = build_ssr_resources(16, device="cpu")
+    cam = camera_frame(cfg, bench_orbit_view(0), bench_orbit_view(0), 0,
+                       "cpu")
+    outs = [render_frame(scene, FrameState.initial(16, 32, "cpu"), cam, res,
+                         dataclasses.replace(cfg, enable_probes=on))
+            for on in (False, True)]
+    (base, _, base_aux), (color, _, aux) = outs
+    assert aux["probe"] is None and base_aux["probe"] is None
+    torch.testing.assert_close(color, base, rtol=0, atol=0)

@@ -112,3 +112,57 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tgk._check("k", (img.double(),), ((8, 12),))
     with pytest.raises(ValueError):
         tgk._check("k", (img.t(),), ((12, 8),))
+
+
+# K5's launch (csrc/window_gather.cu, window_gather_k5 and k5_grid):
+# blocks of kK5ThreadsX x kK5Rows threads, one pixel per thread; a warp is
+# the 32 threads of one block row.
+K5_THREADS_X, K5_ROWS = 32, 8
+
+
+def _k5_walk(h, w, ch):
+    """window_gather_k5's index walk in PyTorch: per pixel, the offset
+    reads; per output element, the writes; and per warp (block, row of
+    the block), its 32 lanes' pixel indices and which lanes are live."""
+    grid_x = -(-w // K5_THREADS_X)
+    grid_y = -(-h // K5_ROWS)
+    bx, by, ty, tx = torch.meshgrid(
+        torch.arange(grid_x), torch.arange(grid_y), torch.arange(K5_ROWS),
+        torch.arange(K5_THREADS_X), indexing="ij")
+    x = bx * K5_THREADS_X + tx
+    y = by * K5_ROWS + ty
+    live = (x < w) & (y < h)
+    p = y * w + x
+    reads = torch.zeros(h * w, dtype=torch.int64).index_add_(
+        0, p[live], torch.ones_like(p[live]))
+    el = (p[..., None] * ch + torch.arange(ch))[live].flatten()
+    writes = torch.zeros(h * w * ch, dtype=torch.int64).index_add_(
+        0, el, torch.ones_like(el))
+    return (reads, writes, p.reshape(-1, K5_THREADS_X),
+            live.reshape(-1, K5_THREADS_X))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+def test_k5_walk_covers_each_pixel_once(channels):
+    """A 957-wide image (not a multiple of the block's 32 columns) and 9
+    rows (not a multiple of 8): every pixel's offsets are read once and
+    every output element written once, with ragged blocks at both edges."""
+    reads, writes, _, live = _k5_walk(9, 957, channels)
+    assert reads.eq(1).all() and writes.eq(1).all()
+    assert (~live).any()
+
+
+def test_k5_warps_hold_adjacent_pixels_of_one_row():
+    """Each warp's live lanes are a run of adjacent pixels of one row, so
+    its loads and stores coalesce; at the frame's half-res size (540, 960)
+    every warp with a live lane is full."""
+    lanes = torch.arange(K5_THREADS_X)
+    for h, w in ((9, 957), (540, 960)):
+        _, _, p, live = _k5_walk(h, w, 1)
+        first = p[:, :1]
+        assert (p - first)[live].eq(lanes.expand_as(p)[live]).all()
+        assert (p // w)[live].eq(first.expand_as(p)[live] // w).all()
+        # the live lanes are a prefix of the warp
+        assert torch.equal(live, live.cumprod(1).bool())
+    per_warp = live.sum(1)
+    assert ((per_warp == 0) | (per_warp == K5_THREADS_X)).all()

@@ -15,9 +15,11 @@ This package never imports jax or vkr_tpu.
   scene/      — glTF dataclasses, CompiledScene, the procedural colonnade
   raster/     — SoA raster front end, pair rows, the G-buffer kernel (K1),
                 texture sampling, the window-gather kernels (K4/K5/K6)
-  passes/     — G-buffer, hi-Z, GTAO, deferred shading, TAA, BRDF LUT
+  passes/     — G-buffer, hi-Z, SSR, GTAO, deferred shading, TAA, BRDF LUT,
+                shadow maps, probe GI
   frame.py    — render_frame: the frame chain and its history remaps
-  convert.py  — carry vkr_tpu's numpy scene / FrameState arrays across
+  convert.py  — carry vkr_tpu's numpy scene / FrameState / probe grid
+                arrays across
 """
 
 __version__ = "0.1.0"

@@ -36,6 +36,22 @@ def ssr_resources_from_numpy(resources, device):
         for name in SSRResources._fields})
 
 
+def probe_grid_from_numpy(grid, device):
+    """vkr_tpu's ProbeGrid (arrays numpy can read, the mip tables and the
+    grid size) -> the port's passes.probes.ProbeGrid on `device`."""
+    from vkr_tpu_torch.passes.probes import ProbeGrid
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return ProbeGrid(
+        colors=t(grid.colors), depth_flat=t(grid.depth_flat),
+        mip_offsets=tuple(int(o) for o in grid.mip_offsets),
+        mip_sizes=tuple(int(s) for s in grid.mip_sizes),
+        probe_min=t(grid.probe_min), probe_max=t(grid.probe_max),
+        grid_size=int(grid.grid_size))
+
+
 def framestate_from_numpy(state_arrays, device) -> FrameState:
     """FrameState from a mapping or object with FrameState's fields as
     arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict)."""

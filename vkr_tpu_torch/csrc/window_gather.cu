@@ -17,10 +17,17 @@
 // absorb the reuse), so the floor is about one read of the image plus the
 // offsets and one write of the output: at 1080p K6 moves ~8 MB in and
 // ~133 MB out.
-// What the design does about it: one thread per output element, adjacent
-// threads on adjacent pixels, so offset reads and output writes coalesce
-// and the taps of a warp fall in a few cache lines. K6 computes its six
-// taps in one thread from one read of the offsets.
+// What the design does about it: K4 and K6 run one thread per output
+// element, adjacent threads on adjacent pixels, so offset reads and output
+// writes coalesce and the taps of a warp fall in a few cache lines. K6
+// computes its six taps in one thread from one read of the offsets.
+// K5 moves only ~8 MB at (540, 960), so fixed costs per launch and per
+// pixel weigh on it: its kernel is templated on the channel count and runs
+// one pixel per thread on a 2-D grid of (32 x 8)-thread blocks, with no
+// index division, 32-bit indices, and the offsets and taps read through the
+// read-only path. Four pixels per thread (float4 offsets and stores) lost
+// to this on the card: a warp's tap loads then span four times the cache
+// lines, which cost most with two channels.
 //
 // Arithmetic: built with -fmad=false; per tap, o = clamp(off, -r, r),
 // i = floor(o), f = o - i (exact), then a y-lerp of both columns and an
@@ -46,31 +53,51 @@ __device__ __forceinline__ Tap axis_tap(float off, float r, int pos,
   return {min(max(i, 0), size - 1), min(max(i + 1, 0), size - 1), o - fl};
 }
 
+// the bilinear blend of taps a0 (y0, x0), a1 (y1, x0), b0 (y0, x1),
+// b1 (y1, x1): a y-lerp of both columns, then an x-lerp
+__device__ __forceinline__ float lerp2(float a0, float a1, float b0, float b1,
+                                       float fy, float fx) {
+  const float va = a0 + (a1 - a0) * fy;
+  const float vb = b0 + (b1 - b0) * fy;
+  return va + (vb - va) * fx;
+}
+
 // bilinear sample of channel c of a (H, W, C) image
 __device__ __forceinline__ float bilerp(const float* __restrict__ img, int w,
                                         int ch, int c, Tap ty, Tap tx) {
-  const float a0 = img[((long long)ty.i0 * w + tx.i0) * ch + c];
-  const float a1 = img[((long long)ty.i1 * w + tx.i0) * ch + c];
-  const float b0 = img[((long long)ty.i0 * w + tx.i1) * ch + c];
-  const float b1 = img[((long long)ty.i1 * w + tx.i1) * ch + c];
-  const float va = a0 + (a1 - a0) * ty.f;
-  const float vb = b0 + (b1 - b0) * ty.f;
-  return va + (vb - va) * tx.f;
+  return lerp2(img[((long long)ty.i0 * w + tx.i0) * ch + c],
+               img[((long long)ty.i1 * w + tx.i0) * ch + c],
+               img[((long long)ty.i0 * w + tx.i1) * ch + c],
+               img[((long long)ty.i1 * w + tx.i1) * ch + c], ty.f, tx.f);
 }
 
-// K5: one tap per pixel, C channels. out (H, W, C).
-__global__ void window_gather_kernel(const float* __restrict__ img, int h,
-                                     int w, int ch,
-                                     const float* __restrict__ off_y,
-                                     const float* __restrict__ off_x, float r,
-                                     float* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (long long)h * w) return;
-  const int y = (int)(p / w);
-  const int x = (int)(p - (long long)y * w);
-  const Tap ty = axis_tap(off_y[p], r, y, h);
-  const Tap tx = axis_tap(off_x[p], r, x, w);
-  for (int c = 0; c < ch; ++c) out[p * ch + c] = bilerp(img, w, ch, c, ty, tx);
+// K5: one tap per pixel, C channels. out (H, W, C). Thread (tx, ty) of
+// block (bx, by) takes pixel x = 32 bx + tx of row y = 8 by + ty: a warp
+// holds 32 adjacent pixels of one row, so its offset loads, its taps
+// (neighbours in the image) and its stores coalesce.
+constexpr int kK5ThreadsX = 32;
+constexpr int kK5Rows = 8;
+
+template <int C>
+__global__ void __launch_bounds__(kK5ThreadsX * kK5Rows)
+    window_gather_k5(const float* __restrict__ img, int h, int w,
+                     const float* __restrict__ off_y,
+                     const float* __restrict__ off_x, float r,
+                     float* __restrict__ out) {
+  const int x = blockIdx.x * kK5ThreadsX + threadIdx.x;
+  const int y = blockIdx.y * kK5Rows + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int p = y * w + x;
+  const Tap ty = axis_tap(__ldg(off_y + p), r, y, h);
+  const Tap tx = axis_tap(__ldg(off_x + p), r, x, w);
+  const float* a0 = img + (ty.i0 * w + tx.i0) * C;
+  const float* a1 = img + (ty.i1 * w + tx.i0) * C;
+  const float* b0 = img + (ty.i0 * w + tx.i1) * C;
+  const float* b1 = img + (ty.i1 * w + tx.i1) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    out[p * C + c] = lerp2(__ldg(a0 + c), __ldg(a1 + c), __ldg(b0 + c),
+                           __ldg(b1 + c), ty.f, tx.f);
 }
 
 // K4: K taps per pixel of one (H, W) image. off_* and out (K, H, W).
@@ -121,15 +148,47 @@ __global__ void taa_history_gather_kernel(const float* __restrict__ hist,
 
 unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+dim3 k5_grid(int h, int w) {
+  return dim3((unsigned)((w + kK5ThreadsX - 1) / kK5ThreadsX),
+              (unsigned)((h + kK5Rows - 1) / kK5Rows));
+}
+
+// Launches nothing but K5's grid: the floor of K5's time that no kernel
+// body can go under.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
+// ch in {1, 2, 3} and h * w * ch < 2^31 (the wrapper checks both).
 extern "C" int vkr_window_gather(const float* img, int h, int w, int ch,
                                  const float* off_y, const float* off_x,
                                  float radius, float* out, void* stream) {
-  const long long n = (long long)h * w;
-  if (n > 0)
-    window_gather_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-        img, h, w, ch, off_y, off_x, radius, out);
+  if (h <= 0 || w <= 0) return 0;
+  const dim3 grid = k5_grid(h, w), block(kK5ThreadsX, kK5Rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ch) {
+    case 1:
+      window_gather_k5<1><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
+                                                 radius, out);
+      break;
+    case 2:
+      window_gather_k5<2><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
+                                                 radius, out);
+      break;
+    case 3:
+      window_gather_k5<3><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
+                                                 radius, out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vkr_window_gather_empty(int h, int w, void* stream) {
+  if (h > 0 && w > 0)
+    empty_kernel<<<k5_grid(h, w), dim3(kK5ThreadsX, kK5Rows), 0,
+                   (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

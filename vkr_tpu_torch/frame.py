@@ -5,8 +5,9 @@ Mirrors main.cpp:338-402 frame order and vkr_tpu/frame.py: G-buffer raster
 accumulate) -> deferred shading -> TAA resolve. The reference's end-of-frame
 image remaps (main.cpp:416-420) become the returned FrameState.
 
-Ported so far: the default RenderConfig (SSR on, MIS GTAO) and the frame
-with SSR off. Options whose passes are not ported raise
+Ported so far: the default RenderConfig (SSR on, MIS GTAO), the frame with
+SSR off, and probe GI (enable_probes with a grid from build_probe_grid,
+BASELINE config 5). Options whose passes are not ported raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -23,10 +24,12 @@ from vkr_tpu_torch.mathlib.brdf import halton23_table
 from vkr_tpu_torch.mathlib.transforms import perspective, taa_jitter_sequence
 from vkr_tpu_torch.passes import downsample as _down
 from vkr_tpu_torch.passes import gtao as _gtao
+from vkr_tpu_torch.passes import probes as _probes
 from vkr_tpu_torch.passes import shading as _shading
 from vkr_tpu_torch.passes import ssr as _ssr
 from vkr_tpu_torch.passes import taa as _taa
-from vkr_tpu_torch.passes.gbuffer import SceneDevice, render_gbuffer
+from vkr_tpu_torch.passes.gbuffer import (SceneDevice, render_gbuffer,
+                                          upload_scene)
 
 # Reference numerics: float32 products in full precision (vkr_tpu runs its
 # corner transform at precision="highest"); no TF32 anywhere.
@@ -80,10 +83,38 @@ def camera_frame(cfg: RenderConfig, view, prev_view, frame_index: int,
                        jitter=t(jitter))
 
 
+def build_probe_grid(scene_cpu, cfg: RenderConfig, margin: float = 0.5,
+                     probe_y: float = 1.5,
+                     device=_ssr.CUDA) -> _probes.ProbeGrid:
+    """Render the octahedral probe grid over the scene's xz bounds on
+    `device`, the card unless the caller asks for another (start-up task,
+    like the reference's render_probe_grid call site,
+    probe_renderer.cpp:290-384). scene_cpu: CompiledScene (host arrays for
+    the bounds); the device scene is uploaded here."""
+    pos = np.asarray(scene_cpu.positions)
+    lo = pos.min(axis=0) if len(pos) else np.zeros(3)
+    hi = pos.max(axis=0) if len(pos) else np.zeros(3)
+    pmin = np.array([lo[0] + margin, probe_y, lo[2] + margin], np.float32)
+    pmax = np.array([hi[0] - margin, probe_y, hi[2] - margin], np.float32)
+    return _probes.render_probe_grid(
+        upload_scene(scene_cpu, device), pmin, pmax, cfg.probes.grid,
+        cube_size=cfg.probes.cube_size, oct_size=cfg.probes.oct_size)
+
+
+def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
+    """Fill SSR-empty pixels with probe-GI reflections.
+
+    "Empty" is decided by the trace's validity channel (rays w = source
+    depth, 1.0 = no hit), not by the blurred colour being black: a
+    legitimately black valid reflection survives. The reference never
+    composes both (probes are not in its main loop, trace_probe/
+    shader.comp:73-84); this fill is vkr_tpu's extension for
+    cfg.enable_probes + enable_ssr (PARITY.md)."""
+    return torch.where(rays[..., 3:4] >= 1.0, probe_rgb, ssr_blurred)
+
+
 def _check_supported(cfg: RenderConfig):
     todo = [
-        (cfg.enable_probes, "enable_probes: probe GI is ROADMAP queue 1 "
-         "item 10"),
         (cfg.gtao.use_ray_query, "gtao.use_ray_query: ray-traced GTAO is "
          "ROADMAP queue 1 item 11"),
         (cfg.trilinear_textures, "trilinear_textures: trilinear sampling "
@@ -95,22 +126,28 @@ def _check_supported(cfg: RenderConfig):
 
 
 def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
-                 ssr_res: SSRResources, cfg: RenderConfig):
-    """One frame: returns (final color (H, W, 3), new FrameState, aux)."""
+                 ssr_res: SSRResources, cfg: RenderConfig, *,
+                 probe_grid=None):
+    """One frame: returns (final color (H, W, 3), new FrameState, aux).
+
+    probe_grid: the start-up ProbeGrid (build_probe_grid); with
+    cfg.enable_probes it feeds indirect reflections into shading. Without
+    one the frame is the probeless frame, as in vkr_tpu."""
     _check_supported(cfg)
     gbuf = render_gbuffer(
         scene, cam.mvp, cam.prev_mvp, cam.jitter,
         width=cfg.width, height=cfg.height, quantize=cfg.quantize_formats,
         mask_peel_layers=cfg.raster.mask_peel_layers,
     )
-    mid = frame_mid(gbuf, state, cam, ssr_res, cfg)
+    mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid)
     return frame_tail(gbuf, mid, state, cam, ssr_res, cfg)
 
 
 def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
-              ssr_res: SSRResources, cfg: RenderConfig):
-    """hi-Z downsample -> SSR (trace/filter/blur) -> GTAO (main/filter/
-    accumulate). Returns the dict of products the tail consumes."""
+              ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None):
+    """hi-Z downsample -> SSR (trace/filter/blur) -> probe GI -> GTAO
+    (main/filter/accumulate). Returns the dict of products the tail
+    consumes."""
     _check_supported(cfg)
     h, w = cfg.height, cfg.width
     dev = gbuf.depth.device
@@ -158,6 +195,20 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         ssr_blurred = torch.zeros((h // 2, w // 2, 3), dtype=torch.float32,
                                   device=dev)
 
+    # ---- Probe GI -> indirect reflections (BASELINE config 5) ----
+    # The reference's ProbeTracePass writes the reflections image deferred
+    # shading reads (trace_probe/shader.comp:73-84 -> defered_shading/
+    # shader.frag:92). With SSR also on, probe hits fill the pixels SSR
+    # left empty.
+    probe_refl = None
+    if cfg.enable_probes and probe_grid is not None:
+        probe_refl = _probes.probe_trace(
+            depth_half, hiz.normal_half, probe_grid, inv_view,
+            cfg.camera.fovy, cfg.aspect, cfg.camera.znear, cfg.camera.zfar)
+        probe_rgb = probe_refl[..., :3] * probe_refl[..., 3:4]
+        ssr_blurred = (compose_probe_reflections(ssr_blurred, rays, probe_rgb)
+                       if cfg.enable_ssr else probe_rgb)
+
     if cfg.enable_gtao:
         gp = _gtao.GTAOParams(
             normal_mat=nm, fovy=cfg.camera.fovy,
@@ -195,7 +246,8 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         occlusion = torch.ones((h // 2, w // 2), dtype=torch.float32,
                                device=dev)
     return {"depth_half": depth_half, "ssr_blurred": ssr_blurred,
-            "gtao_accum": gtao_accum, "occlusion": occlusion}
+            "gtao_accum": gtao_accum, "occlusion": occlusion,
+            "probe": probe_refl, "ssr_rays": rays if cfg.enable_ssr else None}
 
 
 def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
@@ -243,7 +295,10 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
     )
     aux = {"gbuffer": gbuf, "hiz_depth": depth_half,
            "ssr": mid["ssr_blurred"], "ao": occlusion,
-           "overflow": gbuf.overflow}
+           "overflow": gbuf.overflow,
+           # the probe trace (H/2, W/2, 4) and the SSR trace's rays (w = 1:
+           # no hit), or None where the pass did not run
+           "probe": mid["probe"], "ssr_rays": mid["ssr_rays"]}
     return final, new_state, aux
 
 

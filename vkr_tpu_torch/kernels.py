@@ -45,6 +45,7 @@ _SIGNATURES = {
     },
     "window_gather": {
         "vkr_window_gather": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
+        "vkr_window_gather_empty": [_I, _I, _P],
         "vkr_window_gather_multi": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
         "vkr_taa_history_gather": [_P, _P, _I, _I, _P, _P, _F, _P, _P],
     },

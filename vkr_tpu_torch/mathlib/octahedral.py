@@ -1,7 +1,8 @@
 """Octahedral direction/normal encodings.
 
 Same math as the reference's shaders/include/gbuffer_encode.glsl:17-37
-(normal <-> RG16_UNORM payload), vectorized over tensors with an arbitrary
+(normal <-> RG16_UNORM payload) and shaders/include/octahedral.glsl (probe
+direction <-> octahedral texel), vectorized over tensors with an arbitrary
 leading shape and a trailing component axis.
 """
 
@@ -33,3 +34,9 @@ def decode_normal(uv):
     xy = torch.where((z < 0.0)[..., None], folded, uv)
     v = torch.cat([xy, z[..., None]], dim=-1)
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+# Probe-space octahedral direction mapping (octahedral.glsl oct_encode /
+# oct_decode): the same folding under the probe shaders' names.
+oct_encode_dir = encode_normal
+oct_decode_dir = decode_normal

@@ -101,6 +101,10 @@ def window_gather_bilinear(img, off_y, off_x, *, radius: int = 16):
     ch = 1 if img.ndim == 2 else img.shape[2]
     _check("window_gather_bilinear", (img, off_y, off_x),
            (img.shape, (h, w), (h, w)))
+    # the kernel is compiled for 1-3 channels and indexes in 32 bits
+    if ch not in (1, 2, 3) or h * w * ch >= 2 ** 31:
+        raise ValueError(f"window_gather_bilinear: takes 1-3 channels and "
+                         f"fewer than 2^31 elements, got {tuple(img.shape)}")
     out = torch.empty_like(img)
     err = kernels.library("window_gather").vkr_window_gather(
         img.data_ptr(), h, w, ch, off_y.data_ptr(), off_x.data_ptr(),
