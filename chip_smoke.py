@@ -30,7 +30,25 @@
    renders 3 frames of RenderConfig(enable_probes=True) (SSR on) with the
    grid, frame 2 measured, with the main phase's checks, and fails unless
    probe hits fill part of the pixels SSR left empty in every frame.
-7. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+7. RT phase (ray-traced GTAO): builds the scene grid with
+   build_scene_tri_grid at vkr_tpu's defaults (resolution 48, cap 24) and
+   prints its build seconds, dims, dropped (triangle, cell) pairs and
+   device bytes. Renders 3 frames of RenderConfig() with
+   gtao.use_ray_query (SSR on) over the grid, frame 2 measured, with the
+   main phase's checks (K4 must not launch: gtao_rt replaces the MIS
+   pass), and fails unless each frame's AO differs from the main phase's
+   MIS AO of the same frame. Prints the peak device memory of the RT
+   frames and the gtao_rt pass's stream ms in frame 2.
+8. Variants phase: on main frame 1's half-res depth and normals (full-res
+   depth for SSAO) at 1080p, times gtao_main_exact, gtao_main_dense,
+   gtao_normal_space, gtao_main_deinterleaved, both modes of
+   gtao_reproject and ssao, and prints each one's mean. Holds the K4 pass
+   gtao_main_window against gtao_main_exact to vkr_tpu's bound for its
+   own pair (max 1e-3, mean 5e-5) on vkr_tpu's analytic close-range
+   corner at 540x960, and to the mean bound on main frame 1, where far
+   depths amplify the taps' rounding past the max bound for vkr_tpu's own
+   pair too.
+9. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -46,11 +64,12 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-8. Renders the main phase's 8 frames and the probe phase's 3 with the
-   plain versions substituted for the kernels, and requires >= 40 dB PSNR
-   on every G-buffer channel, the SSR (with probe reflections composed in
-   the probe frames), the AO and the final colour of every frame.
-9. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+10. Renders the main phase's 8 frames, the probe phase's 3 and the RT
+   phase's 3 with the plain versions substituted for the kernels, and
+   requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
+   reflections composed in the probe frames), the AO and the final colour
+   of every frame.
+11. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
    on the probe faces (times per face, launches per start-up), and, last,
    the line {"ok": true, "device": {...}}.
 
@@ -72,6 +91,13 @@ WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
 SSR_OFF_FRAMES = 3
 PROBE_FRAMES = 3
+RT_FRAMES = 3
+RT_GRID = dict(resolution=48, cap=24)  # vkr_tpu's build_scene_tri_grid
+# the RT frame's AO must differ from the MIS frame's by this much (mean)
+MIN_RT_AO_DIFF = 0.01
+# vkr_tpu's bound for gtao_main_window against gtao_main_exact
+# (tests/test_passes.py::test_window_matches_exact)
+WINDOW_EXACT_MAX, WINDOW_EXACT_MEAN = 1e-3, 5e-5
 WARMUP_FRAMES = 2
 CAPTURE_FRAME = 1
 SCENE = dict(columns=24, tessellation=80, tex_size=1024)
@@ -87,6 +113,10 @@ MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
                           "window_gather_bilinear_multi": 1,
                           "window_gather_bilinear": 3,
                           "taa_history_gather": 1}
+# gtao_rt takes the MIS pass's place, so K4 does not launch
+RT_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
+                             "window_gather_bilinear": 3,
+                             "taa_history_gather": 1}
 SSR_OFF_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3,
                                   "window_gather_bilinear_multi": 1,
                                   "window_gather_bilinear": 2,
@@ -189,7 +219,7 @@ def recording(log, limit=None):
 
 
 def render(scene, res, cfg, device, n_frames, on_frame=None,
-           probe_grid=None):
+           probe_grid=None, tri_grid=None):
     """The bench loop (bench.py): frame i sees orbit view i after view i-1.
     Returns per-frame outputs and per-frame seconds. With a probe grid, an
     output also holds the share of the pixels SSR left empty that a probe
@@ -210,7 +240,8 @@ def render(scene, res, cfg, device, n_frames, on_frame=None,
         with (on_frame(i) if on_frame is not None
               else contextlib.nullcontext()):
             color, state, aux = render_frame(scene, state, cam, res, cfg,
-                                             probe_grid=probe_grid)
+                                             probe_grid=probe_grid,
+                                             tri_grid=tri_grid)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         g = aux["gbuffer"]
@@ -223,6 +254,34 @@ def render(scene, res, cfg, device, n_frames, on_frame=None,
                 (empty & (aux["probe"][..., 3] > 0.0)).sum() / empty.sum())
         outs.append(out)
     return outs, secs
+
+
+class StreamTimer:
+    """Record a CUDA event pair around each call of mod.attr while the
+    block runs; stream ms of the calls in `log`."""
+
+    def __init__(self, mod, attr, log):
+        self.mod, self.attr, self.log = mod, attr, log
+
+    def __enter__(self):
+        import torch
+
+        fn = self.saved = getattr(self.mod, self.attr)
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            self.log.append(start.elapsed_time(end))
+            return out
+        setattr(self.mod, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.saved)
 
 
 def check_frames(outs, launches, n_frames, min_per_frame, label):
@@ -629,6 +688,45 @@ def k5_empty_grid(img):
         h, w, torch.cuda.current_stream().cuda_stream), "K5 empty grid")
 
 
+def corner_scene(h, w, device):
+    """vkr_tpu's analytic GTAO input (tests/test_passes.py synthetic_scene):
+    a floor and a wall 2.5 ahead, ray-cast at close range from a camera at
+    (0, 1.2, -1.5), at h x w with square pixels. Returns depth (h, w),
+    octahedral normals (h, w, 2) and the GTAOParams' fields."""
+    import numpy as np
+    import torch
+
+    from vkr_tpu_torch.mathlib.octahedral import encode_normal
+    from vkr_tpu_torch.mathlib.transforms import look_at, normal_matrix
+
+    fovy, aspect, zn, zf = math.radians(60.0), w / h, 0.05, 80.0
+    view = look_at((0, 1.2, -1.5), (0, 0.5, 1.0), (0, -1, 0))
+    inv = np.linalg.inv(view.astype(np.float64))
+    ys, xs = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,
+                         indexing="ij")
+    tg = math.tan(fovy / 2)
+    dir_cam = np.stack([-(2 * xs - 1) * tg * aspect, -(2 * ys - 1) * tg,
+                        -np.ones_like(xs)], -1)
+    dir_world = dir_cam @ inv[:3, :3].T
+    org = inv[:3, 3]
+    with np.errstate(divide="ignore"):
+        t_floor = np.where(dir_world[..., 1] < 0,
+                           -org[1] / dir_world[..., 1], 1e9)
+        t_wall = np.where(dir_world[..., 2] > 0,
+                          (2.5 - org[2]) / dir_world[..., 2], 1e9)
+    y_wall = org[1] + t_wall * dir_world[..., 1]
+    t_wall = np.where((y_wall >= 0) & (y_wall <= 2.0), t_wall, 1e9)
+    t = np.minimum(t_floor, t_wall)
+    depth = np.clip(zf / (zf - zn) + zf * zn / (-t * (zf - zn)), 0, 1)
+    nrm = np.where((t_wall < t_floor)[..., None], [0.0, 0.0, -1.0],
+                   [0.0, 1.0, 0.0])
+    noct = encode_normal(torch.as_tensor(nrm, dtype=torch.float32,
+                                         device=device))
+    return (torch.as_tensor(depth, dtype=torch.float32, device=device), noct,
+            (torch.as_tensor(normal_matrix(view), device=device), fovy,
+             aspect, zn, zf))
+
+
 def light_view_proj():
     """A light at shading's LIGHT_POS looking straight down over the hall
     (90 degrees, near 0.5, far 40), float32."""
@@ -791,6 +889,126 @@ def main() -> int:
           f"hit per frame {[round(f, 4) for f in filled]}")
     print_medians("probe", probe_secs)
 
+    # ---- RT phase: ray-traced GTAO over the scene grid
+    from vkr_tpu_torch.frame import build_scene_tri_grid
+    from vkr_tpu_torch.passes import gtao as gtao_mod
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tri_grid = build_scene_tri_grid(scene_np, device=device, **RT_GRID)
+    torch.cuda.synchronize()
+    tri_grid_s = time.perf_counter() - t0
+    kept_pairs = int((tri_grid.cell_tris >= 0).sum())
+    all_pairs = kept_pairs + tri_grid.overflowed
+    grid_bytes = sum(t.numel() * t.element_size() for t in (
+        tri_grid.tri_verts, tri_grid.cell_tris, tri_grid.grid_min,
+        tri_grid.cell_size))
+    print(f"rt grid: build {tri_grid_s:.3f} s, dims {tri_grid.dims} "
+          f"({math.prod(tri_grid.dims)} cells), cap {tri_grid.cap}, "
+          f"{all_pairs} (triangle, cell) pairs, {tri_grid.overflowed} "
+          f"dropped ({tri_grid.overflowed / all_pairs:.4f}), device bytes "
+          f"{grid_bytes}")
+    cfg_rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
+        cfg.gtao, use_ray_query=True))
+    rt_pass_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    kernels.LAUNCHES.clear()
+    rt_outs, rt_secs = render(
+        scene, res, cfg_rt, device, RT_FRAMES, tri_grid=tri_grid,
+        on_frame=lambda i: (StreamTimer(gtao_mod, "gtao_rt", rt_pass_ms)
+                            if i == WARMUP_FRAMES
+                            else contextlib.nullcontext()))
+    rt_launches = dict(kernels.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check_frames(rt_outs, rt_launches, RT_FRAMES, RT_MIN_LAUNCHES_PER_FRAME,
+                 "rt")
+    check("window_gather_bilinear_multi" not in rt_launches,
+          "rt: K4 launched: the MIS pass ran in place of gtao_rt")
+    check(len(rt_pass_ms) == 1, f"rt: gtao_rt ran {len(rt_pass_ms)} times "
+          f"in frame {WARMUP_FRAMES}")
+    ao_diff = [float((o["ao"] - m["ao"]).abs().mean())
+               for o, m in zip(rt_outs, outs)]
+    check(min(ao_diff) > MIN_RT_AO_DIFF, f"rt: mean |AO - MIS AO| per frame "
+          f"{ao_diff}: the ray-traced branch was not taken")
+    print(f"rt: {RT_FRAMES} frames (SSR on, use_ray_query with the grid), "
+          f"launches {rt_launches}; mean |AO - main phase's MIS AO| per "
+          f"frame {[round(a, 4) for a in ao_diff]}; AO mean "
+          f"{[round(float(o['ao'].mean()), 4) for o in rt_outs]}; gtao_rt "
+          f"stream {rt_pass_ms[0]:.3f} ms in frame {WARMUP_FRAMES}; peak "
+          f"device memory {peak_bytes} bytes ({base_bytes} allocated before "
+          f"the frames)")
+    print_medians("rt", rt_secs)
+
+    # ---- variants phase: the other GTAO passes and SSAO at 1080p
+    from vkr_tpu_torch.frame import _inv4, _normal_mat4, camera_frame
+    from vkr_tpu_torch.mathlib.transforms import perspective
+    from vkr_tpu_torch.passes import ssao as ssao_mod
+    from vkr_tpu_torch.passes.downsample import build_hiz
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    f0, f1 = outs[CAPTURE_FRAME - 1], outs[CAPTURE_FRAME]
+    hiz = build_hiz(f1["depth"], f1["normal"], f1["velocity"])
+    prev_half = build_hiz(f0["depth"], f0["normal"], f0["velocity"]).mips[0]
+    d_half, n_half = hiz.mips[0], hiz.normal_half
+    cam1 = camera_frame(cfg, bench_orbit_view(CAPTURE_FRAME),
+                        bench_orbit_view(CAPTURE_FRAME - 1), CAPTURE_FRAME,
+                        device)
+    lens = (cfg.camera.fovy, cfg.aspect, cfg.camera.znear, cfg.camera.zfar)
+    gp = gtao_mod.GTAOParams(_normal_mat4(cam1.view), *lens)
+    angle = gtao_mod.frame_base_angle(CAPTURE_FRAME)
+    proj = torch.as_tensor(perspective(*lens), device=device)
+    to_prev = proj @ cam1.prev_view @ _inv4(cam1.view)
+    exact = gtao_mod.gtao_main_exact(d_half, n_half, gp, angle)
+    reproject = (d_half, prev_half, exact, f0["ao"], to_prev, *lens)
+    variants = [
+        ("gtao_main_exact", gtao_mod.gtao_main_exact,
+         (d_half, n_half, gp, angle), {}),
+        ("gtao_main_dense", gtao_mod.gtao_main_dense,
+         (d_half, n_half, gp, angle), {}),
+        ("gtao_normal_space", gtao_mod.gtao_normal_space,
+         (d_half, n_half, gp, angle), {}),
+        ("gtao_main_deinterleaved", gtao_mod.gtao_main_deinterleaved,
+         (d_half, n_half, gp, angle), {}),
+        ("gtao_reproject (static)", gtao_mod.gtao_reproject, reproject, {}),
+        ("gtao_reproject (matrix)", gtao_mod.gtao_reproject, reproject,
+         {"matrix_mode": True}),
+        ("ssao", ssao_mod.ssao,
+         (f1["depth"], ssao_mod.SSAOParams(proj, *lens)), {}),
+    ]
+    for name, fn, args, kw in variants:
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == tuple(args[0].shape)
+              and bool(torch.isfinite(out).all()),
+              f"variant {name}: shape {tuple(out.shape)} or not finite")
+        print(f"variant {name} [{tuple(out.shape)}]: "
+              f"{time_ms(fn, args, kw):.3f} ms, mean {float(out.mean()):.4f}")
+    # K4's pass against gtao_main_exact: to vkr_tpu's bound on vkr_tpu's
+    # own kind of input, the close-range corner, at the half-res size; on
+    # main frame 1 the far hall amplifies the taps' rounding (vkr_tpu's own
+    # pair leaves both bounds there, tests/test_torch_gtao_variants.py), so
+    # there the mean bound is held and the rest printed
+    c_depth, c_normal, c_fields = corner_scene(*d_half.shape, device)
+    for label, args, hold_max in (
+            ("corner", (c_depth, c_normal, gtao_mod.GTAOParams(*c_fields),
+                        angle), True),
+            (f"main frame {CAPTURE_FRAME}", (d_half, n_half, gp, angle),
+             False)):
+        diff = (gtao_mod.gtao_main_window(*args)
+                - gtao_mod.gtao_main_exact(*args)).abs()
+        worst, mean = float(diff.max()), float(diff.mean())
+        print(f"gtao_main_window (K4) vs gtao_main_exact, {label} at "
+              f"{tuple(diff.shape)}: max {worst:.3g}, mean {mean:.3g}, "
+              f"pixels over {WINDOW_EXACT_MAX:g} "
+              f"{int((diff > WINDOW_EXACT_MAX).sum())}")
+        check(mean < WINDOW_EXACT_MEAN
+              and (worst < WINDOW_EXACT_MAX or not hold_max),
+              f"gtao_main_window vs gtao_main_exact, {label}: max {worst}, "
+              f"mean {mean}")
+    del hiz, exact, diff, variants, reproject
+
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
     wrappers = {name: getattr(mod, name) for name, (mod, _) in plain.items()}
@@ -909,6 +1127,20 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"probe {k}: {v:.2f} dB against the plain "
+              f"versions (< {MIN_PSNR_DB})")
+
+    kernels.LAUNCHES.clear()
+    with Substitute(lambda name, wrapper, p: p):
+        plain_rt, _ = render(scene, res, cfg_rt, device, RT_FRAMES,
+                             tri_grid=tri_grid)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          "a kernel launched while the plain versions were substituted")
+    worst = {k: min(psnr(o[k], p[k]) for o, p in zip(rt_outs, plain_rt))
+             for k in FRAME_CHANNELS}
+    print("rt psnr kernels vs plain versions (dB, min over frames): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= MIN_PSNR_DB, f"rt {k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
 
     launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]

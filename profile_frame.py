@@ -6,8 +6,9 @@
 Renders chip_smoke.py's main workload (the bench orbit at 1920x1080 on the
 314,988-triangle colonnade, the default RenderConfig: SSR on, MIS GTAO),
 then the same with probe GI (enable_probes, the default 4x4 probe grid
-built first), each three times, N_FRAMES frames each, the first
-WARMUP_FRAMES of each unmeasured:
+built first), then with ray-traced GTAO (gtao.use_ray_query over the
+scene grid of build_scene_tri_grid), each three times, N_FRAMES frames
+each, the first WARMUP_FRAMES of each unmeasured:
 
 1. plain: host wall time per frame, bracketed by torch.cuda.synchronize().
 2. per pass: a CUDA event pair and the host clock around each pass and each
@@ -17,7 +18,8 @@ WARMUP_FRAMES of each unmeasured:
    activity recorded. The device time of every kernel and copy in those
    frames is divided by the host wall time of the same frames.
 4. with probes: the kernels, copies and device ms of one probe_trace call
-   on the last frame's inputs, under torch.profiler.
+   on the last frame's inputs, under torch.profiler; with ray-traced GTAO
+   the same for one gtao_rt call.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -41,6 +43,7 @@ def timed_steps():
     from vkr_tpu_torch.passes import (downsample, gbuffer, gtao, probes,
                                       shading, ssr, ssr_march, taa)
     from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
+    from vkr_tpu_torch.scene import accel
 
     return [
         (frame, "render_gbuffer", "pass.gbuffer"),
@@ -50,6 +53,7 @@ def timed_steps():
         (ssr, "ssr_blur", "pass.ssr_blur (K5)"),
         (probes, "probe_trace", "pass.trace_probes"),
         (gtao, "gtao_main_mis", "pass.gtao_main_mis (K4)"),
+        (gtao, "gtao_rt", "pass.gtao_rt"),
         (gtao, "gtao_filter", "pass.gtao_filter"),
         (gtao, "gtao_accumulate", "pass.gtao_accumulate (K5)"),
         (shading, "deferred_shading", "pass.shading"),
@@ -64,6 +68,7 @@ def timed_steps():
         (pair_rows, "expand_pair_rows", "raster.expand_pair_rows"),
         (gbuf_kernel, "gbuf_tiles", "raster.gbuf_tiles (K1)"),
         (ssr_march, "hierarchical_march", "ssr.march (K2+K3)"),
+        (accel, "ray_any_hit", "gtao_rt.ray_any_hit"),
     ]
 
 
@@ -98,7 +103,8 @@ def pass_timers(log):
             setattr(mod, attr, fn)
 
 
-def frames(scene, res, cfg, device, measured, probe_grid=None):
+def frames(scene, res, cfg, device, measured, probe_grid=None,
+           tri_grid=None):
     """Render the orbit; frames from WARMUP_FRAMES on run inside
     measured(). Returns the host seconds of each measured frame and of
     the measured frames as one block."""
@@ -123,7 +129,8 @@ def frames(scene, res, cfg, device, measured, probe_grid=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, state, _ = render_frame(scene, state, cam, res, cfg,
-                                       probe_grid=probe_grid)
+                                       probe_grid=probe_grid,
+                                       tri_grid=tri_grid)
             torch.cuda.synchronize()
             if i >= WARMUP_FRAMES:
                 secs.append(time.perf_counter() - t0)
@@ -147,7 +154,9 @@ def main() -> int:
 
     from vkr_tpu_torch import kernels
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.frame import build_probe_grid, build_ssr_resources
+    from vkr_tpu_torch.frame import (build_probe_grid,
+                                     build_scene_tri_grid,
+                                     build_ssr_resources)
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.scene.procedural import colonnade_scene
 
@@ -162,29 +171,39 @@ def main() -> int:
     grid = build_probe_grid(scene_np, cfg_probe, device=device)
     torch.cuda.synchronize()
     print(f"probe grid: start-up {time.perf_counter() - t0:.3f} s")
-    for what, c, g in (("default frame", cfg, None),
-                       ("probe frame", cfg_probe, grid)):
+    cfg_rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
+        cfg.gtao, use_ray_query=True))
+    t0 = time.perf_counter()
+    tri_grid = build_scene_tri_grid(scene_np, device=device)
+    torch.cuda.synchronize()
+    print(f"scene grid: start-up {time.perf_counter() - t0:.3f} s")
+    for what, c, g, tg in (("default frame", cfg, None, None),
+                           ("probe frame", cfg_probe, grid, None),
+                           ("rt frame", cfg_rt, None, tri_grid)):
         print(f"==== {what}")
-        profile(scene, res, c, device, g)
+        profile(scene, res, c, device, g, tg)
     return 0
 
 
-def profile(scene, res, cfg, device, grid):
+def profile(scene, res, cfg, device, grid, tri_grid):
     import torch
 
-    from vkr_tpu_torch.passes import probes
+    from vkr_tpu_torch.passes import gtao, probes
+
+    def run(measured):
+        return frames(scene, res, cfg, device, measured, grid, tri_grid)
 
     n_measured = N_FRAMES - WARMUP_FRAMES
     label = f"frames {WARMUP_FRAMES}..{N_FRAMES - 1}"
 
     # ---- 1. plain frames ----
-    secs, _ = frames(scene, res, cfg, device, contextlib.nullcontext, grid)
+    secs, _ = run(contextlib.nullcontext)
     print(f"plain: median {statistics.median(secs) * 1e3:.3f} ms over "
           f"{label}; all {[round(s * 1e3, 3) for s in secs]}")
 
     # ---- 2. per pass ----
     log = []
-    secs, _ = frames(scene, res, cfg, device, lambda: pass_timers(log), grid)
+    secs, _ = run(lambda: pass_timers(log))
     print(f"per pass: median frame {statistics.median(secs) * 1e3:.3f} ms "
           f"over {label} (with the timers); ms per frame:")
     stream, host = collections.Counter(), collections.Counter()
@@ -201,7 +220,7 @@ def profile(scene, res, cfg, device, grid):
     # ---- 3. busy share ----
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    secs, block = frames(scene, res, cfg, device, lambda: prof, grid)
+    secs, block = run(lambda: prof)
     device_ms, launches = device_time(prof)
     busy_ms = sum(device_ms.values())
     print(f"busy share: {label} under the profiler took {block * 1e3:.3f} "
@@ -217,25 +236,41 @@ def profile(scene, res, cfg, device, grid):
         print(f"  {ms / n_measured:8.4f} {launches[key] / n_measured:7.1f}  "
               f"{key[:100]}")
 
-    # ---- 4. one probe trace ----
-    if grid is not None:
-        trace = probes.probe_trace
-        kept = []
-        probes.probe_trace = lambda *a: kept.append(a) or trace(*a)
-        try:
-            frames(scene, res, cfg, device, contextlib.nullcontext, grid)
-        finally:
-            probes.probe_trace = trace
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
-            trace(*kept[-1])
-            torch.cuda.synchronize()
-        device_ms, launches = device_time(p)
-        print(f"probe trace: one call on the last frame's inputs, "
-              f"{sum(launches.values())} kernels and copies, "
-              f"{sum(device_ms.values()):.3f} device ms; top:")
-        for key, ms in device_ms.most_common(6):
-            print(f"  {ms:8.4f} {launches[key]:7d}  {key[:100]}")
+    # ---- 4. one probe trace or one gtao_rt call ----
+    for on, mod, attr in ((grid is not None, probes, "probe_trace"),
+                          (tri_grid is not None, gtao, "gtao_rt")):
+        if on:
+            one_call(mod, attr, run)
+
+
+def one_call(mod, attr, run):
+    """Kernels, copies and device ms of one mod.attr call on the last
+    frame's inputs, under torch.profiler."""
+    import torch
+
+    fn = getattr(mod, attr)
+    kept = []
+
+    def keep(*a, **kw):
+        kept.append((a, kw))
+        return fn(*a, **kw)
+
+    setattr(mod, attr, keep)
+    try:
+        run(contextlib.nullcontext)
+    finally:
+        setattr(mod, attr, fn)
+    args, kw = kept[-1]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+    device_ms, launches = device_time(p)
+    print(f"{attr}: one call on the last frame's inputs, "
+          f"{sum(launches.values())} kernels and copies, "
+          f"{sum(device_ms.values()):.3f} device ms; top:")
+    for key, ms in device_ms.most_common(6):
+        print(f"  {ms:8.4f} {launches[key]:7d}  {key[:100]}")
 
 
 def device_time(prof):

@@ -165,15 +165,20 @@ def test_port_imports_no_jax():
         "or n.startswith(('jax.', 'jaxlib')) or n == 'vkr_tpu' "
         "or n.startswith('vkr_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('vkr_tpu_torch')]))\n"
+        "print(' '.join(n for n in sys.modules "
+        "if n.startswith('vkr_tpu_torch')))\n"
     )
     done = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert done.returncode == 0, done.stderr
-    assert int(done.stdout.strip()) > 20
+    imported = done.stdout.split()
+    assert len(imported) > 20
+    for name in ("scene.accel", "passes.ssao", "passes.gtao", "frame",
+                 "convert"):
+        assert "vkr_tpu_torch." + name in imported, name
 
 
-@pytest.mark.parametrize("option", ["trilinear_textures", "use_ray_query"])
+@pytest.mark.parametrize("option", ["trilinear_textures"])
 def test_unported_options_raise(option):
     """An option whose passes are not ported raises NotImplementedError
     naming its ROADMAP item; it never renders something else."""
@@ -183,11 +188,7 @@ def test_unported_options_raise(option):
     from vkr_tpu_torch.frame import render_frame
 
     cfg = RenderConfig(width=16, height=16, enable_ssr=False)
-    if option == "use_ray_query":
-        cfg = dataclasses.replace(
-            cfg, gtao=dataclasses.replace(cfg.gtao, use_ray_query=True))
-    else:
-        cfg = dataclasses.replace(cfg, **{option: True})
+    cfg = dataclasses.replace(cfg, **{option: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(None, None, None, None, cfg)
 

@@ -218,3 +218,53 @@ class TestRenderGbuffer:
         # at most knife-edge coverage flips (1-ulp plane differences)
         assert (got[covered] == want[covered]).mean() >= 0.999
         assert int(tg.overflow) == 0 == int(jg.overflow)
+
+
+def test_second_masked_layer_changes_the_centre():
+    """tests/test_golden.py::TestMaskDepthPeel on the port: in the
+    two-masked-quads scene at 64x64, mask_peel_layers=2 shows the back
+    masked quad through the front quad's hole, so the centre 8x8 pixels
+    change material and come nearer. Both layer counts equal vkr_tpu's
+    oracle G-buffer (use_pallas=False, run eagerly as test_golden.py runs
+    it) there, away from the edges where its oracle raster parts from its
+    Pallas raster. With two layers some of those pixels still show the
+    backdrop, on both sides and in vkr_tpu's Pallas path too; jitted, the
+    oracle shows the back quad on all 64 (its contracted arithmetic), so
+    the eager form is the one held."""
+    from vkr_tpu.passes.gbuffer import render_gbuffer as j_render
+    from vkr_tpu.passes.gbuffer import upload_scene as j_upload
+    from vkr_tpu.scene.procedural import two_masked_quads_scene as j_scene
+    from vkr_tpu_torch.mathlib.transforms import look_at, perspective
+    from vkr_tpu_torch.passes.gbuffer import render_gbuffer, upload_scene
+    from vkr_tpu_torch.scene.procedural import two_masked_quads_scene
+
+    scene_np = two_masked_quads_scene()
+    for name in scene_np._fields:
+        a, b = getattr(scene_np, name), getattr(j_scene(), name)
+        if name == "tex_mips":
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+        else:
+            np.testing.assert_array_equal(a, b)
+    view = look_at((0, 0, -4), (0, 0, 1), (0, -1, 0))
+    vp = (perspective(np.radians(60), 1.0, 0.05, 80.0) @ view).astype(
+        np.float32)
+    scene = upload_scene(scene_np, "cpu")
+    jscene = j_upload(scene_np)
+    centre = (slice(28, 36), slice(28, 36))
+    got = {}
+    for layers in (1, 2):
+        kw = dict(width=64, height=64, quantize=False,
+                  mask_peel_layers=layers)
+        g = render_gbuffer(scene, torch.from_numpy(vp), torch.from_numpy(vp),
+                           torch.zeros(2), **kw)
+        jg = j_render(jscene, jnp.asarray(vp), jnp.asarray(vp), jnp.zeros(2),
+                      use_pallas=False, **kw)
+        got[layers] = (g.material[centre][..., 2].numpy(),
+                       g.depth[centre].numpy())
+        np.testing.assert_array_equal(got[layers][0],
+                                      np.asarray(jg.material)[centre][..., 2])
+        np.testing.assert_array_equal(got[layers][1],
+                                      np.asarray(jg.depth)[centre])
+    (m1, d1), (m2, d2) = got[1], got[2]
+    assert not np.allclose(m1, m2)
+    assert (d2 <= d1 + 1e-6).all() and (d2 < d1 - 1e-6).any()

@@ -12,14 +12,16 @@ This package never imports jax or vkr_tpu.
   config.py   — RenderConfig dataclasses (JSON-compatible with vkr_tpu)
   mathlib/    — camera matrices, projection, octahedral normals, BRDF
   core/       — storage-format emulation, FrameState
-  scene/      — glTF dataclasses, CompiledScene, the procedural colonnade
+  scene/      — glTF dataclasses, CompiledScene, the procedural scenes,
+                the uniform-grid acceleration structure (accel.py)
   raster/     — SoA raster front end, pair rows, the G-buffer kernel (K1),
                 texture sampling, the window-gather kernels (K4/K5/K6)
-  passes/     — G-buffer, hi-Z, SSR, GTAO, deferred shading, TAA, BRDF LUT,
+  passes/     — G-buffer, hi-Z, SSR, GTAO (ray-traced GTAO and the
+                variants too), SSAO, deferred shading, TAA, BRDF LUT,
                 shadow maps, probe GI
   frame.py    — render_frame: the frame chain and its history remaps
-  convert.py  — carry vkr_tpu's numpy scene / FrameState / probe grid
-                arrays across
+  convert.py  — carry vkr_tpu's numpy scene / FrameState / probe grid /
+                scene grid arrays across
 """
 
 __version__ = "0.1.0"

@@ -52,6 +52,24 @@ def probe_grid_from_numpy(grid, device):
         grid_size=int(grid.grid_size))
 
 
+def tri_grid_from_numpy(grid, device):
+    """vkr_tpu's TriGrid (tri_verts, cell_tris, grid_min, cell_size: arrays
+    numpy can read; dims, cap, overflowed: ints) -> the port's
+    scene.accel.TriGrid on `device`."""
+    from vkr_tpu_torch.scene.accel import TriGrid
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype), device=device)
+
+    return TriGrid(
+        tri_verts=t(grid.tri_verts, np.float32),
+        cell_tris=t(grid.cell_tris, np.int32),
+        grid_min=t(grid.grid_min, np.float32),
+        cell_size=t(grid.cell_size, np.float32),
+        dims=tuple(int(n) for n in grid.dims), cap=int(grid.cap),
+        overflowed=int(grid.overflowed))
+
+
 def framestate_from_numpy(state_arrays, device) -> FrameState:
     """FrameState from a mapping or object with FrameState's fields as
     arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict)."""

@@ -6,13 +6,15 @@ accumulate) -> deferred shading -> TAA resolve. The reference's end-of-frame
 image remaps (main.cpp:416-420) become the returned FrameState.
 
 Ported so far: the default RenderConfig (SSR on, MIS GTAO), the frame with
-SSR off, and probe GI (enable_probes with a grid from build_probe_grid,
-BASELINE config 5). Options whose passes are not ported raise
+SSR off, probe GI (enable_probes with a grid from build_probe_grid,
+BASELINE config 5) and ray-traced GTAO (gtao.use_ray_query with a grid
+from build_scene_tri_grid). Options whose passes are not ported raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -30,6 +32,7 @@ from vkr_tpu_torch.passes import ssr as _ssr
 from vkr_tpu_torch.passes import taa as _taa
 from vkr_tpu_torch.passes.gbuffer import (SceneDevice, render_gbuffer,
                                           upload_scene)
+from vkr_tpu_torch.scene.accel import TriGrid, build_tri_grid
 
 # Reference numerics: float32 products in full precision (vkr_tpu runs its
 # corner transform at precision="highest"); no TF32 anywhere.
@@ -101,6 +104,26 @@ def build_probe_grid(scene_cpu, cfg: RenderConfig, margin: float = 0.5,
         cube_size=cfg.probes.cube_size, oct_size=cfg.probes.oct_size)
 
 
+def build_scene_tri_grid(scene_cpu, resolution: int = 48, cap: int = 24,
+                         device=_ssr.CUDA) -> TriGrid:
+    """The uniform-grid acceleration structure over the scene's world-space
+    triangles (the scene_as.cpp BLAS/TLAS build analog; a start-up task on
+    the host), on `device`, the card unless the caller asks for another.
+    It feeds gtao_rt through render_frame's tri_grid when
+    cfg.gtao.use_ray_query is set. scene_cpu: CompiledScene."""
+    pos = np.asarray(scene_cpu.positions)
+    m = np.asarray(scene_cpu.transforms)[np.asarray(scene_cpu.vert_transform)]
+    world = np.einsum("vij,vj->vi", m[:, :3, :3], pos) + m[:, :3, 3]
+    return build_tri_grid(world, np.asarray(scene_cpu.tri_indices),
+                          resolution=resolution, cap=cap, device=device)
+
+
+@functools.lru_cache(maxsize=4)
+def _rt_direction_table(count: int, device) -> torch.Tensor:
+    """ao_ray_directions(count) on `device`, made once."""
+    return torch.as_tensor(_gtao.ao_ray_directions(count), device=device)
+
+
 def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
     """Fill SSR-empty pixels with probe-GI reflections.
 
@@ -114,37 +137,37 @@ def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
 
 
 def _check_supported(cfg: RenderConfig):
-    todo = [
-        (cfg.gtao.use_ray_query, "gtao.use_ray_query: ray-traced GTAO is "
-         "ROADMAP queue 1 item 11"),
-        (cfg.trilinear_textures, "trilinear_textures: trilinear sampling "
-         "is ROADMAP queue 1 item 13"),
-    ]
-    for on, what in todo:
-        if on:
-            raise NotImplementedError(f"vkr_tpu_torch does not port {what}")
+    if cfg.trilinear_textures:
+        raise NotImplementedError(
+            "vkr_tpu_torch does not port trilinear_textures: trilinear "
+            "sampling is ROADMAP queue 1 item 13")
 
 
 def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
                  ssr_res: SSRResources, cfg: RenderConfig, *,
-                 probe_grid=None):
+                 probe_grid=None, tri_grid=None):
     """One frame: returns (final color (H, W, 3), new FrameState, aux).
 
     probe_grid: the start-up ProbeGrid (build_probe_grid); with
     cfg.enable_probes it feeds indirect reflections into shading. Without
-    one the frame is the probeless frame, as in vkr_tpu."""
+    one the frame is the probeless frame, as in vkr_tpu. tri_grid: the
+    start-up TriGrid (build_scene_tri_grid); with cfg.gtao.use_ray_query
+    GTAO's main pass is gtao_rt over it. Without one the main pass is the
+    one the frame takes with use_ray_query off, as in vkr_tpu."""
     _check_supported(cfg)
     gbuf = render_gbuffer(
         scene, cam.mvp, cam.prev_mvp, cam.jitter,
         width=cfg.width, height=cfg.height, quantize=cfg.quantize_formats,
         mask_peel_layers=cfg.raster.mask_peel_layers,
     )
-    mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid)
+    mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
+                    tri_grid=tri_grid)
     return frame_tail(gbuf, mid, state, cam, ssr_res, cfg)
 
 
 def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
-              ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None):
+              ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None,
+              tri_grid=None):
     """hi-Z downsample -> SSR (trace/filter/blur) -> probe GI -> GTAO
     (main/filter/accumulate). Returns the dict of products the tail
     consumes."""
@@ -215,7 +238,16 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             aspect=cfg.aspect, znear=cfg.camera.znear, zfar=cfg.camera.zfar,
         )
         base_angle = _gtao.frame_base_angle(state.frame_index)
-        if cfg.gtao.mis and ssr_occ is not None:
+        if cfg.gtao.use_ray_query and tri_grid is not None:
+            # ray-query GTAO against the scene grid (gtao.cpp:150-196,
+            # rt_main.frag); filter and accumulate run unchanged after it
+            raw_ao = _gtao.gtao_rt(
+                depth_half, hiz.normal_half, tri_grid, inv_view,
+                cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
+                cfg.camera.zfar, base_angle,
+                _rt_direction_table(cfg.gtao.rt_directions, dev),
+                rt_radius=cfg.gtao.rt_radius)
+        elif cfg.gtao.mis and ssr_occ is not None:
             # the reference's default main pass (gtao.hpp:112 mis_gtao):
             # MIS with the SSR trace's GGX occlusion estimate
             raw_ao = _gtao.gtao_main_mis(

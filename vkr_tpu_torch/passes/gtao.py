@@ -10,7 +10,11 @@ with world-space validation.
 
 Ported here: the MIS main pass gtao_main_mis (the default frame's, with
 SSR's occlusion estimate), the single-strategy main pass gtao_main_window
-(the frame's choice when SSR is off), gtao_filter and gtao_accumulate.
+(the frame's choice when SSR is off), the ray-traced main pass gtao_rt
+(the frame's choice with gtao.use_ray_query and a scene grid),
+gtao_filter and gtao_accumulate; and vkr_tpu's other variants, which no
+frame of the port takes: gtao_main_exact, gtao_main_dense,
+gtao_normal_space, gtao_reproject and the deinterleaved main pass.
 """
 
 from __future__ import annotations
@@ -24,14 +28,18 @@ import torch
 from vkr_tpu_torch.mathlib.octahedral import decode_normal
 from vkr_tpu_torch.mathlib.projection import (
     linearize_depth,
+    project_view_vec,
     reconstruct_view_vec,
 )
-from vkr_tpu_torch.passes.sampling import reproject_bilinear, screen_uv_grid
+from vkr_tpu_torch.passes.sampling import (bilinear_sample,
+                                          reproject_bilinear, screen_uv_grid)
 from vkr_tpu_torch.raster import gather_kernel as _gather
+from vkr_tpu_torch.scene import accel as _accel
 
 PI = math.pi
 MAX_THICKNESS = 0.1   # main.comp MAX_THIKNESS
 N_STEPS = 16          # find_horizon(..., 16, w0) in gtao_camera_space
+N_CLASSES = 16        # 4x4 dither pattern period
 
 # Per-frame angle offsets (gtao.cpp:109-111). The reference adds libc
 # rand()-0.5; vkr_tpu uses a deterministic hash of the frame index instead.
@@ -123,6 +131,21 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
     depth taps at fractions 1/16..16/16 of the per-pixel radius
     (gtao_camera_space, main.comp:195-225), all fetched by ONE K4 call per
     direction. Returns (H/2, W/2) raw AO."""
+    return _camera_space(depth_half, normal_half, params, base_angle,
+                         dirs_count, exact=False)
+
+
+def gtao_main_exact(depth_half, normal_half, params: GTAOParams,
+                    base_angle: float, dirs_count: int = 1):
+    """gtao_main_window with each of the 16 taps taken by bilinear_sample
+    (vkr_tpu's gtao_main_exact, registered as gtao_compute_main: the main
+    pass of its use_pallas=False frame). Returns (H/2, W/2) raw AO."""
+    return _camera_space(depth_half, normal_half, params, base_angle,
+                         dirs_count, exact=True)
+
+
+def _camera_space(depth_half, normal_half, params, base_angle, dirs_count,
+                  exact):
     H, W = depth_half.shape
     uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
                                                    params)
@@ -137,30 +160,34 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
             [torch.cos(angle), torch.sin(angle)], -1) / size
         n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
                                          params)
-        h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params)
+        h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
+                             exact)
         total = total + _arc_integral(h_cos, n_proj_len, n_angle)
 
     ao = 2.0 * total / dirs_count
     return torch.where(depth_half >= 1.0, 0.0, ao)
 
 
-def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params):
+def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
+                 exact=False):
     """Max horizon cosine along dir_uv (find_horizon in gtao_camera_space,
     main.comp:195-225): 16 bilinear depth taps at fractions 1/16..16/16 of
-    the per-pixel direction, all fetched by ONE K4 call, with the
-    thickness break."""
+    the per-pixel direction, with the thickness break. The taps come from
+    ONE K4 call, or with exact=True from bilinear_sample step by step."""
     H, W = depth_half.shape
-    fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
-                       device=depth_half.device) / N_STEPS)[:, None, None]
-    sds = _gather.window_gather_bilinear_multi(
-        depth_half.contiguous(), fr * (dir_uv[..., 1] * H)[None],
-        fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS)
+    if not exact:
+        fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
+                           device=depth_half.device) / N_STEPS)[:, None, None]
+        sds = _gather.window_gather_bilinear_multi(
+            depth_half.contiguous(), fr * (dir_uv[..., 1] * H)[None],
+            fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS)
     h_cos = torch.full_like(depth_half, -1.0)
     prev_z = camera_pos[..., 2]
     alive = torch.ones_like(depth_half, dtype=torch.bool)
     for i in range(1, N_STEPS + 1):
         tc = uv + (float(i) / N_STEPS) * dir_uv
-        sp = reconstruct_view_vec(tc, sds[i - 1], params.fovy, params.aspect,
+        sd = bilinear_sample(depth_half, tc) if exact else sds[i - 1]
+        sp = reconstruct_view_vec(tc, sd, params.fovy, params.aspect,
                                   params.znear, params.zfar)
         alive = alive & ~(sp[..., 2] > prev_z + MAX_THICKNESS)
         prev_z = torch.where(alive, sp[..., 2], prev_z)
@@ -168,6 +195,203 @@ def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params):
         s_cos = (w0 * off).sum(-1) / _norm(off).clamp(min=1e-20)
         h_cos = torch.where(alive, torch.maximum(h_cos, s_cos), h_cos)
     return h_cos
+
+
+def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
+                    base_angle: float, dirs_count: int = 1):
+    """vkr_tpu's gtao_main_dense: per dither class, march 16 integer-pixel
+    offsets round(j * (cos, sin)) of the class's direction as shifts of
+    the edge-padded depth image, and keep the arc on the pixels of that
+    class. The sample placement differs from the reference's fractional
+    steps (gtao_main_exact). Returns (H/2, W/2) raw AO."""
+    H, W = depth_half.shape
+    dev = depth_half.device
+    uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
+                                                   params)
+    cls_img = gtao_direction_pattern(H, W, dev)
+    size = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    pad = N_STEPS
+    dep_pad = torch.nn.functional.pad(depth_half[None, None],
+                                      (pad, pad, pad, pad),
+                                      mode="replicate")[0, 0]
+
+    f32 = np.float32
+    total = torch.zeros_like(depth_half)
+    for d in range(dirs_count):
+        ao_d = torch.zeros_like(depth_half)
+        for c in range(N_CLASSES):
+            # the class's angle in float32, on the host: its integer
+            # offsets index the padded image
+            angle = f32(2.0 * PI) * (f32(c) / f32(16.0) + f32(base_angle)
+                                     + f32(d / dirs_count))
+            ca, sa = np.cos(angle), np.sin(angle)
+            dir_uv = radius_px[..., None] * torch.stack(
+                [torch.full_like(depth_half, float(ca)),
+                 torch.full_like(depth_half, float(sa))], -1) / size
+            n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n,
+                                             dir_uv, params)
+            h_cos = torch.full_like(depth_half, -1.0)
+            prev_z = camera_pos[..., 2]
+            alive = torch.ones_like(depth_half, dtype=torch.bool)
+            for j in range(1, N_STEPS + 1):
+                ox = int(np.round(f32(j) * ca))
+                oy = int(np.round(f32(j) * sa))
+                sd = dep_pad[pad + oy: pad + oy + H, pad + ox: pad + ox + W]
+                shift = np.array([ox, oy], f32) / np.array([W, H], f32)
+                tc = torch.stack([uv[..., 0] + float(shift[0]),
+                                  uv[..., 1] + float(shift[1])], -1)
+                sp = reconstruct_view_vec(tc, sd, params.fovy, params.aspect,
+                                          params.znear, params.zfar)
+                in_r = float(j) <= radius_px
+                broken = sp[..., 2] > prev_z + MAX_THICKNESS
+                step_alive = alive & in_r & ~broken
+                alive = alive & ~(in_r & broken)
+                prev_z = torch.where(step_alive, sp[..., 2], prev_z)
+                off = sp - camera_pos
+                s_cos = (w0 * off).sum(-1) / _norm(off).clamp(min=1e-20)
+                h_cos = torch.where(step_alive, torch.maximum(h_cos, s_cos),
+                                    h_cos)
+            arc = _arc_integral(h_cos, n_proj_len, n_angle)
+            ao_d = torch.where(cls_img == c, arc, ao_d)
+        total = total + ao_d
+
+    ao = 2.0 * total / dirs_count
+    return torch.where(depth_half >= 1.0, 0.0, ao)
+
+
+def ao_ray_directions(count: int = 64, seed: int = 7):
+    """The reference's fixed hemisphere direction set (gtao.cpp:415-440):
+    uniform unit vectors with z >= 0, rejection-sampled once per run from
+    vkr_tpu's seeded numpy generator, so the same (count, 3) float32
+    table."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        v = rng.uniform(-1.0, 1.0, 3)
+        v[2] = abs(v[2])
+        n = float(np.linalg.norm(v))
+        if n <= 1e-5 or n > 1.0:
+            continue
+        out.append(v / n)
+    return np.asarray(out, np.float32)
+
+
+def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
+            znear, zfar, rotation: float, directions, rt_radius: float = 0.2,
+            max_steps: int = 12, dir_chunk: int = 8):
+    """Ray-traced GTAO (shaders/gtao/rt_main.frag): per half-res pixel,
+    trace the fixed hemisphere direction set, turned into the surface's
+    frame by the per-pixel dither angle plus the per-frame rotation,
+    against the scene grid (scene.accel.TriGrid, the TLAS analog);
+    AO = 2 * mean(visibility * NdotL). directions: (N, 3) tensor from
+    ao_ray_directions. The rays of dir_chunk directions at a time go
+    through ray_any_hit(max_steps=12). Returns (H/2, W/2) raw AO."""
+    H, W = depth_half.shape
+    dev = depth_half.device
+    uv = screen_uv_grid(H, W, dev)
+    view_vec = reconstruct_view_vec(uv, depth_half, fovy, aspect, znear,
+                                    zfar)
+    c2w = camera_to_world
+    world_pos = view_vec @ c2w[:3, :3].T + c2w[:3, 3]
+    n = decode_normal(normal_half)
+    world_pos = world_pos + 1e-6 * n
+
+    # tangent frame and per-pixel dither rotation (rt_main.frag:47-86)
+    t = _unit(_tangent(n))
+    b = _unit(_accel.cross(n, t))
+    t = _accel.cross(b, n)
+    cls = gtao_direction_pattern(H, W, dev).float() / 16.0
+    angle = 2.0 * PI * (rotation + cls)
+    t = _unit(torch.cos(angle)[..., None] * t
+              + torch.sin(angle)[..., None] * b)
+    b = _unit(_accel.cross(n, t))
+    t = _unit(_accel.cross(b, n))
+
+    n_dirs = directions.shape[0]
+    total = torch.zeros_like(depth_half)
+    for c0 in range(0, n_dirs, dir_chunk):
+        d_loc = _unit(directions[c0: c0 + dir_chunk])  # (C, 3)
+        # local -> world per pixel: (H, W, C, 3)
+        dw = _unit(d_loc[:, 2:3] * n[..., None, :]
+                   + d_loc[:, 0:1] * t[..., None, :]
+                   + d_loc[:, 1:2] * b[..., None, :])
+        ndl = torch.clamp(_sum3(dw * n[..., None, :]), min=0.0)
+        hit = _accel.ray_any_hit(tri_grid, world_pos[..., None, :].expand(
+            dw.shape), dw, rt_radius, max_steps=max_steps)
+        total = total + torch.where(hit, 0.0, ndl).sum(-1)
+
+    ao = 2.0 * total / n_dirs
+    return torch.where(depth_half >= 1.0, 0.0, ao)
+
+
+def _sum3(v):
+    """Sum over the last axis of 3, in order."""
+    return (v[..., 0] + v[..., 1]) + v[..., 2]
+
+
+def _unit(v):
+    return v / _norm(v, True).clamp(min=1e-20)
+
+
+def _tangent(n):
+    """(n.y, -n.x, 0), or (1, 0, 0) where |n.x| and |n.y| are both below
+    1e-5 (main.comp get_tangent, rt_main.frag)."""
+    flat = torch.maximum(n[..., 0].abs(), n[..., 1].abs()) < 1e-5
+    return torch.stack([torch.where(flat, 1.0, n[..., 1]),
+                        torch.where(flat, 0.0, -n[..., 0]),
+                        torch.zeros_like(n[..., 0])], -1)
+
+
+def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
+                      base_angle: float, dirs_count: int = 1):
+    """main.comp gtao_normal_space (148-193): the horizon march against the
+    surface normal with the cosine-free (1 - h^2) integration, a radius of
+    min(200/|p|, 32) px and 20 steps. Returns (H/2, W/2) AO, 1 on the
+    sky."""
+    h, w = depth_half.shape
+    dev = depth_half.device
+    uv = screen_uv_grid(h, w, dev)
+    camera_pos = reconstruct_view_vec(uv, depth_half, params.fovy,
+                                      params.aspect, params.znear,
+                                      params.zfar)
+
+    cam_n = _unit(decode_normal(normal_half) @ params.normal_mat[:3, :3].T)
+    tangent = _unit(_tangent(cam_n))
+    bitangent = _unit(_accel.cross(cam_n, tangent))
+    tangent = _accel.cross(bitangent, cam_n)
+
+    cls = gtao_direction_pattern(h, w, dev).float() / 16.0
+    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    radius_px = torch.clamp(200.0 / _norm(camera_pos).clamp(min=1e-20),
+                            max=32.0)
+
+    total = torch.zeros_like(depth_half)
+    for d in range(dirs_count):
+        angle = 2.0 * PI * (cls + base_angle + d / dirs_count)
+        sample_vec = (torch.cos(angle)[..., None] * tangent
+                      + torch.sin(angle)[..., None] * bitangent)
+        sdir = project_view_vec(camera_pos + sample_vec, params.fovy,
+                                params.aspect, params.znear,
+                                params.zfar)[..., :2] - uv
+        dir_uv = radius_px[..., None] * _unit(sdir) / size
+
+        h_cos = torch.full_like(depth_half, -1.0)
+        prev_z = camera_pos[..., 2]
+        alive = torch.ones_like(depth_half, dtype=torch.bool)
+        for i in range(1, 21):
+            tc = uv + (float(i) / 20.0) * dir_uv
+            sd = bilinear_sample(depth_half, tc)
+            sp = reconstruct_view_vec(tc, sd, params.fovy, params.aspect,
+                                      params.znear, params.zfar)
+            alive = alive & ~(sp[..., 2] > prev_z + MAX_THICKNESS)
+            prev_z = torch.where(alive, sp[..., 2], prev_z)
+            off = sp - camera_pos
+            s_cos = (cam_n * off).sum(-1) / _norm(off).clamp(min=1e-20)
+            h_cos = torch.where(alive, torch.maximum(h_cos, s_cos), h_cos)
+        h_cos = torch.clamp(h_cos, min=0.0)
+        total = total + (1.0 - h_cos * h_cos)
+
+    return torch.where(depth_half >= 1.0, 1.0, total / dirs_count)
 
 
 def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
@@ -231,6 +455,89 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     mis_ao = torch.where(torch.isnan(mis_ao), occlusion / pdf_uniform,
                          mis_ao)
     return torch.where(depth_half >= 1.0, 0.0, mis_ao)
+
+
+def gtao_reproject(current_depth, prev_depth, current_ao, prev_ao,
+                   camera_to_prev_frame, fovy, aspect, znear, zfar,
+                   matrix_mode: bool = False, bias: float = 1e-6):
+    """gtao/reproject.comp:27-68: the standalone AO temporal reprojection
+    (matrix-based; gtao_accumulate reprojects by velocity instead). The
+    default is the shader's compiled-in STATIC_REPROJECT mode
+    (reproject.comp:6): where the same pixel's depth matches,
+    ao = mix(prev_ao, new_ao, 0.05). matrix_mode=True is MATRIX_REPROJECT:
+    the view-space point goes through camera_to_prev_frame and the previous
+    frame is bilinear-sampled there. bias: REPROJECT_BIAS
+    (reproject.comp:8), a tolerance on linearized depth that in matrix mode
+    admits only bit-stable round trips, as compiled into the shader."""
+    coef = 0.05  # REPROJECT_COEF
+    h, w = current_depth.shape
+    dev = current_depth.device
+    new_ao = current_ao
+    # reproject.comp:30 uses uv = pixel/size (no half-texel centre)
+    uv = screen_uv_grid(h, w, dev) - 0.5 / torch.tensor(
+        [w, h], dtype=torch.float32, device=dev)
+    cur_view = reconstruct_view_vec(uv, current_depth, fovy, aspect, znear,
+                                    zfar)
+    if matrix_mode:
+        m = camera_to_prev_frame
+        rep = cur_view @ m[:3, :3].T + m[:3, 3]
+        rep_w = (cur_view * m[3, :3]).sum(-1) + m[3, 3]
+        prev_view = rep / torch.where(rep_w.abs() < 1e-20, 1e-20,
+                                      rep_w)[..., None]
+        prev_xy = 0.5 * prev_view[..., :2] + 0.5
+        in_bounds = ((prev_xy[..., 0] > 0) & (prev_xy[..., 0] < 1)
+                     & (prev_xy[..., 1] > 0) & (prev_xy[..., 1] < 1))
+        sampled_depth = bilinear_sample(prev_depth, prev_xy)
+        sampled_ao = bilinear_sample(prev_ao, prev_xy)
+        rep_z = linearize_depth(prev_view[..., 2], znear, zfar)
+        sampled_z = linearize_depth(sampled_depth, znear, zfar)
+        keep = (in_bounds & ((rep_z - sampled_z).abs() < bias)
+                & (sampled_depth < 1.0))
+    else:
+        sampled_depth = prev_depth
+        sampled_ao = prev_ao
+        sampled_z = linearize_depth(sampled_depth, znear, zfar)
+        keep = ((sampled_z - cur_view[..., 2]).abs() < bias) & (
+            sampled_depth < 1.0)
+    blended = sampled_ao + coef * (new_ao - sampled_ao)  # mix(a, b, t)
+    return torch.where(keep, blended, new_ao)
+
+
+def deinterleave_depth(depth, pattern_step: int = 2):
+    """gtao_opt/deinterleave.comp: (H, W) -> (layers, H>>n, W>>n), layer
+    ((y & mask) << n) + (x & mask): each layer is one phase of the
+    2^n x 2^n dither lattice."""
+    s = 1 << pattern_step
+    h, w = depth.shape
+    h2, w2 = h // s, w // s
+    d = depth[: h2 * s, : w2 * s].reshape(h2, s, w2, s)
+    return d.permute(1, 3, 0, 2).reshape(s * s, h2, w2)
+
+
+def interleave_layers(layers, pattern_step: int = 2):
+    """Inverse of deinterleave_depth."""
+    s = 1 << pattern_step
+    _, h2, w2 = layers.shape
+    return layers.reshape(s, s, h2, w2).permute(2, 0, 3, 1).reshape(
+        h2 * s, w2 * s)
+
+
+def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
+                            base_angle: float, pattern_step: int = 2):
+    """gtao_opt/main_deinterleaved.comp: gtao_main_exact on each dither
+    layer (the layer's pixels share a direction class), with base angle
+    base_angle + l / layers, then re-interleaved. The reference constructs
+    it but its main loop does not run it (SURVEY.md section 2.4)."""
+    layers = (1 << pattern_step) ** 2
+    d_layers = deinterleave_depth(depth_half, pattern_step)
+    n_layers = torch.stack([deinterleave_depth(normal_half[..., k],
+                                               pattern_step)
+                            for k in range(2)], -1)
+    outs = [gtao_main_exact(d_layers[l], n_layers[l], params,
+                            float(np.float32(base_angle)
+                                  + np.float32(l / float(layers))))
+            for l in range(layers)]
+    return interleave_layers(torch.stack(outs), pattern_step)
 
 
 def gtao_filter(depth_half, raw_ao, znear: float, zfar: float):

@@ -4,7 +4,8 @@ The same scene as vkr_tpu.scene.procedural (array-for-array, same seed):
 a Sponza-like hall of comparable workload — configurable up to Sponza
 scale (colonnade_scene(columns=24, tessellation=80, tex_size=1024) has
 314,988 triangles, 96 of them alpha-MASK foliage) — so the port renders
-the raster/shading load the reference benches on.
+the raster/shading load the reference benches on. Also vkr_tpu's
+two-masked-quads scene, where the second alpha-MASK layer changes pixels.
 """
 
 from __future__ import annotations
@@ -246,3 +247,80 @@ def colonnade_scene(
         build_colonnade(columns, tessellation, tex_size),
         tex_size=tex_size,
     )
+
+
+def build_two_masked_quads(tex_size: int = 64) -> GltfScene:
+    """Two stacked alpha-MASK quads in front of an opaque backdrop — the
+    depth-peel test scene. The front quad's albedo has a transparent hole
+    in the middle; the back quad is solid, so per-fragment discard
+    semantics must reveal the BACK MASKED quad through the hole (not the
+    backdrop)."""
+    hole = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    hole[..., :3] = 180
+    yy, xx = np.mgrid[0:tex_size, 0:tex_size]
+    c = tex_size / 2.0
+    hole[(xx - c) ** 2 + (yy - c) ** 2 < (tex_size * 0.3) ** 2, 3] = 0
+    solid = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    solid[..., :3] = (40, 200, 40)
+    back = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    back[..., :3] = (60, 60, 220)
+    mr_a = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    mr_a[..., :3] = (0, 64, 32)
+    mr_b = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    mr_b[..., :3] = (0, 192, 224)
+    mr_c = np.full((tex_size, tex_size, 4), 255, np.uint8)
+    mr_c[..., :3] = (0, 16, 128)
+
+    def quad_at(z, s=2.0):
+        pos = np.array([[-s, -s, z], [s, -s, z], [s, s, z], [-s, s, z]],
+                       np.float32)
+        nrm = np.tile(np.array([[0, 0, -1]], np.float32), (4, 1))
+        uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+        idx = np.array([0, 1, 2, 0, 2, 3], np.uint32)
+        return pos, nrm, uv, idx
+
+    geoms = [
+        (quad_at(-1.0), 0),   # front masked (hole)
+        (quad_at(0.5), 1),    # back masked (solid)
+        (quad_at(2.0, 4.0), 2),  # opaque backdrop
+    ]
+    positions, normals, uvs, indices = [], [], [], []
+    meshes, draw_calls = [], []
+    v_off = i_off = 0
+    for mesh_id, ((pos, nrm, uv, idx), material) in enumerate(geoms):
+        positions.append(pos)
+        normals.append(nrm)
+        uvs.append(uv)
+        indices.append(idx)
+        meshes.append(
+            [Primitive(vertex_offset=v_off, index_offset=i_off,
+                       index_count=len(idx), material=material)]
+        )
+        draw_calls.append(
+            DrawCall(mesh=mesh_id, transform=np.eye(4, dtype=np.float32))
+        )
+        v_off += len(pos)
+        i_off += len(idx)
+
+    return GltfScene(
+        positions=np.concatenate(positions).astype(np.float32),
+        normals=np.concatenate(normals).astype(np.float32),
+        uvs=np.concatenate(uvs).astype(np.float32),
+        indices=np.concatenate(indices),
+        meshes=meshes,
+        materials=[
+            Material(albedo_tex=0, mr_tex=3, clip_alpha=True),
+            Material(albedo_tex=1, mr_tex=4, clip_alpha=True),
+            Material(albedo_tex=2, mr_tex=5),
+        ],
+        images=[hole, solid, back, mr_a, mr_b, mr_c],
+        texture_image=list(range(6)),
+        texture_wrap=[0] * 6,
+        draw_calls=draw_calls,
+        nodes=[],
+    )
+
+
+def two_masked_quads_scene(tex_size: int = 64) -> CompiledScene:
+    return compile_scene(build_two_masked_quads(tex_size),
+                         tex_size=tex_size)
