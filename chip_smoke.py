@@ -48,7 +48,21 @@
    corner at 540x960, and to the mean bound on main frame 1, where far
    depths amplify the taps' rounding past the max bound for vkr_tpu's own
    pair too.
-9. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+9. glTF phase: writes the main phase's colonnade as .gltf + .bin + 8 PNG
+   textures (rows under all five PNG filters) into a temporary directory,
+   textures 0, 1, 2, 5, 6 at 1024x1024 (REPEAT) and 3, 4, 7 at 2048x512
+   (CLAMP), made from the colonnade's own images; loads it with
+   load_scene(tex_size=1024, native_sizes=True) and uploads it, printing
+   the write, PNG decode, compile and upload seconds and the texture bytes
+   on the card; fails unless it has 314,988 triangles (96 alpha-MASK),
+   the native shapes (2048x512 halved to 1024x256) and every material
+   paired. Renders 3 frames of RenderConfig(trilinear_textures=True) with
+   the main phase's checks and 3 with trilinear off, and fails unless
+   trilinear changed the albedo of more than 1% of the pixels of every
+   frame. One G-buffer (frame 2) also goes through the indexed front end
+   (the corner tables dropped): K1's depth and ids must equal the corner
+   path's on its 3 calls, its attributes within 1e-6 + 1e-6 |x|.
+10. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -64,12 +78,13 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-10. Renders the main phase's 8 frames, the probe phase's 3 and the RT
-   phase's 3 with the plain versions substituted for the kernels, and
+11. Renders the main phase's 8 frames, the probe phase's 3, the RT
+   phase's 3 and the glTF phase's 3 trilinear frames with the plain
+   versions substituted for the kernels, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
-11. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+12. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
    on the probe faces (times per face, launches per start-up), and, last,
    the line {"ok": true, "device": {...}}.
 
@@ -82,6 +97,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -742,6 +758,336 @@ def light_view_proj():
         np.float32)
 
 
+# glTF phase: the colonnade written as .gltf + .bin + PNG textures
+GLTF_FILTERS = (0, 1, 2, 3, 4)  # PNG row filters, taken in turn by row
+GL_WRAP = {0: 10497, 1: 33071}  # WRAP_REPEAT, WRAP_CLAMP -> glTF wrapS
+GLTF_FRAMES = 3
+# textures written at 2048x512 with CLAMP (the columns' and capitals'
+# albedo and their MR); the others at 1024x1024 with REPEAT
+GLTF_WIDE = (3, 4, 7)
+# the material textures' shapes after load_scene(tex_size=1024,
+# native_sizes=True): 2048x512 halves to 1024x256
+GLTF_NATIVE = [(1024, 1024)] * 3 + [(256, 1024)] * 2 + [(1024, 1024)] * 2 \
+    + [(256, 1024)]
+# trilinear must move the albedo of at least this share of the pixels
+MIN_TRILINEAR_SHARE = 0.01
+
+
+def _png_chunk(kind: bytes, payload: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def png_bytes(px, colour_type: int = 6, filters=GLTF_FILTERS,
+              extra: bytes = b"", level: int = 1) -> bytes:
+    """An 8-bit, non-interlaced PNG of px (H, W, channels) u8: row y is
+    filtered with filters[y % len(filters)] (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth). Every filter predicts from the unfiltered
+    neighbours, so all rows filter at once. extra: chunks to put before
+    the image data (PLTE, tRNS)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    px = np.asarray(px, np.uint8)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, c = px.shape
+    x = px.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, 1:] = x[:, :-1]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    up_left = np.zeros_like(x)
+    up_left[1:, 1:] = x[:-1, :-1]
+    pa = np.abs(up - up_left)
+    pb = np.abs(left - up_left)
+    pc = np.abs(left + up - 2 * up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, up_left))
+    kinds = np.asarray([filters[y % len(filters)] for y in range(h)],
+                       np.uint8)
+    pred = np.choose(kinds[:, None, None],
+                     [np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    rows = np.concatenate(
+        [kinds[:, None], ((x - pred) & 255).astype(np.uint8).reshape(h, -1)],
+        axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header) + extra
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
+               name="scene"):
+    """Write the geometry, materials and draw calls of a GltfScene as
+    <directory>/<name>.gltf with one <name>.bin, texture t showing
+    images[t] (RGBA8, written as PNG) with wrap mode wraps[t] (WRAP_*).
+    Images go in files, except those in data_uri (base64 data: URIs) and
+    buffer_view (PNG bytes in the .bin). Positions and normals interleave
+    in one strided buffer view; each draw call is a node with its matrix.
+    Returns the .gltf path."""
+    import base64
+    import json
+    import os
+
+    import numpy as np
+
+    blob = bytearray()
+
+    def view(data: bytes, stride=None):
+        while len(blob) % 4:
+            blob.append(0)
+        v = {"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)}
+        if stride:
+            v["byteStride"] = stride
+        blob.extend(data)
+        views.append(v)
+        return len(views) - 1
+
+    views, accessors = [], []
+
+    def accessor(view_id, offset, count, kind, component=5126):
+        accessors.append({"bufferView": view_id, "byteOffset": offset,
+                          "count": int(count), "type": kind,
+                          "componentType": component})
+        return len(accessors) - 1
+
+    pos_nrm = np.concatenate([scene.positions, scene.normals], 1)
+    v_interleaved = view(np.ascontiguousarray(pos_nrm, "<f4").tobytes(), 24)
+    v_uv = view(np.ascontiguousarray(scene.uvs, "<f4").tobytes())
+    v_idx = view(np.ascontiguousarray(scene.indices, "<u4").tobytes())
+    meshes = []
+    for prims in scene.meshes:
+        out = []
+        for p in prims:
+            idx = scene.indices[p.index_offset:p.index_offset + p.index_count]
+            n = int(idx.max()) + 1 if len(idx) else 0
+            out.append({
+                "attributes": {
+                    "POSITION": accessor(v_interleaved, 24 * p.vertex_offset,
+                                         n, "VEC3"),
+                    "NORMAL": accessor(v_interleaved,
+                                       24 * p.vertex_offset + 12, n, "VEC3"),
+                    "TEXCOORD_0": accessor(v_uv, 8 * p.vertex_offset, n,
+                                           "VEC2")},
+                "indices": accessor(v_idx, 4 * p.index_offset, len(idx),
+                                    "SCALAR", 5125),
+                "material": p.material, "mode": 4})
+        meshes.append({"primitives": out})
+    gl_images = []
+    for t, img in enumerate(images):
+        data = png_bytes(img)
+        if t in data_uri:
+            gl_images.append({"uri": "data:image/png;base64,"
+                              + base64.b64encode(data).decode()})
+        elif t in buffer_view:
+            gl_images.append({"bufferView": view(data),
+                              "mimeType": "image/png"})
+        else:
+            fname = f"{name}_tex{t}.png"
+            with open(os.path.join(directory, fname), "wb") as f:
+                f.write(data)
+            gl_images.append({"uri": fname})
+    samplers = [{"wrapS": GL_WRAP[w], "wrapT": GL_WRAP[w]}
+                for w in sorted(set(wraps))]
+    sampler_of = {w: i for i, w in enumerate(sorted(set(wraps)))}
+    materials = []
+    for m in scene.materials:
+        pbr = {}
+        if m.albedo_tex >= 0:
+            pbr["baseColorTexture"] = {"index": m.albedo_tex}
+        if m.mr_tex >= 0:
+            pbr["metallicRoughnessTexture"] = {"index": m.mr_tex}
+        mat = {"pbrMetallicRoughness": pbr}
+        if m.clip_alpha:
+            mat.update(alphaMode="MASK", alphaCutoff=m.alpha_cutoff)
+        materials.append(mat)
+    nodes = [{"mesh": dc.mesh,
+              "matrix": np.asarray(dc.transform, np.float64).T
+              .reshape(-1).tolist()} for dc in scene.draw_calls]
+    with open(os.path.join(directory, f"{name}.bin"), "wb") as f:
+        f.write(bytes(blob))
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+        "meshes": meshes, "materials": materials,
+        "textures": [{"source": t, "sampler": sampler_of[w]}
+                     for t, w in enumerate(wraps)],
+        "samplers": samplers, "images": gl_images,
+        "buffers": [{"uri": f"{name}.bin", "byteLength": len(blob)}],
+        "bufferViews": views, "accessors": accessors,
+    }
+    path = os.path.join(directory, f"{name}.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def gltf_textures(images):
+    """The colonnade's own images at two native sizes: GLTF_WIDE at
+    2048x512 (every other row, each texel twice along x) with CLAMP, the
+    rest as they are (1024x1024) with REPEAT. Returns (images, wraps)."""
+    import numpy as np
+
+    out, wraps = list(images), [0] * len(images)
+    for t in GLTF_WIDE:
+        out[t] = np.repeat(images[t][::2], 2, axis=1)
+        wraps[t] = 1
+    return out, wraps
+
+
+class HostTimer:
+    """Host seconds of each call of mod.attr while the block runs."""
+
+    def __init__(self, mod, attr, log):
+        self.mod, self.attr, self.log = mod, attr, log
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.mod, self.attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.log.append(time.perf_counter() - t0)
+            return out
+        setattr(self.mod, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.saved)
+
+
+def gltf_phase(cfg, res, device):
+    """Writes the bench colonnade as glTF, loads it with native-size
+    textures, renders GLTF_FRAMES trilinear frames and holds the indexed
+    front end to the corner path. Returns (scene, config, outputs)."""
+    import tempfile
+
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.passes import gbuffer as gbuffer_mod
+    from vkr_tpu_torch.passes.gbuffer import render_gbuffer, upload_scene
+    from vkr_tpu_torch.raster import gbuf_kernel
+    from vkr_tpu_torch.scene import gltf as gltf_mod
+    from vkr_tpu_torch.scene import scene as scene_mod
+    from vkr_tpu_torch.scene.procedural import build_colonnade
+    from vkr_tpu_torch.frame import camera_frame
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        src = build_colonnade(**SCENE)
+        images, wraps = gltf_textures(src.images)
+        path = write_gltf(tmp, src, images, wraps)
+        write_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                         for f in os.listdir(tmp))
+        decode_s, compile_s = [], []
+        t0 = time.perf_counter()
+        with HostTimer(gltf_mod, "_decode_image", decode_s), \
+                HostTimer(scene_mod, "compile_scene", compile_s):
+            scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
+                                            native_sizes=True)
+        load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = upload_scene(scene_np, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tex = scene.tex
+    tex_bytes = sum(t.numel() * t.element_size()
+                    for t in (tex.texels, tex.level_off, tex.level_w,
+                              tex.level_h, tex.wrap))
+    n_tri = len(scene.tri_opaque_mat) + len(scene.tri_masked_mat)
+    shapes = [im.shape[:2] for im in scene_np.tex_images]
+    print(f"gltf: wrote {path.rsplit('/', 1)[-1]} + .bin + "
+          f"{len(images)} PNG ({file_bytes} bytes, rows under filters "
+          f"{GLTF_FILTERS}) in {write_s:.3f} s; load_scene {load_s:.3f} s "
+          f"(PNG decode {sum(decode_s):.3f} s for {len(decode_s)} images, "
+          f"compile_scene {sum(compile_s):.3f} s); upload {upload_s:.3f} s; "
+          f"{n_tri} triangles ({len(scene.tri_masked_mat)} alpha-MASK); "
+          f"native textures {shapes}, {tex.n_levels} levels, pairs "
+          f"{tex.paired}; texture bytes on the card {tex_bytes}")
+    check(n_tri == SCENE_TRIANGLES
+          and len(scene.tri_masked_mat) == SCENE_MASKED,
+          f"gltf: {n_tri} triangles, {len(scene.tri_masked_mat)} masked")
+    check(shapes == GLTF_NATIVE, f"gltf: native texture shapes {shapes}")
+    check(tex.paired and tex.base_size is None,
+          "gltf: the native set did not pair every material")
+
+    cfg_gltf = dataclasses.replace(cfg, trilinear_textures=True)
+    kernels.LAUNCHES.clear()
+    outs, secs = render(scene, res, cfg_gltf, device, GLTF_FRAMES)
+    launches = dict(kernels.LAUNCHES)
+    check_frames(outs, launches, GLTF_FRAMES, MIN_LAUNCHES_PER_FRAME, "gltf")
+    bilinear, bilinear_secs = render(scene, res, cfg, device, GLTF_FRAMES)
+    share = [float((o["albedo"] != b["albedo"]).any(-1).float().mean())
+             for o, b in zip(outs, bilinear)]
+    check(min(share) > MIN_TRILINEAR_SHARE, f"gltf: trilinear changed the "
+          f"albedo of {share} of the pixels")
+    same_geometry = all(torch.equal(o["depth"], b["depth"])
+                        for o, b in zip(outs, bilinear))
+    print(f"gltf: {GLTF_FRAMES} frames (trilinear_textures, SSR on, MIS "
+          f"GTAO), launches {launches}; share of pixels whose albedo "
+          f"trilinear changed per frame {[round(x, 4) for x in share]} "
+          f"(depth unchanged: {same_geometry})")
+    print_medians("gltf", secs)
+    print_medians("gltf (bilinear)", bilinear_secs)
+
+    # one G-buffer through the indexed front end, K1's outputs recorded
+    i = WARMUP_FRAMES
+    cam = camera_frame(cfg_gltf, bench_orbit_view(i),
+                       bench_orbit_view(i - 1), i, device)
+    indexed = scene._replace(corner_world_o=None, corner_attr_o=None,
+                             corner_world_m=None, corner_attr_m=None)
+    kw = dict(width=WIDTH, height=HEIGHT, quantize=cfg.quantize_formats,
+              mask_peel_layers=cfg.raster.mask_peel_layers, trilinear=True)
+    k1 = {}
+    for label, sc in (("corner", scene), ("indexed", indexed)):
+        calls = k1[label] = []
+
+        def keep(name, wrapper, plain, calls=calls):
+            if name != "gbuf_tiles":
+                return wrapper
+
+            def rec(*args, **kwargs):
+                out = wrapper(*args, **kwargs)
+                calls.append(out)
+                return out
+            return rec
+        kernels.LAUNCHES.clear()
+        with Substitute(keep):
+            gb = render_gbuffer(sc, cam.mvp, cam.prev_mvp, cam.jitter, **kw)
+        torch.cuda.synchronize()
+        k1[label + " gbuffer"] = gb
+        check(kernels.LAUNCHES.get("gbuf_tiles", 0) == 3, f"gltf {label} "
+              f"G-buffer: K1 launched {dict(kernels.LAUNCHES)}")
+    worst = 0.0
+    for (z, tid, attrs), (z0, tid0, attrs0) in zip(k1["indexed"],
+                                                   k1["corner"]):
+        worst = max(worst, float((attrs - attrs0).abs().max()))
+        check(torch.equal(z, z0) and torch.equal(tid, tid0)
+              and bool(((attrs - attrs0).abs()
+                        <= 1e-6 + 1e-6 * attrs0.abs()).all()),
+              "gltf: the indexed front end's K1 outputs differ from the "
+              "corner path's")
+    g, g0 = k1["indexed gbuffer"], k1["corner gbuffer"]
+    gdiff = {k: float((getattr(g, k) - getattr(g0, k)).abs().max())
+             for k in FRAME_CHANNELS[:5]}
+    check(torch.equal(g.depth, g0.depth), "gltf: indexed G-buffer depth "
+          "differs from the corner path's")
+    print(f"gltf: indexed front end (corner tables dropped) vs corner "
+          f"path, frame {i}: K1 depth and ids equal on its 3 calls, "
+          f"attributes max |diff| {worst:.3g}; G-buffer max |diff| {gdiff}")
+    return scene, cfg_gltf, outs
+
+
 def main() -> int:
     import torch
 
@@ -1009,6 +1355,10 @@ def main() -> int:
               f"mean {mean}")
     del hiz, exact, diff, variants, reproject
 
+    # ---- glTF phase: a glTF scene from disk, native-size textures,
+    # trilinear sampling, the indexed front end
+    gltf_scene, cfg_gltf, gltf_outs = gltf_phase(cfg, res, device)
+
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
     wrappers = {name: getattr(mod, name) for name, (mod, _) in plain.items()}
@@ -1141,6 +1491,19 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"rt {k}: {v:.2f} dB against the plain "
+              f"versions (< {MIN_PSNR_DB})")
+
+    with Substitute(lambda name, wrapper, p: p):
+        plain_gltf, _ = render(gltf_scene, res, cfg_gltf, device,
+                               GLTF_FRAMES)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          "a kernel launched while the plain versions were substituted")
+    worst = {k: min(psnr(o[k], p[k]) for o, p in zip(gltf_outs, plain_gltf))
+             for k in FRAME_CHANNELS}
+    print("gltf psnr kernels vs plain versions (dB, min over frames): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= MIN_PSNR_DB, f"gltf {k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
 
     launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]

@@ -7,8 +7,10 @@ Renders chip_smoke.py's main workload (the bench orbit at 1920x1080 on the
 314,988-triangle colonnade, the default RenderConfig: SSR on, MIS GTAO),
 then the same with probe GI (enable_probes, the default 4x4 probe grid
 built first), then with ray-traced GTAO (gtao.use_ray_query over the
-scene grid of build_scene_tri_grid), each three times, N_FRAMES frames
-each, the first WARMUP_FRAMES of each unmeasured:
+scene grid of build_scene_tri_grid), and chip_smoke.py's glTF scene (the
+colonnade written as glTF and loaded with native-size textures) with
+trilinear_textures and without, right after the default frame; each three
+times, N_FRAMES frames each, the first WARMUP_FRAMES of each unmeasured:
 
 1. plain: host wall time per frame, bracketed by torch.cuda.synchronize().
 2. per pass: a CUDA event pair and the host clock around each pass and each
@@ -21,14 +23,24 @@ each, the first WARMUP_FRAMES of each unmeasured:
    on the last frame's inputs, under torch.profiler; with ray-traced GTAO
    the same for one gtao_rt call.
 
+    python3 profile_frame.py default gltf_trilinear   # only these frames
+    python3 profile_frame.py --root DIR default
+
+--root profiles the vkr_tpu_torch package of another checkout at DIR
+(an unpacked parent commit, say), so that two versions are compared in one
+call on one card; a step that version lacks is not timed. The glTF frames
+need this version's loader.
+
 Needs a CUDA card; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
+import os
 import statistics
 import subprocess
 import sys
@@ -45,7 +57,7 @@ def timed_steps():
     from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
     from vkr_tpu_torch.scene import accel
 
-    return [
+    return [step for step in [
         (frame, "render_gbuffer", "pass.gbuffer"),
         (downsample, "build_hiz", "pass.hiz"),
         (ssr, "ssr_trace", "pass.ssr_trace"),
@@ -60,6 +72,7 @@ def timed_steps():
         (taa, "taa_resolve", "pass.taa (K6)"),
         (gbuffer, "rasterize", "gbuffer.rasterize"),
         (gbuffer, "_masked_alpha", "gbuffer.masked_alpha"),
+        (gbuffer, "_lod_for", "gbuffer.lod"),
         (gbuffer, "sample_material_pair", "gbuffer.material_textures"),
         (setup, "clip_near_corners_t", "raster.clip_near"),
         (setup, "triangle_setup_t", "raster.triangle_setup"),
@@ -69,7 +82,7 @@ def timed_steps():
         (gbuf_kernel, "gbuf_tiles", "raster.gbuf_tiles (K1)"),
         (ssr_march, "hierarchical_march", "ssr.march (K2+K3)"),
         (accel, "ray_any_hit", "gtao_rt.ray_any_hit"),
-    ]
+    ] if hasattr(step[0], step[1])]
 
 
 @contextlib.contextmanager
@@ -138,7 +151,23 @@ def frames(scene, res, cfg, device, measured, probe_grid=None,
     return secs, block
 
 
-def main() -> int:
+FRAMES = ("default", "gltf_trilinear", "gltf_bilinear", "probe", "rt")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("frames", nargs="*", metavar="FRAME",
+                    help=f"frames to profile, of {', '.join(FRAMES)} "
+                         "(default: all, in that order)")
+    ap.add_argument("--root", help="checkout whose vkr_tpu_torch to profile")
+    args = ap.parse_args(argv)
+    wanted = args.frames or list(FRAMES)
+    unknown = sorted(set(wanted) - set(FRAMES))
+    if unknown:
+        ap.error(f"unknown frames {unknown}; choose from {FRAMES}")
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -160,29 +189,59 @@ def main() -> int:
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.scene.procedural import colonnade_scene
 
+    print(f"package: {os.path.dirname(os.path.abspath(kernels.__file__))}")
     kernels.build()
     scene_np = colonnade_scene(**SCENE)
     scene = upload_scene(scene_np, device)
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     res = build_ssr_resources(cfg.ssr.lut_size, device=device)
     cfg_probe = dataclasses.replace(cfg, enable_probes=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grid = build_probe_grid(scene_np, cfg_probe, device=device)
-    torch.cuda.synchronize()
-    print(f"probe grid: start-up {time.perf_counter() - t0:.3f} s")
     cfg_rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
         cfg.gtao, use_ray_query=True))
-    t0 = time.perf_counter()
-    tri_grid = build_scene_tri_grid(scene_np, device=device)
-    torch.cuda.synchronize()
-    print(f"scene grid: start-up {time.perf_counter() - t0:.3f} s")
-    for what, c, g, tg in (("default frame", cfg, None, None),
-                           ("probe frame", cfg_probe, grid, None),
-                           ("rt frame", cfg_rt, None, tri_grid)):
+    cfg_tri = dataclasses.replace(cfg, trilinear_textures=True)
+    grid = tri_grid = gltf_scene = None
+    if "probe" in wanted:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = build_probe_grid(scene_np, cfg_probe, device=device)
+        torch.cuda.synchronize()
+        print(f"probe grid: start-up {time.perf_counter() - t0:.3f} s")
+    if "rt" in wanted:
+        t0 = time.perf_counter()
+        tri_grid = build_scene_tri_grid(scene_np, device=device)
+        torch.cuda.synchronize()
+        print(f"scene grid: start-up {time.perf_counter() - t0:.3f} s")
+    if {"gltf_trilinear", "gltf_bilinear"} & set(wanted):
+        gltf_scene = upload_scene(gltf_scene_np(), device)
+    runs = {
+        "default": ("default frame", scene, cfg, None, None),
+        "gltf_trilinear": ("gltf frame (trilinear)", gltf_scene, cfg_tri,
+                           None, None),
+        "gltf_bilinear": ("gltf frame (bilinear)", gltf_scene, cfg, None,
+                          None),
+        "probe": ("probe frame", scene, cfg_probe, grid, None),
+        "rt": ("rt frame", scene, cfg_rt, None, tri_grid)}
+    for name in wanted:
+        what, sc, c, g, tg = runs[name]
         print(f"==== {what}")
-        profile(scene, res, c, device, g, tg)
+        profile(sc, res, c, device, g, tg)
     return 0
+
+
+def gltf_scene_np():
+    """chip_smoke.py's glTF scene: written to a temporary directory and
+    loaded with native-size textures."""
+    import tempfile
+
+    from chip_smoke import gltf_textures, write_gltf
+    from vkr_tpu_torch.scene.procedural import build_colonnade
+    from vkr_tpu_torch.scene.scene import load_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = build_colonnade(**SCENE)
+        path = write_gltf(tmp, src, *gltf_textures(src.images))
+        return load_scene(path, tex_size=SCENE["tex_size"],
+                          native_sizes=True)
 
 
 def profile(scene, res, cfg, device, grid, tri_grid):

@@ -174,23 +174,40 @@ def test_port_imports_no_jax():
     imported = done.stdout.split()
     assert len(imported) > 20
     for name in ("scene.accel", "passes.ssao", "passes.gtao", "frame",
-                 "convert"):
+                 "convert", "scene.gltf", "raster.resolve", "raster.kernel"):
         assert "vkr_tpu_torch." + name in imported, name
 
 
-@pytest.mark.parametrize("option", ["trilinear_textures"])
-def test_unported_options_raise(option):
-    """An option whose passes are not ported raises NotImplementedError
-    naming its ROADMAP item; it never renders something else."""
+def test_trilinear_frame_renders_and_differs():
+    """trilinear_textures renders (it raised before it was ported) and
+    moves the albedo and the colour of a scene whose materials pair, and
+    nothing of the geometry."""
     import dataclasses
 
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.frame import render_frame
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import (build_ssr_resources, camera_frame,
+                                     render_frame)
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
 
-    cfg = RenderConfig(width=16, height=16, enable_ssr=False)
-    cfg = dataclasses.replace(cfg, **{option: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(None, None, None, None, cfg)
+    cfg = RenderConfig(width=32, height=16, enable_ssr=False)
+    scene = upload_scene(colonnade_scene(columns=2, tessellation=6,
+                                         tex_size=32), "cpu")
+    assert scene.tex.paired
+    res = build_ssr_resources(16, device="cpu")
+    cam = camera_frame(cfg, bench_orbit_view(0), bench_orbit_view(0), 0,
+                       "cpu")
+    outs = [render_frame(scene, FrameState.initial(16, 32, "cpu"), cam, res,
+                         dataclasses.replace(cfg, trilinear_textures=on))
+            for on in (False, True)]
+    (base, _, base_aux), (color, _, aux) = outs
+    assert torch.isfinite(color).all()
+    assert not torch.equal(aux["gbuffer"].albedo, base_aux["gbuffer"].albedo)
+    assert not torch.equal(color, base)
+    torch.testing.assert_close(aux["gbuffer"].depth,
+                               base_aux["gbuffer"].depth, rtol=0, atol=0)
 
 
 def test_probes_without_grid_render_the_probeless_frame():

@@ -12,10 +12,14 @@ This package never imports jax or vkr_tpu.
   config.py   — RenderConfig dataclasses (JSON-compatible with vkr_tpu)
   mathlib/    — camera matrices, projection, octahedral normals, BRDF
   core/       — storage-format emulation, FrameState
-  scene/      — glTF dataclasses, CompiledScene, the procedural scenes,
-                the uniform-grid acceleration structure (accel.py)
-  raster/     — SoA raster front end, pair rows, the G-buffer kernel (K1),
-                texture sampling, the window-gather kernels (K4/K5/K6)
+  scene/      — the glTF loader and its PNG decoder, CompiledScene and
+                load_scene (uniform or native-size textures), the
+                procedural scenes, the uniform-grid acceleration
+                structure (accel.py)
+  raster/     — raster front ends (corner tables, indexed), pair rows, the
+                G-buffer kernel (K1), the oracle raster and its gather
+                resolve, texture packing and sampling, the window-gather
+                kernels (K4/K5/K6)
   passes/     — G-buffer, hi-Z, SSR, GTAO (ray-traced GTAO and the
                 variants too), SSAO, deferred shading, TAA, BRDF LUT,
                 shadow maps, probe GI

@@ -16,12 +16,11 @@ from vkr_tpu_torch.scene.scene import CompiledScene
 
 
 def scene_from_numpy(compiled_scene, device) -> SceneDevice:
-    """vkr_tpu CompiledScene (any object with its fields as numpy arrays)
-    -> the port's uploaded scene on `device`."""
-    if getattr(compiled_scene, "tex_images", None) is not None:
-        raise NotImplementedError(
-            "native-size textures are ROADMAP queue 1 item 13")
-    fields = {f: getattr(compiled_scene, f) for f in CompiledScene._fields}
+    """vkr_tpu CompiledScene (any object with its fields as numpy arrays,
+    tex_images too when it has them) -> the port's uploaded scene on
+    `device`."""
+    fields = {f: getattr(compiled_scene, f, None)
+              for f in CompiledScene._fields}
     return upload_scene(CompiledScene(**fields), device)
 
 

@@ -5,11 +5,12 @@ Mirrors main.cpp:338-402 frame order and vkr_tpu/frame.py: G-buffer raster
 accumulate) -> deferred shading -> TAA resolve. The reference's end-of-frame
 image remaps (main.cpp:416-420) become the returned FrameState.
 
-Ported so far: the default RenderConfig (SSR on, MIS GTAO), the frame with
-SSR off, probe GI (enable_probes with a grid from build_probe_grid,
-BASELINE config 5) and ray-traced GTAO (gtao.use_ray_query with a grid
-from build_scene_tri_grid). Options whose passes are not ported raise
-NotImplementedError naming the ROADMAP item that ports them.
+Ported: the default RenderConfig (SSR on, MIS GTAO), the frame with SSR
+off, probe GI (enable_probes with a grid from build_probe_grid, BASELINE
+config 5), ray-traced GTAO (gtao.use_ray_query with a grid from
+build_scene_tri_grid) and trilinear material textures
+(trilinear_textures), on procedural scenes and on glTF scenes from
+scene.load_scene, uniform or at native texture sizes.
 """
 
 from __future__ import annotations
@@ -136,13 +137,6 @@ def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
     return torch.where(rays[..., 3:4] >= 1.0, probe_rgb, ssr_blurred)
 
 
-def _check_supported(cfg: RenderConfig):
-    if cfg.trilinear_textures:
-        raise NotImplementedError(
-            "vkr_tpu_torch does not port trilinear_textures: trilinear "
-            "sampling is ROADMAP queue 1 item 13")
-
-
 def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
                  ssr_res: SSRResources, cfg: RenderConfig, *,
                  probe_grid=None, tri_grid=None):
@@ -154,11 +148,11 @@ def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
     start-up TriGrid (build_scene_tri_grid); with cfg.gtao.use_ray_query
     GTAO's main pass is gtao_rt over it. Without one the main pass is the
     one the frame takes with use_ray_query off, as in vkr_tpu."""
-    _check_supported(cfg)
     gbuf = render_gbuffer(
         scene, cam.mvp, cam.prev_mvp, cam.jitter,
         width=cfg.width, height=cfg.height, quantize=cfg.quantize_formats,
         mask_peel_layers=cfg.raster.mask_peel_layers,
+        trilinear=cfg.trilinear_textures,
     )
     mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                     tri_grid=tri_grid)
@@ -171,7 +165,6 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
     """hi-Z downsample -> SSR (trace/filter/blur) -> probe GI -> GTAO
     (main/filter/accumulate). Returns the dict of products the tail
     consumes."""
-    _check_supported(cfg)
     h, w = cfg.height, cfg.width
     dev = gbuf.depth.device
     inv_view = _inv4(cam.view)

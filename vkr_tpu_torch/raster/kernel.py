@@ -10,6 +10,10 @@ Replaces vkr_tpu/raster/kernel.py:_raster_kernel (pallas_call at :184,
 wrapper rasterize_tiles :145). The CUDA kernel is K1's tile walk in
 csrc/gbuf_tiles.cu with the resolve and the peel floor compiled out, so
 its planes take K1's fma form (gbuf_kernel.plane).
+
+Also the brute-force oracle raster behind vkr_tpu's use_pallas=False
+(rasterize_reference, vkr_tpu kernel.py:198): no binning, every triangle
+over every pixel.
 """
 
 from __future__ import annotations
@@ -17,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from vkr_tpu_torch import kernels
-from vkr_tpu_torch.raster.gbuf_kernel import (_TRI_ID, _tiles, walk_reference,
-                                             walk_scratch)
+from vkr_tpu_torch.raster.gbuf_kernel import (_TRI_ID, _tiles, plane,
+                                             walk_reference, walk_scratch)
 from vkr_tpu_torch.raster.pair_rows import ROW_WIDTH
 
 
@@ -85,3 +89,43 @@ def rasterize_tiles_reference(pair_rows, seg_starts, seg_counts, *,
     won = rows[win.clamp(min=0), _TRI_ID] if rows.shape[0] else -1.0
     tid = torch.where(win >= 0, won, -1.0).to(torch.int32)
     return zbuf.reshape(hp, wp), tid.reshape(hp, wp)
+
+
+def rasterize_reference(setup, width: int, height: int, peel_depth=None,
+                        chunk_evals: int = 1 << 22):
+    """Brute-force raster of a row-major setup.TriangleSetup (no binning):
+    the oracle behind vkr_tpu's use_pallas=False. Every valid triangle's
+    edge and depth planes (K1's fma form, gbuf_kernel.plane) over every
+    pixel centre, coverage 0 <= d <= 1 and d above the optional peel floor
+    (H, W), LESS_OR_EQUAL in triangle order: the winner is the nearest
+    covering triangle, the later one on a tie. O(T * pixels), in chunks of
+    about chunk_evals triangle-pixels: tests and small scenes.
+
+    Returns (zbuf (H, W) f32, 1.0 clear; tri_id (H, W) int32, -1 none)."""
+    dev = setup.a.device
+    px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
+    tid = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    peel = -1.0 if peel_depth is None else peel_depth
+    n_tri = setup.a.shape[0]
+    step = max(1, chunk_evals // (width * height))
+    for lo in range(0, n_tri, step):
+        sl = slice(lo, lo + step)
+        a, b, c = (x[sl, :, None, None] for x in (setup.a, setup.b,
+                                                   setup.c))
+        z = setup.zplane[sl, :, None, None]
+        d = plane(z[:, 0], z[:, 1], z[:, 2], px, py)
+        cover = ((d >= 0.0) & (d <= 1.0) & (d > peel)
+                 & setup.valid[sl, None, None])
+        for i in range(3):
+            cover &= plane(a[:, i], b[:, i], c[:, i], px, py) >= 0.0
+        d = torch.where(cover, d, torch.inf)
+        dmin = d.min(0).values
+        ids = torch.arange(lo, lo + d.shape[0], dtype=torch.int32,
+                           device=dev)[:, None, None]
+        last = torch.where(d == dmin, ids, -1).max(0).values
+        take = dmin <= zbuf
+        zbuf = torch.where(take, dmin, zbuf)
+        tid = torch.where(take, last, tid)
+    return zbuf, tid

@@ -1,12 +1,18 @@
-"""Rasterizer front end (static-scene SoA path): corner transform, near
-clip, triangle setup, tile binning.
+"""Rasterizer front end: vertex and corner transforms, near clip, triangle
+setup, tile binning.
 
 Replaces the Vulkan fixed-function vertex/raster stages driven by the
 reference's G-buffer pass (scene_renderer.cpp:140-215 + gbuf/opaque_taa.vert).
-The port of vkr_tpu's SoA twins (raster/setup.py:279-591): every value is a
-dense (T,) component tensor, and the arithmetic (ops, operand pairing,
-reduction association) is transcribed from vkr_tpu so the per-tile pair
-lists come out identical.
+The arithmetic is the port of vkr_tpu's SoA twins (raster/setup.py:279-591):
+every value is a dense (T,) component tensor, and the ops, operand pairing
+and reduction association are transcribed from vkr_tpu so the per-tile pair
+lists come out identical. The indexed front end gathers its corners into
+the same tables (corner_table), so it equals the corner path bit for bit
+(vkr_tpu states the same of its two, gbuffer.py:266-270). The row-major
+entry points of vkr_tpu's generic front end that the oracle raster needs
+(transform_vertices, clip_near_triangles, triangle_setup;
+setup.py:41-276) take (T, 3, ...) arrays and run the same arithmetic
+through the twins.
 
 Conventions (matching the reference):
   * clip space: Vulkan, depth in [0,1], y-down NDC; clip = VP @ model @ pos
@@ -43,6 +49,29 @@ class TriangleSetupT(NamedTuple):
     bbox: list       # [4] of (T,) int32 [x0, y0, x1, y1] inclusive pixels
 
 
+class TriangleSetup(NamedTuple):
+    """TriangleSetupT in row-major layout (vkr_tpu's generic front end and
+    its oracle raster): one row per triangle, one column per edge or
+    corner."""
+
+    a: torch.Tensor         # (T, 3)
+    b: torch.Tensor         # (T, 3)
+    c: torch.Tensor         # (T, 3)
+    zplane: torch.Tensor    # (T, 3) [za, zb, zc]
+    inv_area: torch.Tensor  # (T,)
+    inv_w: torch.Tensor     # (T, 3)
+    valid: torch.Tensor     # (T,) bool
+    bbox: torch.Tensor      # (T, 4) int32 [x0, y0, x1, y1]
+
+
+def _rowmajor(st: TriangleSetupT) -> TriangleSetup:
+    return TriangleSetup(
+        a=torch.stack(st.a, -1), b=torch.stack(st.b, -1),
+        c=torch.stack(st.c, -1), zplane=torch.stack(st.zplane, -1),
+        inv_area=st.inv_area, inv_w=torch.stack(st.inv_w, -1),
+        valid=st.valid, bbox=torch.stack(st.bbox, -1))
+
+
 def _sum3(p0, p1, p2):
     """Left-associated 3-term sum of materialized products — vkr_tpu's
     reduction order (its stack+sum, setup.py:319-327). Eager PyTorch rounds
@@ -61,6 +90,62 @@ def corner_transform_t(cw_t, m):
     """(4, 3T) corner table x (4, 4) matrix -> (4, 3T) clip components in
     full float32 (TF32 is off; see frame.py)."""
     return torch.matmul(m, cw_t)
+
+
+def world_positions(positions, transform_ids, transforms):
+    """Model -> homogeneous world positions (V, 4) through the per-node
+    transform table (N, 4, 4): upload_scene's corner tables gather these."""
+    mats = transforms[transform_ids]
+    pos_h = torch.cat([positions, torch.ones_like(positions[:, :1])], -1)
+    return torch.matmul(mats, pos_h[..., None])[..., 0]
+
+
+def transform_vertices(positions, transform_ids, transforms, view_proj):
+    """Model -> clip transform for all vertices at once: (V, 4)
+    (opaque_taa.vert:38, view_projection * model * pos). The projection is
+    corner_transform_t on the (4, V) world table, the corner path's op."""
+    world = world_positions(positions, transform_ids, transforms)
+    return corner_transform_t(world.T.contiguous(), view_proj).T
+
+
+def transform_normals(normals, transform_ids, normal_mats):
+    """World-space unit normals via the per-node normal matrix
+    (opaque_taa.vert:36)."""
+    n = torch.matmul(normal_mats[transform_ids][:, :3, :3],
+                     normals[..., None])[..., 0]
+    return n / torch.linalg.vector_norm(n, dim=-1,
+                                        keepdim=True).clamp(min=1e-20)
+
+
+def corner_table(values, indices):
+    """Per-vertex values (V, K) -> the corner table (K, 3T) of triangles
+    indices (T, 3): component-major, corner c of every triangle in
+    columns [c*T, (c+1)*T)."""
+    return values[indices].permute(2, 1, 0).reshape(values.shape[1], -1)
+
+
+def clip_near_triangles(clip, indices):
+    """Near-plane clipping from a shared vertex set: the per-frame gather of
+    the triangles' corners (clip[indices], the generic path), then
+    clip_near_corners."""
+    return clip_near_corners(clip[indices])
+
+
+def clip_near_corners(tri):
+    """Near-plane (z=0) clipping of (T, 3, 4) clip-space corners: every
+    triangle yields up to two with all vertices at z >= 0. Returns
+    (corners (2T, 3, 4), weights (2T, 3, 3) of each output corner over its
+    source triangle's corners, src (2T,) source triangle ids, valid (2T,)).
+    Output triangles i and i + T both come from source triangle i."""
+    n = tri.shape[0]
+    clip_t = tri.permute(2, 1, 0).reshape(4, 3 * n)
+    tri2, weights_t, valid = clip_near_corners_t(clip_t, n)
+    corners = corners_from_weights_t(tri2, weights_t)
+    corners = torch.stack([torch.stack(corners[c], -1) for c in range(3)], 1)
+    weights = torch.stack([torch.stack(weights_t[c], -1) for c in range(3)],
+                          1)
+    src = torch.arange(n, device=tri.device).repeat(2)
+    return corners, weights, src, valid
 
 
 def clip_near_corners_t(clip_t, n_src: int):
@@ -202,6 +287,13 @@ def triangle_setup_t(corners, valid, width: int, height: int, jitter=None
     return TriangleSetupT(a=a, b=b, c=cc, zplane=[za, zb, zc],
                           inv_area=inv_area, inv_w=inv_w, valid=ok,
                           bbox=bbox)
+
+
+def triangle_setup(corners, valid, width: int, height: int, jitter=None
+                   ) -> TriangleSetup:
+    """triangle_setup_t on row-major corners (TC, 3, 4)."""
+    cols = [[corners[:, c, j] for j in range(4)] for c in range(3)]
+    return _rowmajor(triangle_setup_t(cols, valid, width, height, jitter))
 
 
 def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,

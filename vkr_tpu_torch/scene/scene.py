@@ -4,7 +4,8 @@ The analog of the reference's CompiledScene (scene/scene.hpp:63-87): one
 merged vertex pool + index pool, material table, texture set. Instances
 are flattened at compile time (per-vertex transform index), and the
 bindless texture array becomes a fixed-size RGBA8 texture array with a
-full mip pyramid. passes/gbuffer.upload_scene moves it to the device.
+full mip pyramid; with native_sizes=True each texture also keeps its own
+resolution and aspect. passes/gbuffer.upload_scene moves it to the device.
 """
 
 from __future__ import annotations
@@ -33,9 +34,15 @@ class CompiledScene(NamedTuple):
     mat_mr_tex: np.ndarray       # (M,) i32
     mat_clip_alpha: np.ndarray   # (M,) i32 0/1
     mat_alpha_cutoff: np.ndarray  # (M,) f32
-    # Texture array mip pyramid: tuple of (NT, S>>l, S>>l, 4) u8
-    tex_mips: Tuple[np.ndarray, ...]
+    # Texture array mip pyramid: tuple of (NT, S>>l, S>>l, 4) u8; None in
+    # native-size mode, where upload_scene packs tex_images instead (vkr_tpu
+    # builds both; the port skips the resizes it would not read)
+    tex_mips: "Tuple[np.ndarray, ...] | None"
     tex_wrap: np.ndarray       # (NT,) i32 (gltf.WRAP_*)
+    # native-size mode (compile_scene(native_sizes=True)): per-texture
+    # images at their own resolution and aspect (scene.cpp:104-161
+    # samples each texture at native size); None in uniform mode
+    tex_images: "tuple | None" = None
 
     @property
     def num_triangles(self) -> int:
@@ -57,11 +64,76 @@ def build_mip_pyramid(tex_array: np.ndarray) -> Tuple[np.ndarray, ...]:
     return tuple(mips)
 
 
-def compile_scene(scene: _gltf.GltfScene, tex_size: int = 256
-                  ) -> CompiledScene:
-    """tex_size: the uniform square texture size. Images must already be
-    tex_size x tex_size (the colonnade's are); resizing arrives with the
-    glTF loader."""
+def _fma32(a, b, c):
+    """float32 fma(a, b, c), rounded once: a*b is exact in float64, the
+    sum is rounded to odd there (its error from TwoSum), and odd rounding
+    to 53 bits then nearest to 24 rounds as one rounding would."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even,
+                 np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def _resize_rgba(img: np.ndarray, size: int) -> np.ndarray:
+    """Bilinear (H, W, 4) u8 -> (size, size, 4) u8, as vkr_tpu's native
+    asset pipeline computes it (vkr_tpu/native/asset_pipeline.cpp:52-77,
+    built with -O3 -march=native on an x86-64 with FMA): half-texel
+    centres in float32, clamp to edge, each lerp one fma, + 0.5, clamp to
+    [0, 255], truncate. (vkr_tpu falls back to PIL's antialiased BILINEAR
+    when its native library is not built; the two differ.)"""
+    h, w = img.shape[:2]
+    if h == size and w == size:
+        return img
+    f32 = np.float32
+
+    def taps(n_src, n_dst):
+        i = np.arange(n_dst)
+        f = (i.astype(f32) + f32(0.5)) * f32(n_src) / f32(n_dst) - f32(0.5)
+        i0 = np.floor(f).astype(np.int64)
+        t = f - i0.astype(f32)
+        return np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1), t
+
+    y0, y1, ty = taps(h, size)
+    x0, x1, tx = taps(w, size)
+    src = img.astype(np.int32)
+    p00, p01 = src[y0][:, x0], src[y0][:, x1]
+    p10, p11 = src[y1][:, x0], src[y1][:, x1]
+    tx = tx[None, :, None]
+    top = _fma32((p01 - p00).astype(f32), tx, p00.astype(f32))
+    bot = _fma32((p11 - p10).astype(f32), tx, p10.astype(f32))
+    v = _fma32(bot - top, ty[:, None, None], top)
+    return np.clip(v + f32(0.5), f32(0), f32(255)).astype(np.uint8)
+
+
+def _native_image(img: np.ndarray, tex_size: int) -> np.ndarray:
+    """An image at its own size, downscaled by the integer factor that
+    brings its longer edge to tex_size or below (aspect preserved, box
+    mean truncated)."""
+    img = np.asarray(img, np.uint8)
+    f = -(-max(img.shape[0], img.shape[1]) // tex_size)
+    if f > 1:
+        h2 = max(img.shape[0] // f, 1)
+        w2 = max(img.shape[1] // f, 1)
+        img = img[: h2 * f, : w2 * f].reshape(
+            h2, f, w2, f, 4).astype(np.uint32).mean(
+            axis=(1, 3)).astype(np.uint8)
+    return np.ascontiguousarray(img)
+
+
+def compile_scene(
+    scene: _gltf.GltfScene, tex_size: int = 256,
+    native_sizes: bool = False,
+) -> CompiledScene:
+    """tex_size: the uniform square texture size every image is resized
+    to; with native_sizes=True also the MAX edge of tex_images, where
+    larger textures downscale by integer factors, aspect preserved, and
+    everything else keeps its own resolution, like the reference's
+    per-texture images."""
     positions, normals, uvs = [], [], []
     tri_indices, tri_material, vert_transform = [], [], []
     transforms, normal_mats = [], []
@@ -88,17 +160,25 @@ def compile_scene(scene: _gltf.GltfScene, tex_size: int = 256
             v_base += n_verts
 
     n_tex = len(scene.texture_image)
-    tex_array = np.zeros((max(n_tex, 1), tex_size, tex_size, 4), np.uint8)
-    tex_array[..., 3] = 255
-    for t, img_id in enumerate(scene.texture_image):
-        if 0 <= img_id < len(scene.images):
-            img = scene.images[img_id]
-            if img.shape[:2] != (tex_size, tex_size):
-                raise ValueError(
-                    f"image {img_id} is {img.shape[:2]}, expected "
-                    f"{tex_size}x{tex_size}: texture resizing comes with "
-                    "the glTF loader (ROADMAP queue 1 item 13)")
-            tex_array[t] = img
+    tex_images = tex_mips = None
+    if native_sizes:
+        tex_images = []
+        for t in range(max(n_tex, 1)):
+            img_id = scene.texture_image[t] if t < n_tex else -1
+            if 0 <= img_id < len(scene.images):
+                tex_images.append(_native_image(scene.images[img_id],
+                                                tex_size))
+            else:
+                tex_images.append(np.full((1, 1, 4), 255, np.uint8))
+        tex_images = tuple(tex_images)
+    else:
+        tex_array = np.zeros((max(n_tex, 1), tex_size, tex_size, 4),
+                             np.uint8)
+        tex_array[..., 3] = 255
+        for t, img_id in enumerate(scene.texture_image):
+            if 0 <= img_id < len(scene.images):
+                tex_array[t] = _resize_rgba(scene.images[img_id], tex_size)
+        tex_mips = build_mip_pyramid(tex_array)
 
     materials = scene.materials or [_gltf.Material()]
 
@@ -128,6 +208,15 @@ def compile_scene(scene: _gltf.GltfScene, tex_size: int = 256
         mat_alpha_cutoff=np.array(
             [m.alpha_cutoff for m in materials], np.float32
         ),
-        tex_mips=build_mip_pyramid(tex_array),
+        tex_mips=tex_mips,
         tex_wrap=np.asarray(scene.texture_wrap or [0], np.int32),
+        tex_images=tex_images,
     )
+
+
+def load_scene(path: str, tex_size: int = 256,
+               native_sizes: bool = False) -> CompiledScene:
+    """load_tinygltf_scene analog (scene.cpp:330-360): a glTF file on disk
+    -> CompiledScene."""
+    return compile_scene(_gltf.load_gltf(path), tex_size=tex_size,
+                         native_sizes=native_sizes)
