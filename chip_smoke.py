@@ -17,7 +17,10 @@
    the march x1, K4 x1, K5 x3, K6 x1). Fails unless each frame covers >= 98%
    of the pixels, drops no bin pair and is finite on every channel, SSR
    included. Prints the median frame time (synchronised host clock, the
-   first two frames excluded as warm-up).
+   first two frames excluded as warm-up). Frame 1 renders under a
+   PassGraph (every pass is built through the registry under add_task):
+   fails unless its records name vkr_tpu's default chain in order, and
+   prints the dump's first lines.
 4. SSR-off phase: 3 frames of the same orbit with enable_ssr=False (the
    single-strategy GTAO pass), with its own counters and checks.
 5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
@@ -48,7 +51,30 @@
    corner at 540x960, and to the mean bound on main frame 1, where far
    depths amplify the taps' rounding past the max bound for vkr_tpu's own
    pair too.
-9. glTF phase: writes the main phase's colonnade as .gltf + .bin + 8 PNG
+9. Runtime phase: renders frames 0..5 of the main orbit, checkpoints the
+   FrameState after frame 4 (core/checkpoint.py) and loads it on the card;
+   fails unless frame 5 rendered from it equals the uninterrupted frame 5
+   bit for bit (colour and every FrameState field). Writes the last main
+   frame's colour with save_png and its depth with save_depth_csv
+   (core/readback.py) and fails unless the PNG decodes, through the
+   port's decode_png, to the pixels save_png computed. Times a cold and a
+   warm build_ssr_resources through a temporary VKR_DISK_CACHE and fails
+   unless both give the main phase's tensors. Prints sizes and seconds.
+10. Manifest phase: fails unless every one of vkr_tpu's 41 registered
+   names resolves in the port (MANIFEST_NAMES), then runs the passes no
+   frame calls through registry.get on main frame 1's products at full
+   width: the screen-trace trio on the 1080p depth, normals and colour;
+   simple SSR ('ssr') on the hi-Z pyramid and the half-res colour; the
+   tile classification (threshold at the median tile roughness) and plane
+   regression on the 1080p material and depth; the indirect trace of
+   both reflection types; perlin, rotations and texdraw at 1080p;
+   gen_mipmaps of the colour; a SamplesMarker heatmap of the SSR rays.
+   Fails unless each output is finite with vkr_tpu's shape (the plane
+   regression's error may overflow to +inf on at most 0.1% of the tiles,
+   as vkr_tpu's does where a tile's fit is near singular), simple SSR
+   hits in more than 1% of the pixels, and the tile lists' counts add up
+   to the tile count. Prints each pass's stream ms (its second call).
+11. glTF phase: writes the main phase's colonnade as .gltf + .bin + 8 PNG
    textures (rows under all five PNG filters) into a temporary directory,
    textures 0, 1, 2, 5, 6 at 1024x1024 (REPEAT) and 3, 4, 7 at 2048x512
    (CLAMP), made from the colonnade's own images; loads it with
@@ -62,7 +88,7 @@
    frame. One G-buffer (frame 2) also goes through the indexed front end
    (the corner tables dropped): K1's depth and ids must equal the corner
    path's on its 3 calls, its attributes within 1e-6 + 1e-6 |x|.
-10. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+12. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -78,13 +104,13 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-11. Renders the main phase's 8 frames, the probe phase's 3, the RT
+13. Renders the main phase's 8 frames, the probe phase's 3, the RT
    phase's 3 and the glTF phase's 3 trilinear frames with the plain
    versions substituted for the kernels, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
-12. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+14. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
    on the probe faces (times per face, launches per start-up), and, last,
    the line {"ok": true, "device": {...}}.
 
@@ -169,6 +195,35 @@ KERNELS = {
 # K1 on the probe grid's cubemap faces at start-up: a row of its own
 PROBE_FACE_ROW = "gbuf_tiles (probe faces)"
 KERNELS[PROBE_FACE_ROW] = KERNELS["gbuf_tiles"]
+
+# vkr_tpu's default frame chain (frame.py's add_task names, in order)
+MAIN_CHAIN = ["GbufferPass", "DownsampleGbuffer", "SSSR_trace",
+              "SSSR_filter", "SSSR_blur", "GTAO_main", "GTAO_filter",
+              "GTAO_accumulate", "DeferedShading", "TAA"]
+# the runtime phase checkpoints the FrameState after this frame and
+# resumes the next from it
+CHECKPOINT_FRAME = 4
+# vkr_tpu.core.registry.names() after importing vkr_tpu.frame and every
+# pass and raster module (tests/test_torch_registry.py holds this list
+# against vkr_tpu's; this script cannot import vkr_tpu)
+MANIFEST_NAMES = [
+    "brdf_preintegrate", "cube2oct", "cubemap_probe", "default_shadow",
+    "defered_shading", "deinterleave_depth", "depth_mips",
+    "downsample_depth", "downsample_gbuffer", "downsample_hiz",
+    "gbuf_opaque", "gbuf_opaque_taa", "gtao_accumulate",
+    "gtao_compute_main", "gtao_filter", "gtao_main", "gtao_main_dense",
+    "gtao_main_mis", "gtao_normal_space", "gtao_reproject", "gtao_rt",
+    "gtao_rt_main", "main_deinterleaved", "pdf_preintegrate", "perlin",
+    "probe_downsample", "rotations", "screen_trace_accumulate",
+    "screen_trace_filter", "screen_trace_main", "ssao", "ssr",
+    "sssr_blur", "sssr_classification", "sssr_filter", "sssr_trace",
+    "sssr_trace_indirect", "taa_resolve", "texdraw", "tile_regression",
+    "trace_probe"]
+# simple SSR reflects every pixel as a mirror: the hall's floor and walls
+# must give hits in more than this share of the pixels
+MIN_SIMPLE_SSR_HITS = 0.01
+# tile_regression: the share of tiles whose error may overflow to +inf
+MAX_REGRESSION_OVERFLOW = 0.001
 
 
 class SmokeFailure(Exception):
@@ -263,7 +318,7 @@ def render(scene, res, cfg, device, n_frames, on_frame=None,
         g = aux["gbuffer"]
         out = {k: getattr(g, k) for k in FRAME_CHANNELS[:5]}
         out.update(ssr=aux["ssr"], ao=aux["ao"], color=color,
-                   overflow=int(aux["overflow"]))
+                   overflow=int(aux["overflow"]), ssr_rays=aux["ssr_rays"])
         if aux["probe"] is not None:
             empty = aux["ssr_rays"][..., 3] >= 1.0
             out["probe_filled"] = float(
@@ -773,55 +828,6 @@ GLTF_NATIVE = [(1024, 1024)] * 3 + [(256, 1024)] * 2 + [(1024, 1024)] * 2 \
 MIN_TRILINEAR_SHARE = 0.01
 
 
-def _png_chunk(kind: bytes, payload: bytes) -> bytes:
-    import struct
-    import zlib
-
-    return (struct.pack(">I", len(payload)) + kind + payload
-            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
-
-
-def png_bytes(px, colour_type: int = 6, filters=GLTF_FILTERS,
-              extra: bytes = b"", level: int = 1) -> bytes:
-    """An 8-bit, non-interlaced PNG of px (H, W, channels) u8: row y is
-    filtered with filters[y % len(filters)] (0 None, 1 Sub, 2 Up,
-    3 Average, 4 Paeth). Every filter predicts from the unfiltered
-    neighbours, so all rows filter at once. extra: chunks to put before
-    the image data (PLTE, tRNS)."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    px = np.asarray(px, np.uint8)
-    if px.ndim == 2:
-        px = px[..., None]
-    h, w, c = px.shape
-    x = px.astype(np.int16)
-    left = np.zeros_like(x)
-    left[:, 1:] = x[:, :-1]
-    up = np.zeros_like(x)
-    up[1:] = x[:-1]
-    up_left = np.zeros_like(x)
-    up_left[1:, 1:] = x[:-1, :-1]
-    pa = np.abs(up - up_left)
-    pb = np.abs(left - up_left)
-    pc = np.abs(left + up - 2 * up_left)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, up_left))
-    kinds = np.asarray([filters[y % len(filters)] for y in range(h)],
-                       np.uint8)
-    pred = np.choose(kinds[:, None, None],
-                     [np.zeros_like(x), left, up, (left + up) >> 1, paeth])
-    rows = np.concatenate(
-        [kinds[:, None], ((x - pred) & 255).astype(np.uint8).reshape(h, -1)],
-        axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header) + extra
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-            + _png_chunk(b"IEND", b""))
-
-
 def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
                name="scene"):
     """Write the geometry, materials and draw calls of a GltfScene as
@@ -836,6 +842,8 @@ def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
     import os
 
     import numpy as np
+
+    from vkr_tpu_torch.core.readback import png_bytes
 
     blob = bytearray()
 
@@ -881,7 +889,7 @@ def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
         meshes.append({"primitives": out})
     gl_images = []
     for t, img in enumerate(images):
-        data = png_bytes(img)
+        data = png_bytes(img, filters=GLTF_FILTERS, level=1)
         if t in data_uri:
             gl_images.append({"uri": "data:image/png;base64,"
                               + base64.b64encode(data).decode()})
@@ -1088,6 +1096,254 @@ def gltf_phase(cfg, res, device):
     return scene, cfg_gltf, outs
 
 
+def runtime_phase(scene, res, cfg, device, last):
+    """Checkpoint the FrameState after frame CHECKPOINT_FRAME, resume the
+    next frame from the file and hold it to the uninterrupted frame bit for
+    bit; write the last main frame's colour as PNG and its depth as CSV
+    and decode the PNG; time a cold and a warm LUT build through a
+    temporary disk cache."""
+    import tempfile
+
+    import torch
+
+    from vkr_tpu_torch.core import checkpoint, readback
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import (build_ssr_resources, camera_frame,
+                                     render_frame)
+    from vkr_tpu_torch.scene.gltf import decode_png
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    def cam(i):
+        return camera_frame(cfg, bench_orbit_view(i),
+                            bench_orbit_view(max(i - 1, 0)), i, device)
+
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    for i in range(CHECKPOINT_FRAME + 1):
+        _, state, _ = render_frame(scene, state, cam(i), res, cfg)
+    nxt = CHECKPOINT_FRAME + 1
+    color, after, _ = render_frame(scene, state, cam(nxt), res, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_state(state, os.path.join(tmp, "state.npz"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_state(path, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        color2, after2, _ = render_frame(scene, loaded, cam(nxt), res, cfg)
+        check(torch.equal(color2, color), f"runtime: frame {nxt} resumed "
+              "from the checkpoint differs from the uninterrupted frame")
+        check(after2.frame_index == after.frame_index, "runtime: resumed "
+              "frame_index differs")
+        for name in FrameState.FIELDS[:-1]:
+            check(torch.equal(getattr(after2, name), getattr(after, name)),
+                  f"runtime: resumed FrameState.{name} differs")
+        print(f"runtime: checkpoint after frame {CHECKPOINT_FRAME} "
+              f"({ckpt_bytes} bytes) saved in {save_s:.3f} s, loaded on the "
+              f"card in {load_s:.3f} s; frame {nxt} resumed from it equals "
+              "the uninterrupted frame bit for bit (colour and FrameState)")
+
+        t0 = time.perf_counter()
+        png = readback.save_png(last["color"], os.path.join(tmp, "c.png"))
+        png_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        csv = readback.save_depth_csv(last["depth"],
+                                      os.path.join(tmp, "d.csv"))
+        csv_s = time.perf_counter() - t0
+        with open(png, "rb") as f:
+            decoded = decode_png(f.read())[..., :3]
+        pixels = readback.png_pixels(last["color"])
+        check(decoded.shape == (HEIGHT, WIDTH, 3)
+              and (decoded == pixels).all(), "runtime: the PNG does not "
+              "decode to the pixels save_png computed")
+        with open(csv) as f:
+            rows = sum(1 for _ in f)
+        check(rows == HEIGHT + 1, f"runtime: depth CSV has {rows} lines")
+        print(f"runtime: save_png {os.path.getsize(png)} bytes in "
+              f"{png_s:.3f} s (decodes to its pixels), save_depth_csv "
+              f"{os.path.getsize(csv)} bytes in {csv_s:.3f} s")
+
+        saved = os.environ.get("VKR_DISK_CACHE")
+        os.environ["VKR_DISK_CACHE"] = os.path.join(tmp, "cache")
+        try:
+            times, built = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                built.append(build_ssr_resources(cfg.ssr.lut_size, device))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            if saved is None:
+                del os.environ["VKR_DISK_CACHE"]
+            else:
+                os.environ["VKR_DISK_CACHE"] = saved
+        check(all(torch.equal(a, b) for a, b in zip(*built)),
+              "runtime: the warm LUTs differ from the cold ones")
+        check(all(torch.equal(a, b) for a, b in zip(built[0], res)),
+              "runtime: the disk-cached LUTs differ from the main phase's")
+        print(f"runtime: build_ssr_resources({cfg.ssr.lut_size}) cold "
+              f"{times[0]:.3f} s, warm {times[1]:.3f} s (disk cache), "
+              "equal tensors")
+
+
+def manifest_phase(cfg, device, f0, f1):
+    """Every vkr_tpu manifest name resolves in the port; the passes that no
+    frame calls run through registry.get on main frame 1's products at
+    full width, each checked for vkr_tpu's shape and finite values, with
+    its stream ms."""
+    import torch
+
+    from vkr_tpu_torch.core import registry
+    from vkr_tpu_torch.frame import _inv4, _normal_mat4, camera_frame
+    from vkr_tpu_torch.mathlib.brdf import halton23_table
+    from vkr_tpu_torch.passes.downsample import build_hiz
+    from vkr_tpu_torch.passes.sampling import (downsample_full_to_half,
+                                               screen_uv_grid)
+    from vkr_tpu_torch.passes.screen_trace import ScreenTraceParams
+    from vkr_tpu_torch.passes.ssr import SSRParams, pack_pyramid
+    from vkr_tpu_torch.passes.trace_samples import SamplesMarker
+    from vkr_tpu_torch.passes.util_passes import DrawTex
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    missing = [n for n in MANIFEST_NAMES if n not in registry.names()]
+    check(not missing, f"manifest: names not registered: {missing}")
+    check(all(callable(registry.get(n)) for n in MANIFEST_NAMES),
+          "manifest: a name does not resolve to a function")
+
+    hiz = build_hiz(f1["depth"], f1["normal"], f1["velocity"])
+    pyr = pack_pyramid(hiz.mips)
+    hh, hw = hiz.mips[0].shape
+    cam = camera_frame(cfg, bench_orbit_view(CAPTURE_FRAME),
+                       bench_orbit_view(CAPTURE_FRAME - 1), CAPTURE_FRAME,
+                       device)
+    lens = (cfg.camera.fovy, cfg.aspect, cfg.camera.znear, cfg.camera.zfar)
+    nm = _normal_mat4(cam.view)
+    sp = SSRParams(nm, *lens, max_roughness=cfg.ssr.max_roughness)
+    halton = torch.as_tensor(halton23_table(128), device=device)
+    color_half = downsample_full_to_half(f1["color"])
+    results = {}
+
+    def timed(label, fn, *args, **kw):
+        """The second call's stream ms (the first loads the PyTorch kernels
+        that have not run yet in this process)."""
+        fn(*args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        end.synchronize()
+        results[label] = (out, start.elapsed_time(end))
+        return out
+
+    def run(label, name, *args, **kw):
+        return timed(label, registry.get(name), *args, **kw)
+
+    def shaped(label, shape):
+        out = results[label][0]
+        check(tuple(out.shape) == shape and bool(torch.isfinite(
+            out.float()).all()), f"manifest: {label} has shape "
+            f"{tuple(out.shape)} (want {shape}) or is not finite")
+
+    raw = run("screen_trace_main", "screen_trace_main", f1["depth"],
+              f1["normal"], f1["color"], ScreenTraceParams(nm, *lens))
+    filtered = run("screen_trace_filter", "screen_trace_filter",
+                   f1["depth"], raw, cfg.camera.znear, cfg.camera.zfar)
+    run("screen_trace_accumulate", "screen_trace_accumulate", f1["depth"],
+        f0["depth"], filtered, torch.zeros_like(filtered), *lens)
+    for label in ("screen_trace_main", "screen_trace_filter",
+                  "screen_trace_accumulate"):
+        shaped(label, (HEIGHT, WIDTH, 4))
+    simple = run("ssr", "ssr", pyr, hiz.normal_half, color_half, sp)
+    shaped("ssr", (hh, hw, 4))
+    hits = float((simple[..., 3] > 0).float().mean())
+    check(hits > MIN_SIMPLE_SSR_HITS, f"manifest: simple SSR hit in {hits} "
+          "of the pixels")
+    # the threshold at the median tile roughness, so both lists hold tiles
+    glossy_value = float(registry.get("sssr_classification")(
+        f1["material"], cfg.ssr.max_roughness, 0.0).avg_roughness.median())
+    cls = run("sssr_classification", "sssr_classification", f1["material"],
+              cfg.ssr.max_roughness, glossy_value)
+    ty, tx = HEIGHT // 8, WIDTH // 8
+    for field, shape in (("avg_roughness", (ty, tx)),
+                         ("reflective_tiles", (ty * tx,)),
+                         ("glossy_tiles", (ty * tx,))):
+        out = getattr(cls, field)
+        check(tuple(out.shape) == shape and bool(torch.isfinite(
+            out.float()).all()), f"manifest: classification {field}")
+    n_refl, n_glossy = int(cls.reflective_count), int(cls.glossy_count)
+    check(n_refl + n_glossy == ty * tx and n_refl > 0 and n_glossy > 0,
+          f"manifest: tile lists hold {n_refl} + {n_glossy} of "
+          f"{ty * tx} tiles")
+    # A tile whose normal equations are near singular (its 64 points lie
+    # almost along one ray from the eye) gets a plane of ~1e19 and an
+    # error that overflows float32 to +inf: vkr_tpu's function does the
+    # same (2 tiles of a 1080p frame of the hall on the CPU). So the planes
+    # must be finite, the errors finite or +inf, and +inf rare.
+    fit = run("tile_regression", "tile_regression", f1["depth"],
+              _inv4(cam.view), *lens)
+    overflowed = int(torch.isinf(fit[..., 3]).sum())
+    check(tuple(fit.shape) == (ty, tx, 4)
+          and bool(torch.isfinite(fit[..., :3]).all())
+          and not bool(torch.isnan(fit[..., 3]).any())
+          and bool((fit[..., 3] >= 0).all())
+          and overflowed <= MAX_REGRESSION_OVERFLOW * ty * tx,
+          f"manifest: tile_regression shape {tuple(fit.shape)}, "
+          f"{overflowed} tiles with an infinite error")
+    # The classification of the full-res material: its 8x8 tiles cover the
+    # half-res trace (a half-res grid has 67 tile rows, 536 of the 540
+    # rows, and vkr_tpu's mask would not broadcast).
+    for kind in (0, 1):
+        label = f"sssr_trace_indirect (type {kind})"
+        run(label, "sssr_trace_indirect", pyr, hiz.normal_half,
+            f1["material"], sp, 1, halton, cls, reflection_type=kind)
+        shaped(label, (hh, hw, 4))
+    run("perlin", "perlin", HEIGHT, WIDTH, device=device)
+    shaped("perlin", (HEIGHT, WIDTH))
+    run("rotations", "rotations", HEIGHT, WIDTH, 0.3, device=device)
+    shaped("rotations", (HEIGHT, WIDTH))
+    run("texdraw", "texdraw", f1["material"], HEIGHT, WIDTH, DrawTex.ShowG)
+    shaped("texdraw", (HEIGHT, WIDTH, 3))
+    from vkr_tpu_torch.passes.util_passes import gen_mipmaps
+
+    mips = timed("gen_mipmaps", gen_mipmaps, f1["color"])
+    # one level per halving of the short side, down to one texel
+    check(len(mips) == min(HEIGHT, WIDTH).bit_length()
+          and min(mips[-1].shape[:2]) == 1
+          and all(bool(torch.isfinite(m).all()) for m in mips),
+          f"manifest: gen_mipmaps gave {len(mips)} levels")
+    # the rays of an 8x8-pixel block at the centre of the half-res frame
+    marker = SamplesMarker(hh, hw, (0.5, 0.5, 0.5 + 8 / hw, 0.5 + 8 / hh),
+                           device=device)
+    src = screen_uv_grid(hh, hw, device)
+
+    def heatmap(src, fetch):
+        marker.clear()
+        return marker.trace(src, fetch)
+
+    heat = timed("SamplesMarker (SSR rays)", heatmap, src,
+                 f1["ssr_rays"][..., :2])
+    x0, y0, x1, y1 = marker.window
+    in_window = int(((src[..., 0] >= x0) & (src[..., 0] <= x1)
+                     & (src[..., 1] >= y0) & (src[..., 1] <= y1)).sum())
+    check(heat.dtype == torch.int32 and tuple(heat.shape) == (hh, hw)
+          and int(heat.sum()) == in_window > 0, f"manifest: the heatmap "
+          f"counts {int(heat.sum())} fetches of {in_window} window rays")
+    print(f"manifest: {len(MANIFEST_NAMES)} of vkr_tpu's names resolve "
+          f"({len(registry.names())} registered); simple SSR hits "
+          f"{hits:.4f} of the pixels; tiles {n_refl} reflective + "
+          f"{n_glossy} glossy = {ty * tx} (glossy value "
+          f"{glossy_value:.4f}); heatmap {int(heat.sum())} fetches of the "
+          f"{in_window} rays in its window; tile_regression's error "
+          f"overflowed on {overflowed} of {ty * tx} tiles")
+    print("manifest passes, stream ms at 1080p (main frame "
+          f"{CAPTURE_FRAME}): " + "; ".join(
+              f"{label} {ms:.3f}" for label, (_, ms) in results.items()))
+
+
 def main() -> int:
     import torch
 
@@ -1107,6 +1363,7 @@ def main() -> int:
 
     from vkr_tpu_torch import kernels
     from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.graph import PassGraph
     from vkr_tpu_torch.frame import build_probe_grid, build_ssr_resources
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.passes.shadows import render_shadow_map
@@ -1139,17 +1396,28 @@ def main() -> int:
           len(scene.tri_masked_mat) == SCENE_MASKED,
           f"scene has {n_tri} triangles, expected {SCENE_TRIANGLES}")
 
-    # ---- main phase: the default frame, through the kernels ----
+    # ---- main phase: the default frame, through the kernels; frame 1
+    # under a pass graph ----
     captured = []
+    graph = PassGraph()
 
     def capture(i):
-        return (Substitute(recording(captured)) if i == CAPTURE_FRAME
-                else contextlib.nullcontext())
+        stack = contextlib.ExitStack()
+        if i == CAPTURE_FRAME:
+            stack.enter_context(Substitute(recording(captured)))
+            stack.enter_context(graph.recording())
+        return stack
 
     kernels.LAUNCHES.clear()
     outs, secs = render(scene, res, cfg, device, N_FRAMES, on_frame=capture)
     launches = dict(kernels.LAUNCHES)
     check_frames(outs, launches, N_FRAMES, MIN_LAUNCHES_PER_FRAME, "main")
+    chain = [r.name for r in graph.records]
+    check(chain == MAIN_CHAIN, f"main frame {CAPTURE_FRAME}: the pass graph "
+          f"recorded {chain}, not vkr_tpu's default chain {MAIN_CHAIN}")
+    print(f"main frame {CAPTURE_FRAME} pass graph ({len(chain)} tasks, "
+          "vkr_tpu's default chain):")
+    print("\n".join(graph.dump().splitlines()[:10]))
     print(f"main: {N_FRAMES} frames at {WIDTH}x{HEIGHT} (SSR on, MIS "
           f"GTAO), coverage "
           f"{min(float((o['depth'] < 1.0).float().mean()) for o in outs):.4f}"
@@ -1354,6 +1622,14 @@ def main() -> int:
               f"gtao_main_window vs gtao_main_exact, {label}: max {worst}, "
               f"mean {mean}")
     del hiz, exact, diff, variants, reproject
+
+    # ---- runtime phase: checkpoint and resume, PNG and depth CSV, the
+    # disk-cached LUTs
+    runtime_phase(scene, res, cfg, device, outs[N_FRAMES - 1])
+
+    # ---- manifest phase: every name resolves; the passes no frame calls
+    # run through the registry on main frame 1's products
+    manifest_phase(cfg, device, outs[CAPTURE_FRAME - 1], outs[CAPTURE_FRAME])
 
     # ---- glTF phase: a glTF scene from disk, native-size textures,
     # trilinear sampling, the indexed front end

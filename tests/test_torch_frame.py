@@ -8,6 +8,7 @@ interpret mode take minutes to compile on a CPU. Each kernel's plain
 version is held against the interpreted Pallas kernel in
 test_torch_raster.py and test_torch_gather.py."""
 
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +49,7 @@ def orbit():
     after the last frame."""
     from vkr_tpu.config import RenderConfig as JConfig
     from vkr_tpu.core.framestate import FrameState as JState
+    from vkr_tpu.core.graph import PassGraph as JGraph
     from vkr_tpu.frame import SSRResources as JRes
     from vkr_tpu.frame import camera_frame as j_camera
     from vkr_tpu.frame import render_frame as j_render
@@ -58,6 +60,7 @@ def orbit():
     from vkr_tpu_torch.config import RenderConfig
     from vkr_tpu_torch.convert import scene_from_numpy
     from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.core.graph import PassGraph
     from vkr_tpu_torch.frame import build_ssr_resources, camera_frame
     from vkr_tpu_torch.frame import render_frame
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
@@ -79,17 +82,25 @@ def orbit():
     scene = scene_from_numpy(scene_np, "cpu")
     state = FrameState.initial(H, W, "cpu")
 
+    # frame 0's task chain on both sides (vkr_tpu's add_task records while
+    # its jit traces the frame, on the first call)
+    jgraph, graph = JGraph(), PassGraph()
     out = []
     for i in range(N_FRAMES):
         # bench.py's loop: frame i sees orbit view i, its previous view i-1
         view, prev = bench_orbit_view(i), bench_orbit_view(max(i - 1, 0))
-        jcolor, jstate, jaux = jframe(jscene, jstate,
-                                      j_camera(jcfg, view, prev, i))
-        color, state, aux = render_frame(
-            scene, state, camera_frame(cfg, view, prev, i, "cpu"), res, cfg)
+        with jgraph.recording():
+            jcolor, jstate, jaux = jframe(jscene, jstate,
+                                          j_camera(jcfg, view, prev, i))
+        with (graph.recording() if i == 0 else contextlib.nullcontext()):
+            color, state, aux = render_frame(
+                scene, state, camera_frame(cfg, view, prev, i, "cpu"), res,
+                cfg)
         out.append((_outputs(jcolor, jaux), _outputs(color, aux)))
     assert state.frame_index == N_FRAMES == int(jstate.frame_index)
     after = dict(jframe=jframe, jscene=jscene, jstate=jstate,
+                 chains=([r.name for r in jgraph.records],
+                         [r.name for r in graph.records]),
                  jcamera=j_camera(jcfg, bench_orbit_view(N_FRAMES),
                                   bench_orbit_view(N_FRAMES - 1), N_FRAMES),
                  scene=scene, state=state, res=res, cfg=cfg)
@@ -152,6 +163,15 @@ def test_framestate_carried_across(orbit):
     want, got = _outputs(jcolor, jaux), _outputs(color, aux)
     for channel in ("ao", "color"):
         assert psnr(got[channel], want[channel]) >= 40.0, channel
+
+
+def test_task_chain_equals_vkr_tpu(orbit):
+    """The SSR-off frame builds its passes through the registry under
+    add_task: the port's recorded chain is vkr_tpu's, task for task."""
+    jchain, chain = orbit[1]["chains"]
+    assert chain == jchain == [
+        "GbufferPass", "DownsampleGbuffer", "GTAO_main", "GTAO_filter",
+        "GTAO_accumulate", "DeferedShading", "TAA"]
 
 
 def test_port_imports_no_jax():

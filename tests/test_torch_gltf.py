@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import chip_smoke
+from vkr_tpu_torch.core.readback import png_chunk, png_bytes
 
 torch.set_num_threads(1)
 
@@ -141,7 +142,7 @@ class TestLoader:
 
 
 def _encode(px, ctype, filters, extra=b""):
-    return chip_smoke.png_bytes(px, ctype, filters, extra)
+    return png_bytes(px, ctype, filters, extra)
 
 
 @pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,),
@@ -157,7 +158,7 @@ def test_png_matches_pil(ctype, filters):
 
     from vkr_tpu_torch.scene.gltf import decode_png
 
-    chunk = chip_smoke._png_chunk
+    chunk = png_chunk
     rng = np.random.default_rng(ctype * 10 + len(filters))
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     px = rng.integers(0, 256, (19, 23, channels), np.uint8)
@@ -181,9 +182,9 @@ def test_png_matches_pil(ctype, filters):
 
 def _ihdr_png(depth, interlace):
     header = struct.pack(">IIBBBBB", 2, 2, depth, 6, 0, 0, interlace)
-    return (b"\x89PNG\r\n\x1a\n" + chip_smoke._png_chunk(b"IHDR", header)
-            + chip_smoke._png_chunk(b"IDAT", zlib.compress(b"\0" * 80))
-            + chip_smoke._png_chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", header)
+            + png_chunk(b"IDAT", zlib.compress(b"\0" * 80))
+            + png_chunk(b"IEND", b""))
 
 
 @pytest.mark.parametrize("data", [

@@ -11,6 +11,7 @@ G-buffer. vkr_tpu's own oracle raster (use_pallas=False) parts from its
 Pallas raster on edge pixels of an in-hall view (ROADMAP queue 3), and
 interpreting its Pallas raster here would cost a minute of compiles."""
 
+import contextlib
 import functools
 
 import jax
@@ -52,6 +53,7 @@ def orbit():
     import vkr_tpu.passes.ssr as jssr
     from vkr_tpu.config import RenderConfig as JConfig
     from vkr_tpu.core.framestate import FrameState as JState
+    from vkr_tpu.core.graph import PassGraph as JGraph
     from vkr_tpu.frame import SSRResources as JRes
     from vkr_tpu.frame import camera_frame as j_camera
     from vkr_tpu.frame import shade_frame as j_shade
@@ -62,6 +64,7 @@ def orbit():
     from vkr_tpu_torch.convert import (scene_from_numpy,
                                        ssr_resources_from_numpy)
     from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.core.graph import PassGraph
     from vkr_tpu_torch.frame import camera_frame, render_frame
     from vkr_tpu_torch.passes.gbuffer import render_gbuffer
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
@@ -88,15 +91,22 @@ def orbit():
                                                   use_pallas=False))
         jstate = JState.initial(H, W)
         state = FrameState.initial(H, W, "cpu")
+        # frame 0's task chain on both sides (vkr_tpu's add_task records
+        # while its jit traces shade_frame, on the first call)
+        jgraph, graph = JGraph(), PassGraph()
         out = []
         for i in range(N_FRAMES):
             # bench.py's loop: frame i sees orbit view i after view i-1
             view, prev = bench_orbit_view(i), bench_orbit_view(max(i - 1, 0))
-            color, state, aux = render_frame(
-                scene, state, camera_frame(cfg, view, prev, i, "cpu"), res,
-                cfg)
-            jcolor, jstate, jaux = jframe(jgbuffer(aux["gbuffer"]), jstate,
-                                          j_camera(jcfg, view, prev, i))
+            with (graph.recording() if i == 0
+                  else contextlib.nullcontext()):
+                color, state, aux = render_frame(
+                    scene, state, camera_frame(cfg, view, prev, i, "cpu"),
+                    res, cfg)
+            with jgraph.recording():
+                jcolor, jstate, jaux = jframe(jgbuffer(aux["gbuffer"]),
+                                              jstate,
+                                              j_camera(jcfg, view, prev, i))
             out.append((_outputs(jcolor, jaux), _outputs(color, aux)))
         # vkr_tpu's next frame from its own history, for
         # test_framestate_carried_across
@@ -111,6 +121,8 @@ def orbit():
                                  j_camera(jcfg, view, prev, N_FRAMES))
     assert state.frame_index == N_FRAMES == int(jstate.frame_index)
     after = dict(jstate=jstate, cam=cam, jnext=_outputs(jcolor, jaux),
+                 chains=([r.name for r in jgraph.records],
+                         [r.name for r in graph.records]),
                  scene=scene, res=res, cfg=cfg)
     return out, after
 
@@ -163,3 +175,16 @@ def test_framestate_carried_across(orbit):
     got = _outputs(color, aux)
     for channel in ("ssr", "ao", "color"):
         assert psnr(got[channel], after["jnext"][channel]) >= 40.0, channel
+
+
+def test_task_chain_equals_vkr_tpu(orbit):
+    """The default frame builds its passes through the registry under
+    add_task: the port's recorded chain is GbufferPass, then vkr_tpu's
+    shade_frame chain task for task (vkr_tpu shades the port's G-buffer
+    here, so its records start after the G-buffer)."""
+    jchain, chain = orbit[1]["chains"]
+    assert jchain == [
+        "DownsampleGbuffer", "SSSR_trace", "SSSR_filter", "SSSR_blur",
+        "GTAO_main", "GTAO_filter", "GTAO_accumulate", "DeferedShading",
+        "TAA"]
+    assert chain == ["GbufferPass"] + jchain

@@ -11,7 +11,13 @@ This package never imports jax or vkr_tpu.
 
   config.py   — RenderConfig dataclasses (JSON-compatible with vkr_tpu)
   mathlib/    — camera matrices, projection, octahedral normals, BRDF
-  core/       — storage-format emulation, FrameState
+  core/       — storage-format emulation, FrameState, and the runtime
+                layer: the pass registry under the reference's manifest
+                names with hot reload (registry.py), the pass graph with
+                task labels, DAG dump and per-pass timing (graph.py),
+                readback and PNG / depth-CSV capture (readback.py),
+                FrameState checkpoints (checkpoint.py) and the start-up
+                disk cache (diskcache.py)
   scene/      — the glTF loader and its PNG decoder, CompiledScene and
                 load_scene (uniform or native-size textures), the
                 procedural scenes, the uniform-grid acceleration
@@ -22,10 +28,16 @@ This package never imports jax or vkr_tpu.
                 kernels (K4/K5/K6)
   passes/     — G-buffer, hi-Z, SSR, GTAO (ray-traced GTAO and the
                 variants too), SSAO, deferred shading, TAA, BRDF LUT,
-                shadow maps, probe GI
-  frame.py    — render_frame: the frame chain and its history remaps
+                shadow maps, probe GI, and the passes no frame calls:
+                screen trace, simple SSR, the SSR tile path, the util
+                passes and the fetch heatmap (trace_samples.py); importing
+                the package registers every pass
+  frame.py    — render_frame: the frame chain through the registry under
+                add_task, and its history remaps
   convert.py  — carry vkr_tpu's numpy scene / FrameState / probe grid /
                 scene grid arrays across
 """
 
 __version__ = "0.1.0"
+
+from vkr_tpu_torch import core  # noqa: F401,E402

@@ -1,3 +1,15 @@
+"""The runtime layer: storage formats, FrameState, and vkr_tpu/core's
+registry (shader manifest, hot reload), pass graph (task labels, DAG dump,
+per-pass timing), readback and capture, FrameState checkpoints and the
+start-up disk cache."""
+
+from vkr_tpu_torch.core import (  # noqa: F401
+    checkpoint,
+    diskcache,
+    graph,
+    readback,
+    registry,
+)
 from vkr_tpu_torch.core.formats import (
     quantize_unorm,
     srgb_to_linear,
@@ -5,3 +17,4 @@ from vkr_tpu_torch.core.formats import (
     quantize_f16,
 )
 from vkr_tpu_torch.core.framestate import FrameState
+from vkr_tpu_torch.core.graph import PassGraph, PassProfiler, add_task

@@ -11,6 +11,11 @@ config 5), ray-traced GTAO (gtao.use_ray_query with a grid from
 build_scene_tri_grid) and trilinear material textures
 (trilinear_textures), on procedural scenes and on glTF scenes from
 scene.load_scene, uniform or at native texture sizes.
+
+Every pass is built through the registry (core/registry.get, the
+reference's shader manifest) under add_task with the reference's task
+names (core/graph.py), in vkr_tpu's order: a PassGraph records the chain,
+and a function swapped on its module reaches the frame.
 """
 
 from __future__ import annotations
@@ -22,17 +27,18 @@ import numpy as np
 import torch
 
 from vkr_tpu_torch.config import RenderConfig
+from vkr_tpu_torch.core import registry
+from vkr_tpu_torch.core.diskcache import cached_npz
 from vkr_tpu_torch.core.framestate import FrameState
+from vkr_tpu_torch.core.graph import add_task
 from vkr_tpu_torch.mathlib.brdf import halton23_table
 from vkr_tpu_torch.mathlib.transforms import perspective, taa_jitter_sequence
-from vkr_tpu_torch.passes import downsample as _down
 from vkr_tpu_torch.passes import gtao as _gtao
 from vkr_tpu_torch.passes import probes as _probes
 from vkr_tpu_torch.passes import shading as _shading
 from vkr_tpu_torch.passes import ssr as _ssr
 from vkr_tpu_torch.passes import taa as _taa
-from vkr_tpu_torch.passes.gbuffer import (SceneDevice, render_gbuffer,
-                                          upload_scene)
+from vkr_tpu_torch.passes.gbuffer import SceneDevice, upload_scene
 from vkr_tpu_torch.scene.accel import TriGrid, build_tri_grid
 
 # Reference numerics: float32 products in full precision (vkr_tpu runs its
@@ -51,11 +57,25 @@ class SSRResources(NamedTuple):
 
 def build_ssr_resources(lut_size: int = 1024,
                         device=_ssr.CUDA) -> SSRResources:
-    """Preintegrate the LUTs on `device`, the card unless the caller asks
-    for another (nothing is cached to disk)."""
+    """The preintegrated LUTs on `device`, the card unless the caller asks
+    for another, disk-cached as vkr_tpu caches them (frame.py:42-63; each
+    is a pure function of its size). The key names the port and the
+    device type: vkr_tpu's `ssr-luts-{size}` entries share the directory
+    and come from other code. A warm start returns the arrays a cold start
+    built on that device type."""
+    device = torch.device(device)
+
+    def build():
+        return {name: registry.get(prog)(lut_size, device=device)
+                .cpu().numpy()
+                for name, prog in (("pdf", "pdf_preintegrate"),
+                                   ("brdf", "brdf_preintegrate"))}
+
+    luts = cached_npz(f"ssr-luts-{lut_size}-vkr_tpu_torch-{device.type}",
+                      build)
     return SSRResources(
-        pdf_lut=_ssr.preintegrate_pdf(lut_size, device=device),
-        brdf_lut=_ssr.preintegrate_brdf(lut_size, device=device),
+        pdf_lut=torch.from_numpy(luts["pdf"]).to(device),
+        brdf_lut=torch.from_numpy(luts["brdf"]).to(device),
         halton=torch.as_tensor(halton23_table(_ssr.HALTON_SEQ_SIZE),
                                device=device))
 
@@ -119,6 +139,7 @@ def build_scene_tri_grid(scene_cpu, resolution: int = 48, cap: int = 24,
                           resolution=resolution, cap=cap, device=device)
 
 
+@registry.track_cache
 @functools.lru_cache(maxsize=4)
 def _rt_direction_table(count: int, device) -> torch.Tensor:
     """ao_ray_directions(count) on `device`, made once."""
@@ -148,11 +169,15 @@ def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
     start-up TriGrid (build_scene_tri_grid); with cfg.gtao.use_ray_query
     GTAO's main pass is gtao_rt over it. Without one the main pass is the
     one the frame takes with use_ray_query off, as in vkr_tpu."""
-    gbuf = render_gbuffer(
-        scene, cam.mvp, cam.prev_mvp, cam.jitter,
-        width=cfg.width, height=cfg.height, quantize=cfg.quantize_formats,
-        mask_peel_layers=cfg.raster.mask_peel_layers,
-        trilinear=cfg.trilinear_textures,
+    gbuf = add_task(
+        "GbufferPass",
+        lambda: registry.get("gbuf_opaque_taa")(
+            scene, cam.mvp, cam.prev_mvp, cam.jitter,
+            width=cfg.width, height=cfg.height,
+            quantize=cfg.quantize_formats,
+            mask_peel_layers=cfg.raster.mask_peel_layers,
+            trilinear=cfg.trilinear_textures,
+        ),
     )
     mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                     tri_grid=tri_grid)
@@ -170,7 +195,10 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
     inv_view = _inv4(cam.view)
     prev_inv_view = _inv4(cam.prev_view)
     nm = _normal_mat4(cam.view)
-    hiz = _down.build_hiz(gbuf.depth, gbuf.normal, gbuf.velocity)
+    hiz = add_task(
+        "DownsampleGbuffer",
+        lambda: registry.get("downsample_hiz")(gbuf.depth, gbuf.normal,
+                                               gbuf.velocity))
     depth_half = hiz.mips[0]
 
     # ---- SSR (ssr.run: trace -> filter -> blur) ----
@@ -185,14 +213,20 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         # (advanced_ssr.cpp:168-170 / 237-239)
         frame_random = (state.frame_index % cfg.ssr.max_accumulated_rays
                         if cfg.ssr.update_random else 0)
-        rays, ssr_occ = _ssr.ssr_trace(
-            _ssr.pack_pyramid(hiz.mips), hiz.normal_half, gbuf.material,
-            ssr_res.pdf_lut, sp, frame_random, ssr_res.halton,
-            max_iterations=cfg.ssr.max_iterations)
-        reflections = _ssr.ssr_filter(
-            rays, depth_half, gbuf.albedo, hiz.normal_half, gbuf.material,
-            sp, flags_normalize=cfg.ssr.normalize_filter,
-            flags_bilateral=cfg.ssr.bilateral_filter)
+        pyr = _ssr.pack_pyramid(hiz.mips)
+        rays, ssr_occ = add_task(
+            "SSSR_trace",
+            lambda: registry.get("sssr_trace")(
+                pyr, hiz.normal_half, gbuf.material, ssr_res.pdf_lut, sp,
+                frame_random, ssr_res.halton,
+                max_iterations=cfg.ssr.max_iterations))
+        reflections = add_task(
+            "SSSR_filter",
+            lambda: registry.get("sssr_filter")(
+                rays, depth_half, gbuf.albedo, hiz.normal_half,
+                gbuf.material, sp,
+                flags_normalize=cfg.ssr.normalize_filter,
+                flags_bilateral=cfg.ssr.bilateral_filter))
         blur_params = _ssr.SSRBlurParams(
             inverse_camera=inv_view, prev_inverse_camera=prev_inv_view,
             fovy=cfg.camera.fovy, aspect=cfg.aspect,
@@ -201,10 +235,12 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             accumulate=cfg.ssr.accumulate,
             disable_blur=not cfg.ssr.use_blur,
         )
-        ssr_blurred = _ssr.ssr_blur(
-            reflections, depth_half, hiz.normal_half, gbuf.material,
-            state.ssr_history, hiz.velocity_half, state.prev_depth_half,
-            blur_params)
+        ssr_blurred = add_task(
+            "SSSR_blur",
+            lambda: registry.get("sssr_blur")(
+                reflections, depth_half, hiz.normal_half, gbuf.material,
+                state.ssr_history, hiz.velocity_half, state.prev_depth_half,
+                blur_params))
     else:
         ssr_occ = None
         # SSR off: shading sees no reflections
@@ -218,9 +254,12 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
     # left empty.
     probe_refl = None
     if cfg.enable_probes and probe_grid is not None:
-        probe_refl = _probes.probe_trace(
-            depth_half, hiz.normal_half, probe_grid, inv_view,
-            cfg.camera.fovy, cfg.aspect, cfg.camera.znear, cfg.camera.zfar)
+        probe_refl = add_task(
+            "TraceProbes",
+            lambda: registry.get("trace_probe")(
+                depth_half, hiz.normal_half, probe_grid, inv_view,
+                cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
+                cfg.camera.zfar))
         probe_rgb = probe_refl[..., :3] * probe_refl[..., 3:4]
         ssr_blurred = (compose_probe_reflections(ssr_blurred, rays, probe_rgb)
                        if cfg.enable_ssr else probe_rgb)
@@ -234,37 +273,47 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         if cfg.gtao.use_ray_query and tri_grid is not None:
             # ray-query GTAO against the scene grid (gtao.cpp:150-196,
             # rt_main.frag); filter and accumulate run unchanged after it
-            raw_ao = _gtao.gtao_rt(
-                depth_half, hiz.normal_half, tri_grid, inv_view,
-                cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
-                cfg.camera.zfar, base_angle,
-                _rt_direction_table(cfg.gtao.rt_directions, dev),
-                rt_radius=cfg.gtao.rt_radius)
+            rt_dirs = _rt_direction_table(cfg.gtao.rt_directions, dev)
+            raw_ao = add_task(
+                "GTAO_rt",
+                lambda: registry.get("gtao_rt")(
+                    depth_half, hiz.normal_half, tri_grid, inv_view,
+                    cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
+                    cfg.camera.zfar, base_angle, rt_dirs,
+                    rt_radius=cfg.gtao.rt_radius))
         elif cfg.gtao.mis and ssr_occ is not None:
             # the reference's default main pass (gtao.hpp:112 mis_gtao):
             # MIS with the SSR trace's GGX occlusion estimate
-            raw_ao = _gtao.gtao_main_mis(
-                depth_half, hiz.normal_half, gbuf.material, ssr_res.pdf_lut,
-                ssr_occ, gp, base_angle,
-                weight_ratio=cfg.gtao.weight_ratio,
-                reflections_only=cfg.gtao.reflections_only)
+            raw_ao = add_task(
+                "GTAO_main",
+                lambda: registry.get("gtao_main_mis")(
+                    depth_half, hiz.normal_half, gbuf.material,
+                    ssr_res.pdf_lut, ssr_occ, gp, base_angle,
+                    weight_ratio=cfg.gtao.weight_ratio,
+                    reflections_only=cfg.gtao.reflections_only))
         else:
             # without SSR's occlusion estimate the MIS main pass cannot
             # run; like vkr_tpu, the frame takes the single-strategy pass
-            raw_ao = _gtao.gtao_main_window(
-                depth_half, hiz.normal_half, gp, base_angle,
-                2 if cfg.gtao.two_directions else 1)
-        filtered_ao = _gtao.gtao_filter(depth_half, raw_ao,
-                                        cfg.camera.znear, cfg.camera.zfar)
+            raw_ao = add_task(
+                "GTAO_main",
+                lambda: registry.get("gtao_main")(
+                    depth_half, hiz.normal_half, gp, base_angle,
+                    2 if cfg.gtao.two_directions else 1))
+        filtered_ao = add_task(
+            "GTAO_filter",
+            lambda: registry.get("gtao_filter")(
+                depth_half, raw_ao, cfg.camera.znear, cfg.camera.zfar))
         ap = _gtao.GTAOAccumParams(
             inverse_camera=inv_view, prev_inverse_camera=prev_inv_view,
             mvp=cam.mvp, fovy=cfg.camera.fovy, aspect=cfg.aspect,
             znear=cfg.camera.znear, zfar=cfg.camera.zfar,
         )
-        gtao_accum = _gtao.gtao_accumulate(
-            depth_half, state.prev_depth_half, filtered_ao,
-            hiz.velocity_half, state.gtao_accum, ap,
-            clear_history=state.frame_index == 0)
+        gtao_accum = add_task(
+            "GTAO_accumulate",
+            lambda: registry.get("gtao_accumulate")(
+                depth_half, state.prev_depth_half, filtered_ao,
+                hiz.velocity_half, state.gtao_accum, ap,
+                clear_history=state.frame_index == 0))
         occlusion = gtao_accum[..., 0]
     else:
         gtao_accum = state.gtao_accum
@@ -291,10 +340,12 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
         max_roughness=cfg.shading.max_roughness,
         show_ao=cfg.show_ao_only,
     )
-    color = _shading.deferred_shading(
-        gbuf, shade_params, occlusion=occlusion,
-        reflections=mid["ssr_blurred"], brdf_lut=ssr_res.brdf_lut,
-        depth_half=depth_half)
+    color = add_task(
+        "DeferedShading",
+        lambda: registry.get("defered_shading")(
+            gbuf, shade_params, occlusion=occlusion,
+            reflections=mid["ssr_blurred"], brdf_lut=ssr_res.brdf_lut,
+            depth_half=depth_half))
 
     if cfg.enable_taa:
         tp = _taa.TAAParams(
@@ -302,8 +353,11 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
             fovy=cfg.camera.fovy, aspect=cfg.aspect,
             znear=cfg.camera.znear, zfar=cfg.camera.zfar,
         )
-        final = _taa.taa_resolve(state.taa_history, state.prev_depth,
-                                 gbuf.depth, gbuf.velocity, color, tp)
+        final = add_task(
+            "TAA",
+            lambda: registry.get("taa_resolve")(
+                state.taa_history, state.prev_depth, gbuf.depth,
+                gbuf.velocity, color, tp))
     else:
         final = color
 

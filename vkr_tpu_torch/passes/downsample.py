@@ -15,6 +15,8 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from vkr_tpu_torch.core.registry import register
+
 
 class HiZPyramid(NamedTuple):
     mips: Tuple[torch.Tensor, ...]  # depth mips 1..N (half-res down to 1)
@@ -31,6 +33,7 @@ def _quads(img):
                         q[:, 1, :, 1]], dim=2)
 
 
+@register("downsample_gbuffer")
 def downsample_gbuffer(depth, normal, velocity):
     """Full-res -> half-res (depth min + argmin-selected normal/velocity).
 
@@ -47,6 +50,8 @@ def downsample_gbuffer(depth, normal, velocity):
     return min_depth, normal_half, velocity_half
 
 
+@register("depth_mips")
+@register("downsample_depth")  # manifest name (config.json: depth_downsample/*)
 def downsample_depth_chain(depth_half) -> List[torch.Tensor]:
     """Mips 2..N by 2x2 min (depth_downsample/shader.frag), down to 1x1-ish.
     Odd extents truncate (keeps the min conservative)."""
@@ -59,6 +64,7 @@ def downsample_depth_chain(depth_half) -> List[torch.Tensor]:
     return mips
 
 
+@register("downsample_hiz")
 def build_hiz(depth, normal, velocity) -> HiZPyramid:
     """The full DownsampleGbuffer + DownsampleDepth chain
     (downsample_pass.cpp run())."""

@@ -31,6 +31,7 @@ from vkr_tpu_torch.core.formats import (
     quantize_unorm,
     srgb_to_linear,
 )
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.octahedral import encode_normal
 from vkr_tpu_torch.raster.pipeline import rasterize
 from vkr_tpu_torch.raster.resolve import (corner_attributes, interpolate_many,
@@ -211,6 +212,7 @@ def _select(keep, new, old):
                            new[k], old[k]) for k in old}
 
 
+@register("gbuf_opaque_taa")
 def render_gbuffer(
     scene: SceneDevice,
     view_proj,
@@ -374,6 +376,7 @@ def render_gbuffer(
                    depth=depth.contiguous(), overflow=overflow)
 
 
+@register("gbuf_opaque")
 def render_gbuffer_legacy(scene: SceneDevice, view_proj, *, width: int,
                           height: int, quantize: bool = True,
                           trilinear: bool = False,

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.octahedral import decode_normal
 from vkr_tpu_torch.mathlib.projection import (
     linearize_depth,
@@ -125,6 +126,7 @@ def _common(depth_half, normal_half, params):
     return uv, camera_pos, w0, cam_n, radius_px
 
 
+@register("gtao_main")
 def gtao_main_window(depth_half, normal_half, params: GTAOParams,
                      base_angle: float, dirs_count: int = 1):
     """GTAO main pass with the reference's exact sampling: 16 bilinear
@@ -135,6 +137,7 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
                          dirs_count, exact=False)
 
 
+@register("gtao_compute_main")
 def gtao_main_exact(depth_half, normal_half, params: GTAOParams,
                     base_angle: float, dirs_count: int = 1):
     """gtao_main_window with each of the 16 taps taken by bilinear_sample
@@ -197,6 +200,7 @@ def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
     return h_cos
 
 
+@register("gtao_main_dense")
 def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
                     base_angle: float, dirs_count: int = 1):
     """vkr_tpu's gtao_main_dense: per dither class, march 16 integer-pixel
@@ -276,6 +280,8 @@ def ao_ray_directions(count: int = 64, seed: int = 7):
     return np.asarray(out, np.float32)
 
 
+@register("gtao_rt")
+@register("gtao_rt_main")  # manifest name (config.json: gtao/rt_main_frag)
 def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
             znear, zfar, rotation: float, directions, rt_radius: float = 0.2,
             max_steps: int = 12, dir_chunk: int = 8):
@@ -342,6 +348,7 @@ def _tangent(n):
                         torch.zeros_like(n[..., 0])], -1)
 
 
+@register("gtao_normal_space")
 def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
                       base_angle: float, dirs_count: int = 1):
     """main.comp gtao_normal_space (148-193): the horizon march against the
@@ -394,6 +401,7 @@ def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
     return torch.where(depth_half >= 1.0, 1.0, total / dirs_count)
 
 
+@register("gtao_main_mis")
 def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
                   params: GTAOParams, base_angle: float,
                   weight_ratio: float = 1.0, reflections_only: bool = False):
@@ -457,6 +465,7 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     return torch.where(depth_half >= 1.0, 0.0, mis_ao)
 
 
+@register("gtao_reproject")
 def gtao_reproject(current_depth, prev_depth, current_ao, prev_ao,
                    camera_to_prev_frame, fovy, aspect, znear, zfar,
                    matrix_mode: bool = False, bias: float = 1e-6):
@@ -503,6 +512,7 @@ def gtao_reproject(current_depth, prev_depth, current_ao, prev_ao,
     return torch.where(keep, blended, new_ao)
 
 
+@register("deinterleave_depth")
 def deinterleave_depth(depth, pattern_step: int = 2):
     """gtao_opt/deinterleave.comp: (H, W) -> (layers, H>>n, W>>n), layer
     ((y & mask) << n) + (x & mask): each layer is one phase of the
@@ -522,6 +532,7 @@ def interleave_layers(layers, pattern_step: int = 2):
         h2 * s, w2 * s)
 
 
+@register("main_deinterleaved")
 def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
                             base_angle: float, pattern_step: int = 2):
     """gtao_opt/main_deinterleaved.comp: gtao_main_exact on each dither
@@ -540,6 +551,7 @@ def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
     return interleave_layers(torch.stack(outs), pattern_step)
 
 
+@register("gtao_filter")
 def gtao_filter(depth_half, raw_ao, znear: float, zfar: float):
     """4x4 depth-bilateral average (filter.comp:32-50): offsets -2..+1,
     weight = max(0, 1 - 5|zs - z| / |z|), edge-clamped taps."""
@@ -571,6 +583,7 @@ class GTAOAccumParams(NamedTuple):
     zfar: float
 
 
+@register("gtao_accumulate")
 def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
                     history, params: GTAOAccumParams, clear_history: bool):
     """Temporal accumulation (accum.comp): velocity reprojection validated

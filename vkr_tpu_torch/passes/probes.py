@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.octahedral import (decode_normal, oct_decode_dir,
                                               oct_encode_dir)
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
@@ -103,6 +104,7 @@ class Probe(NamedTuple):
     face_coverage: torch.Tensor          # (6,) share of covered texels
 
 
+@register("cubemap_probe")
 def render_probe_cubemap(scene: SceneDevice, position, cube_size: int = 128):
     """Raster the scene 6x from `position`. Returns (color (6, S, S, 3),
     distance (6, S, S), bin pairs dropped (6,), covered share (6,))."""
@@ -158,6 +160,7 @@ def sample_cubemap(faces, direction):
     return taps.gather(0, sel.expand((1,) + taps.shape[1:]))[0]
 
 
+@register("cube2oct")
 def cube_to_oct(color_faces, dist_faces, oct_size: int = 256):
     """cube2oct/shader.comp: octahedral resample + planar depth encode.
 
@@ -176,6 +179,7 @@ def cube_to_oct(color_faces, dist_faces, oct_size: int = 256):
     return color, depth
 
 
+@register("probe_downsample")
 def oct_depth_pyramid(oct_depth) -> Tuple[torch.Tensor, ...]:
     """probe_downsample: min 2x2 chain."""
     mips = [oct_depth]
@@ -376,6 +380,7 @@ def _segments(origin, inv_dir, tmin, tmax):
             torch.full_like(edge, tmax)]
 
 
+@register("trace_probe")
 def probe_trace(depth, normal_oct, grid: ProbeGrid, inverse_view, fovy,
                 aspect, znear, zfar):
     """ProbeTracePass: per-pixel probe-grid reflection

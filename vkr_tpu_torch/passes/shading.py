@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.brdf import (
     PI,
     brdf_g2,
@@ -70,6 +71,7 @@ def sample_occlusion_ssr(depth_full, depth_half, occlusion, reflections):
     return best_occ, best_refl
 
 
+@register("defered_shading")
 def deferred_shading(gbuffer, params: ShadingParams, occlusion, reflections,
                      brdf_lut, depth_half):
     """gbuffer: GBuffer; occlusion (H/2, W/2); reflections (H/2, W/2, 3);

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.passes.gbuffer import SceneDevice
 from vkr_tpu_torch.raster.pipeline import rasterize
 from vkr_tpu_torch.raster.setup import corner_transform_t
@@ -37,6 +38,7 @@ def scene_corners(scene: SceneDevice):
     return torch.cat(blocks, dim=1)
 
 
+@register("default_shadow")
 def render_shadow_map(scene: SceneDevice, shadow_mvp, size: int = 1024):
     """Depth-only raster of the whole scene from the light
     (render_shadow / shaders/shadows/default.vert). shadow_mvp: (4, 4)

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
 from vkr_tpu_torch.passes.sampling import bilinear_sample, screen_uv_grid
 
@@ -41,6 +42,7 @@ class SSAOParams(NamedTuple):
     zfar: float
 
 
+@register("ssao")
 def ssao(depth, params: SSAOParams, samples=None):
     """(H, W) depth -> (H, W) occlusion in [0,1] (1 = unoccluded).
 

@@ -23,6 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.brdf import (
     brdf_g1,
     brdf_g2,
@@ -74,6 +75,7 @@ def _cross(a, b):
 
 # ---------------------------------------------------------------- LUTs
 
+@register("pdf_preintegrate")
 def preintegrate_pdf(size: int = 1024, steps: int = 2000, device=CUDA):
     """GGX direction-PDF LUT (preintegrate.comp, G2 variant): integrate
     (1-t)L / (1 + t^2 - L^2/2)^2, L = (b-a)t + (b+a), t in [-1, 1].
@@ -97,6 +99,7 @@ def preintegrate_pdf(size: int = 1024, steps: int = 2000, device=CUDA):
     return 2.0 / steps * acc
 
 
+@register("brdf_preintegrate")
 def preintegrate_brdf(size: int = 1024, num_samples: int = 128,
                       device=CUDA):
     """Split-sum environment BRDF LUT (preintegrate_ssr.comp): x =
@@ -256,6 +259,7 @@ def _reflection_ray_setup(uv, pixel_depth, normal_half, roughness, params,
     return view_vec, w0, n, r, ray_start, ray_dir
 
 
+@register("sssr_trace")
 def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
               params: SSRParams, frame_random: int, halton,
               max_iterations: int = 80):
@@ -352,6 +356,7 @@ def _ray_weight(n, v, l, f0, roughness):
     return f * (g2 / torch.clamp(g1, min=1e-20))[..., None]
 
 
+@register("sssr_filter")
 def ssr_filter(rays, depth_half, albedo_full, normal_half, material_full,
                params: SSRParams, flags_normalize: bool = True,
                flags_bilateral: bool = True):
@@ -436,6 +441,7 @@ class SSRBlurParams(NamedTuple):
 MAX_BLUR_RADIUS = 11  # sigma <= 4 -> r = floor(12 - eps)
 
 
+@register("sssr_blur")
 def ssr_blur(reflections, depth_half, normal_half, material_full, history,
              velocity_half, prev_depth_half, params: SSRBlurParams):
     """blur.comp: per-pixel roughness-adaptive gaussian (sigma in

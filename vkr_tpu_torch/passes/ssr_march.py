@@ -19,6 +19,11 @@ a Python scalar divided by a tensor as reciprocal-then-multiply (what
 PyTorch does); vector lengths and dot products summed (x + y) + z; 2^-mip
 built exactly; and a fetch index truncated toward zero after clamping the
 float to [-1, 2^24] (a saturating cast: -0.3 texel fetches texel 0).
+
+The plain hierarchical march without the horizon (hierarchical_march_plain,
+what simple_ssr and ssr_trace_indirect run) is the same loop without the
+mip-0 prefix and the horizon, from a chosen finest mip. vkr_tpu computes it
+in jnp, so it has no kernel: PyTorch ops on any device.
 """
 
 from __future__ import annotations
@@ -124,16 +129,37 @@ def _dot3(a, b):
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
 
 
+def hierarchical_march_plain(mips, origin, direction, max_iterations: int,
+                             most_detailed_mip: int = 0):
+    """The plain hierarchical hi-Z march (screen_trace.glsl:51-101), the
+    form simple_ssr and ssr_trace_indirect run: vkr_tpu's
+    `_hierarchical_march(..., find_hor=False, compact_frac=0.0)`, with no
+    mip-0 prefix and no horizon, starting at `most_detailed_mip`
+    (trace_indirect.comp:101 starts glossy rays at mip 1). PyTorch ops on
+    any device: vkr_tpu computes it in jnp, so no TPU kernel stands behind
+    it. Returns (position (h, w, 3), iters (h, w) int32), iters
+    max_iterations + 1 for a ray that did not end in a hit."""
+    position, _, iters = hierarchical_march_reference(
+        mips, origin, direction, None, None, None, max_iterations,
+        find_hor=False, most_detailed_mip=most_detailed_mip)
+    return position, iters
+
+
 def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
                                  params, max_iterations: int,
-                                 return_steps: bool = False):
+                                 return_steps: bool = False,
+                                 find_hor: bool = True,
+                                 most_detailed_mip: int = 0):
     """Plain version of hierarchical_march (same arguments and results, any
     device): vkr_tpu's `_hierarchical_march` with compact_frac=0.0 as one
     loop to max_iterations. A done ray's state never changes, so running
     every iteration under masks gives what an early exit gives, with no
     host synchronisation. return_steps adds a fourth result: the
     iterations each ray ran before it was done (the kernel's loop count,
-    which a roofline bound counts)."""
+    which a roofline bound counts). find_hor=False is the plain march
+    (hierarchical_march_plain): no prefix, no horizon (hor stays 0, and
+    camera_start, w0 and params are not read), the finest mip
+    most_detailed_mip."""
     pyr = _pyramid(mips)
     dev = origin.device
     n_levels = len(pyr.offsets)
@@ -141,29 +167,32 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
     flat = pyr.flat
     lvl = torch.tensor([pyr.offsets, pyr.widths, pyr.heights],
                        dtype=torch.int64, device=dev)
-    tg, aspect, k_nf, k_fn, zfar = _constants(params)
+    if find_hor:
+        tg, aspect, k_nf, k_fn, zfar = _constants(params)
     screen = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    top = int(most_detailed_mip)
 
     ox, oy, oz = origin.unbind(-1)
     dx, dy, dz = direction.unbind(-1)
     inv_dir = torch.where(direction != 0.0,
                           1.0 / torch.where(direction == 0.0, 1.0, direction),
                           MAX_T)
-    # 0.005 * exp2(most_detailed_mip = 0) / screen (screen_trace.glsl:71)
-    uv_offset_mag = 0.005 / screen
+    # 0.005 * exp2(most_detailed_mip) / screen (screen_trace.glsl:71)
+    uv_offset_mag = (0.005 * 2.0 ** top) / screen
     uv_offset = torch.where(direction[..., :2] < 0, -uv_offset_mag,
                             uv_offset_mag)
     floor_offset = torch.where(direction[..., :2] < 0, 0.0, 1.0)
 
-    # initial_advance_ray (screen_trace.glsl:8-15) at mip 0
-    xy_plane = (torch.floor(screen * origin[..., :2]) + floor_offset) / screen \
-        + uv_offset
+    # initial_advance_ray (screen_trace.glsl:8-15) at most_detailed_mip
+    start_res = screen * 2.0 ** -top
+    xy_plane = (torch.floor(start_res * origin[..., :2]) + floor_offset) \
+        / start_res + uv_offset
     t0 = (xy_plane - origin[..., :2]) * inv_dir[..., :2]
     current_t = torch.minimum(t0[..., 0], t0[..., 1])
     position = origin + current_t[..., None] * direction
 
     lead = origin.shape[:-1]
-    mip = torch.zeros(lead, dtype=torch.int32, device=dev)
+    mip = torch.full(lead, top, dtype=torch.int32, device=dev)
     hor = torch.zeros(lead, dtype=torch.float32, device=dev)
     done = torch.zeros(lead, dtype=torch.bool, device=dev)
     iters = torch.zeros(lead, dtype=torch.int32, device=dev)
@@ -190,7 +219,7 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
         skipped = (t_min != t_z) & above
         new_t = torch.where(above, t_min, current_t).clamp(-1e20, 1e20)
         new_pos = origin + new_t[..., None] * direction
-        if i < FIND_HOR_PREFIX:
+        if find_hor and i < FIND_HOR_PREFIX:
             new_mip = mip
         else:
             new_mip = mip + torch.where(skipped, 1, -1).to(torch.int32)
@@ -200,19 +229,20 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
         current_t = torch.where(act, new_t, current_t)
         mip = torch.where(act, new_mip, mip)
 
-        # horizon estimate on fine mips (trace.comp:214-223):
-        # reconstruct_view_vec(position.xy, surface_z) - camera_start
-        z = k_nf / (surface_z * k_fn - zfar)
-        vx = -(2.0 * position[..., 0] - 1.0) * ((z * aspect) * tg)
-        vy = -(2.0 * position[..., 1] - 1.0) * (z * tg)
-        v = torch.stack([vx, vy, z], -1) - camera_start
-        v_len = torch.sqrt(_dot3(v, v)).clamp(min=1e-20)
-        h2 = _dot3(w0, v / v_len[..., None])
-        hor_upd = act & (mip <= 1) & (v_len < 0.3)
-        hor = torch.where(hor_upd, torch.maximum(hor, h2), hor)
+        if find_hor:
+            # horizon estimate on fine mips (trace.comp:214-223):
+            # reconstruct_view_vec(position.xy, surface_z) - camera_start
+            z = k_nf / (surface_z * k_fn - zfar)
+            vx = -(2.0 * position[..., 0] - 1.0) * ((z * aspect) * tg)
+            vy = -(2.0 * position[..., 1] - 1.0) * (z * tg)
+            v = torch.stack([vx, vy, z], -1) - camera_start
+            v_len = torch.sqrt(_dot3(v, v)).clamp(min=1e-20)
+            h2 = _dot3(w0, v / v_len[..., None])
+            hor_upd = act & (mip <= 1) & (v_len < 0.3)
+            hor = torch.where(hor_upd, torch.maximum(hor, h2), hor)
 
         iters = torch.where(act, i + 1, iters)
-        done = done | (mip < 0)
+        done = done | (mip < top)
         # a ray outside the screen moving further out never intersects
         # again: it retires as invalid
         px, py = position[..., 0], position[..., 1]

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
 from vkr_tpu_torch.passes.sampling import screen_uv_grid
 from vkr_tpu_torch.raster import gather_kernel as _gather
@@ -28,6 +29,7 @@ class TAAParams(NamedTuple):
     zfar: float
 
 
+@register("taa_resolve")
 def taa_resolve(history_color, history_depth, current_depth, velocity,
                 current_color, params: TAAParams):
     """history_color (H, W, 3), history_depth (H, W) previous frame depth,
