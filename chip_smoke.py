@@ -6,8 +6,9 @@
 1. Needs a CUDA card (exits 1 without one) and prints nvidia-smi's name and
    power limit of the card.
 2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
-   vkr_tpu_torch/build/, one nvcc per source, all in parallel) and prints
-   the build seconds, and the SASS instruction count and loop-body sizes
+   vkr_tpu_torch/build/, one nvcc per source, all in parallel) and the
+   native asset pipeline (vkr_tpu_torch/native, c++) and prints the build
+   seconds, and the SASS instruction count and loop-body sizes
    of K1/K7's and the march's kernels (cuobjdump -sass).
 3. Main phase: renders 8 frames of the bench orbit at 1920x1080 on the
    procedural colonnade (columns=24, tessellation=80, tex_size=1024:
@@ -88,7 +89,22 @@
    frame. One G-buffer (frame 2) also goes through the indexed front end
    (the corner tables dropped): K1's depth and ids must equal the corner
    path's on its 3 calls, its attributes within 1e-6 + 1e-6 |x|.
-12. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+12. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
+   calls them. render --scene colonnade at 1920x1080, 8 frames, --orbit
+   0.01 through the kernels (K1, the march, K4, K5 and K6 must launch,
+   coverage >= 0.98, the PNG decodes to 1080x1920) and with --no-kernels
+   (no launch; the colour PSNR between the two is printed); load_scene of
+   the glTF phase's scene in uniform mode (--tex-size 512) through the
+   native library and through the numpy plain versions (mips equal, both
+   seconds printed) and render of it; parity --size 64 (each figure
+   finite and at most PARITY_MAX_DROP_DB below PARITY_64_CPU_DB, or both
+   at least PARITY_HIGH_DB) and --size 256; profile at 1080p, --reps 8;
+   scene_info on the glTF file; the viewer on a free port with
+   --max-frames 6, driven over HTTP (a slider, 2, j, r: each must reach
+   the next frame) with its ms per frame printed; the showcase into a
+   temporary directory (a GIF89a of 32 frames at a third of the size and
+   the 1080p still).
+13. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -104,13 +120,13 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-13. Renders the main phase's 8 frames, the probe phase's 3, the RT
+14. Renders the main phase's 8 frames, the probe phase's 3, the RT
    phase's 3 and the glTF phase's 3 trilinear frames with the plain
    versions substituted for the kernels, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
-14. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+15. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
    on the probe faces (times per face, launches per start-up), and, last,
    the line {"ok": true, "device": {...}}.
 
@@ -127,6 +143,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 WIDTH, HEIGHT = 1920, 1080
@@ -224,6 +241,17 @@ MANIFEST_NAMES = [
 MIN_SIMPLE_SSR_HITS = 0.01
 # tile_regression: the share of tiles whose error may overflow to +inf
 MAX_REGRESSION_OVERFLOW = 0.001
+
+
+# tools phase: parity.main --scene colonnade --size 64 on the CPU
+# (tests/test_torch_tools.py pins these figures, in dB); the card's figures
+# may fall at most PARITY_MAX_DROP_DB below them, unless both are at least
+# PARITY_HIGH_DB
+PARITY_64_CPU_DB = {"albedo": 37.37, "normal": 35.7, "depth": 66.85,
+                    "velocity": 117.6, "material": 78.72, "ao": 37.5,
+                    "ssr": 53.59, "color": 56.37}
+PARITY_MAX_DROP_DB = 1.0
+PARITY_HIGH_DB = 50.0
 
 
 class SmokeFailure(Exception):
@@ -970,12 +998,11 @@ class HostTimer:
         setattr(self.mod, self.attr, self.saved)
 
 
-def gltf_phase(cfg, res, device):
+def gltf_phase(cfg, res, device, tmp):
     """Writes the bench colonnade as glTF, loads it with native-size
     textures, renders GLTF_FRAMES trilinear frames and holds the indexed
-    front end to the corner path. Returns (scene, config, outputs)."""
-    import tempfile
-
+    front end to the corner path. The files go into the directory tmp.
+    Returns (scene, config, outputs, the .gltf path)."""
     import torch
 
     from vkr_tpu_torch import kernels
@@ -988,21 +1015,20 @@ def gltf_phase(cfg, res, device):
     from vkr_tpu_torch.frame import camera_frame
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        src = build_colonnade(**SCENE)
-        images, wraps = gltf_textures(src.images)
-        path = write_gltf(tmp, src, images, wraps)
-        write_s = time.perf_counter() - t0
-        file_bytes = sum(os.path.getsize(os.path.join(tmp, f))
-                         for f in os.listdir(tmp))
-        decode_s, compile_s = [], []
-        t0 = time.perf_counter()
-        with HostTimer(gltf_mod, "_decode_image", decode_s), \
-                HostTimer(scene_mod, "compile_scene", compile_s):
-            scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
-                                            native_sizes=True)
-        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src = build_colonnade(**SCENE)
+    images, wraps = gltf_textures(src.images)
+    path = write_gltf(tmp, src, images, wraps)
+    write_s = time.perf_counter() - t0
+    file_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+    decode_s, compile_s = [], []
+    t0 = time.perf_counter()
+    with HostTimer(gltf_mod, "_decode_image", decode_s), \
+            HostTimer(scene_mod, "compile_scene", compile_s):
+        scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
+                                        native_sizes=True)
+    load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scene = upload_scene(scene_np, device)
@@ -1093,7 +1119,255 @@ def gltf_phase(cfg, res, device):
     print(f"gltf: indexed front end (corner tables dropped) vs corner "
           f"path, frame {i}: K1 depth and ids equal on its 3 calls, "
           f"attributes max |diff| {worst:.3g}; G-buffer max |diff| {gdiff}")
-    return scene, cfg_gltf, outs
+    return scene, cfg_gltf, outs, path
+
+
+TOOLS_FRAMES = 8
+TOOLS_ORBIT = 0.01  # rad/frame: render --orbit
+TOOLS_TEX = 512     # render of the glTF scene: --tex-size, uniform mode
+VIEWER_FRAMES = 6
+# what the viewer's client sends, step k while frame k waits: (description,
+# the POSTed message)
+VIEWER_INPUT = (("slider weight_ratio 2.5, temporal rays 4",
+                 {"slider": {"weight_ratio": 2.5, "ssr_temporal_rays": 4}}),
+                ("toggle 2 (SSR off)", {"toggle": "2"}),
+                ("toggle j (jitter off)", {"toggle": "j"}),
+                ("r (hot reload)", {"toggle": "r"}))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _drive_viewer(port, device):
+    """viewer.main on this (the main) thread with --max-frames
+    VIEWER_FRAMES at its default 960x544, and a client thread that sends
+    VIEWER_INPUT over HTTP. Frame k, once it has read its input, waits at
+    its camera_frame call (before the viewer's timer starts) until the
+    client has sent step k, so step k reaches frame k + 1; then the client
+    reads frame k's PNG. Returns (per-frame ms, what each frame saw, the
+    client's log, the frames at which a reload ran)."""
+    import threading
+    import urllib.request
+
+    from vkr_tpu_torch import frame as F
+    from vkr_tpu_torch.core import registry
+    from vkr_tpu_torch.tools import viewer
+
+    base = f"http://127.0.0.1:{port}"
+    arrived = [threading.Event() for _ in VIEWER_INPUT]
+    sent = [threading.Event() for _ in VIEWER_INPUT]
+    seen, client_log, reloads, errors = [], [], [], []
+    saved = F.camera_frame, F.render_frame, registry.reload
+
+    def camera_frame(cfg, view, prev, i, dev, use_jitter=True):
+        seen.append({"ssr": cfg.enable_ssr, "use_jitter": use_jitter})
+        if i < len(sent):
+            arrived[i].set()
+            if not sent[i].wait(120):
+                errors.append(f"frame {i}: the client sent nothing")
+        return saved[0](cfg, view, prev, i, dev, use_jitter=use_jitter)
+
+    def render_frame(*args, **kw):
+        seen[-1]["tuning"] = kw.get("tuning")
+        return saved[1](*args, **kw)
+
+    def reload(*args, **kw):
+        reloads.append(len(seen))
+        return saved[2](*args, **kw)
+
+    def client():
+        try:
+            for k, (what, msg) in enumerate(VIEWER_INPUT):
+                if not arrived[k].wait(600):
+                    raise TimeoutError(f"frame {k} did not start")
+                if k == 0:
+                    page = urllib.request.urlopen(base + "/").read()
+                    client_log.append(f"page {len(page)} bytes")
+                urllib.request.urlopen(urllib.request.Request(
+                    base + "/input", data=json.dumps(msg).encode(),
+                    method="POST")).read()
+                client_log.append(f"sent {what}")
+                sent[k].set()
+                r = urllib.request.urlopen(f"{base}/frame.png?since={k}")
+                png = r.read()
+                n = int(r.headers["X-Frame"])
+                if n != k + 1 or png[:8] != b"\x89PNG\r\n\x1a\n":
+                    raise ValueError(f"after frame {k}: frame {n}, "
+                                     f"{len(png)} bytes")
+                client_log.append(f"frame {n}: {len(png)} PNG bytes")
+            stats = json.loads(urllib.request.urlopen(base + "/stats")
+                               .read())
+            client_log.append(f"stats frame {stats['frame']} "
+                              f"{stats['ms']:.3f} ms ssr {stats['ssr']} "
+                              f"jitter {stats['jitter']}")
+        except Exception as e:  # the main thread reports it
+            errors.append(f"client: {e!r}")
+            for ev in sent:
+                ev.set()
+
+    F.camera_frame, F.render_frame, registry.reload = (camera_frame,
+                                                       render_frame, reload)
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        ms = viewer.main(["--port", str(port), "--max-frames",
+                          str(VIEWER_FRAMES)])
+    finally:
+        F.camera_frame, F.render_frame, registry.reload = saved
+        for ev in sent + arrived:
+            ev.set()
+    th.join(60)
+    check(not errors and not th.is_alive(), f"viewer: {errors}")
+    return ms, seen, client_log, reloads
+
+
+def tools_phase(gltf_path, tmp, device):
+    """The user entry points (vkr_tpu_torch/tools) as a user calls them:
+    render at 1080p through the kernels and as the oracle frame, render of
+    the glTF phase's scene in uniform mode (the native asset pipeline),
+    parity at 64 and 256, profile at 1080p, scene_info, the viewer driven
+    over HTTP and the showcase, each into the temporary directory tmp."""
+    import io
+
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.scene import gltf as gltf_mod
+    from vkr_tpu_torch.scene import scene as scene_mod
+    from vkr_tpu_torch.tools import (parity, profile, render, scene_info,
+                                     showcase)
+
+    def decode(path):
+        with open(path, "rb") as f:
+            return gltf_mod.decode_png(f.read())[..., :3]
+
+    size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+    outs = {}
+    for label, extra in (("kernels", []), ("oracle", ["--no-kernels"])):
+        out = os.path.join(tmp, f"render-{label}.png")
+        kernels.LAUNCHES.clear()
+        got = render.main(["--scene", "colonnade", *size, "--frames",
+                           str(TOOLS_FRAMES), "--orbit", str(TOOLS_ORBIT),
+                           "--out", out, *extra])
+        launches = dict(kernels.LAUNCHES)
+        img = decode(out)
+        outs[label] = img
+        check(img.shape == (HEIGHT, WIDTH, 3),
+              f"render {label}: PNG shape {img.shape}")
+        check(got["coverage"] >= MIN_COVERAGE,
+              f"render {label}: coverage {got['coverage']}")
+        if label == "kernels":
+            for name, per_frame in MIN_LAUNCHES_PER_FRAME.items():
+                check(launches.get(name, 0) >= per_frame * TOOLS_FRAMES,
+                      f"render: {name} launched {launches.get(name, 0)} "
+                      f"times in {TOOLS_FRAMES} frames")
+        else:
+            check(not launches, f"render --no-kernels launched {launches}")
+        print(f"tools render ({label}): {TOOLS_FRAMES} frames at "
+              f"{WIDTH}x{HEIGHT}, orbit {TOOLS_ORBIT}, steady frame "
+              f"{got['steady_ms']:.3f} ms, coverage {got['coverage']:.4f}, "
+              f"launches {launches}")
+    db = psnr(torch.from_numpy(outs["kernels"]).double() / 255.0,
+              torch.from_numpy(outs["oracle"]).double() / 255.0)
+    print(f"tools render: colour PNG, kernels vs --no-kernels (the oracle "
+          f"frame): {db:.2f} dB")
+
+    # the native asset pipeline: the glTF scene in uniform mode
+    load_s = {}
+    mips = {}
+    for label, subs in (("library", {}), ("numpy plain version", {
+            "build_mip_pyramid": scene_mod.build_mip_pyramid_plain,
+            "_resize_rgba": scene_mod._resize_rgba_plain})):
+        saved = {k: getattr(scene_mod, k) for k in subs}
+        for k, fn in subs.items():
+            setattr(scene_mod, k, fn)
+        try:
+            t0 = time.perf_counter()
+            sc = scene_mod.load_scene(gltf_path, tex_size=TOOLS_TEX)
+            load_s[label] = time.perf_counter() - t0
+        finally:
+            for k, fn in saved.items():
+                setattr(scene_mod, k, fn)
+        mips[label] = sc.tex_mips
+    check(all(a.shape == b.shape and bool((a == b).all()) for a, b in
+              zip(mips["library"], mips["numpy plain version"])),
+          "native asset pipeline: the library's mips differ from numpy's")
+    print(f"tools load_scene (uniform, --tex-size {TOOLS_TEX}, "
+          f"{len(mips['library'][0])} textures, {len(mips['library'])} "
+          f"levels): library {load_s['library']:.3f} s, numpy plain version "
+          f"{load_s['numpy plain version']:.3f} s, mips equal")
+    out = os.path.join(tmp, "render-gltf.png")
+    kernels.LAUNCHES.clear()
+    got = render.main(["--scene", gltf_path, "--tex-size", str(TOOLS_TEX),
+                       *size, "--frames", "2", "--out", out])
+    check(decode(out).shape == (HEIGHT, WIDTH, 3)
+          and kernels.LAUNCHES.get("gbuf_tiles", 0) >= 6,
+          f"render of the glTF scene: launches {dict(kernels.LAUNCHES)}")
+    print(f"tools render (glTF, uniform {TOOLS_TEX}): steady frame "
+          f"{got['steady_ms']:.3f} ms, coverage {got['coverage']:.4f}")
+
+    # parity: each figure finite, at most PARITY_MAX_DROP_DB below the CPU
+    for n in (64, 256):
+        report = parity.main(["--scene", "colonnade", "--size", str(n)])
+        check(all(math.isfinite(v) for v in report.values()),
+              f"parity --size {n}: {report}")
+        if n == 64:
+            for k, v in report.items():
+                cpu = PARITY_64_CPU_DB[k]
+                check(v >= cpu - PARITY_MAX_DROP_DB
+                      or min(v, cpu) >= PARITY_HIGH_DB,
+                      f"parity --size 64: {k} {v} dB on the card, {cpu} dB "
+                      "pinned on the CPU")
+
+    times = profile.main([*size, "--reps", "8"])
+    check(len(times) == 10 and all(t > 0 for t in times.values()),
+          f"profile: {times}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(scene_info.main([gltf_path]) == 0, "scene_info failed")
+    info = buf.getvalue()
+    print(info, end="")
+    check(f"compiled: {SCENE_TRIANGLES} triangles" in info,
+          "scene_info: not the glTF phase's triangle count")
+
+    ms, seen, client_log, reloads = _drive_viewer(_free_port(), device)
+    print("tools viewer client: " + "; ".join(client_log))
+    check(len(ms) == VIEWER_FRAMES, f"viewer rendered {len(ms)} frames")
+    tun = [f["tuning"] for f in seen]
+    check(tun[0].weight_ratio == 1.0 and tun[1].weight_ratio == 2.5
+          and tun[1].ssr_temporal_rays == 4,
+          f"viewer: the slider did not reach the next frame: {tun[:2]}")
+    check(seen[1]["ssr"] and not seen[2]["ssr"],
+          f"viewer: toggle 2 did not turn SSR off: {seen}")
+    check(seen[2]["use_jitter"] and not seen[3]["use_jitter"],
+          f"viewer: j did not turn the jitter off: {seen}")
+    check(reloads == [4], f"viewer: r reloaded at frames {reloads}")
+    print(f"tools viewer: {len(ms)} frames at 960x544 over HTTP, ms/frame "
+          f"{[round(m, 3) for m in ms]}, median of frames 1.. "
+          f"{statistics.median(ms[1:]):.3f} ms")
+
+    out_dir = os.path.join(tmp, "showcase")
+    t0 = time.perf_counter()
+    shown = showcase.main(["--out-dir", out_dir])
+    show_s = time.perf_counter() - t0
+    with open(shown["gif"], "rb") as f:
+        gif = f.read()
+    still = decode(shown["final"])
+    check(gif[:6] == b"GIF89a" and gif[-1:] == b"\x3b"
+          and still.shape == (HEIGHT, WIDTH, 3)
+          and len(shown["frames"]) == 32
+          and shown["frames"][0].shape == (HEIGHT // 3, WIDTH // 3, 3),
+          f"showcase: GIF {len(gif)} bytes, still {still.shape}")
+    print(f"tools showcase: {len(shown['frames'])} GIF frames of "
+          f"{WIDTH // 3}x{HEIGHT // 3} ({len(gif)} bytes) and the "
+          f"{WIDTH}x{HEIGHT} still, outside the repo, in {show_s:.1f} s")
+
 
 
 def runtime_phase(scene, res, cfg, device, last):
@@ -1373,6 +1647,13 @@ def main() -> int:
     for name in kernels.SOURCES:
         kernels.library(name)
     print(f"build: {build_s:.2f} s ({', '.join(kernels.SOURCES)})")
+    from vkr_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_path = native.build()
+    native.load()
+    print(f"build: native asset pipeline {native_path.name}, "
+          f"{time.perf_counter() - t0:.2f} s")
     for lib in ("gbuf_tiles", "ssr_march"):
         for fn, (n, loops) in sass_loops(lib).items():
             print(f"sass {lib} {fn}: {n} instructions, loop bodies "
@@ -1633,7 +1914,15 @@ def main() -> int:
 
     # ---- glTF phase: a glTF scene from disk, native-size textures,
     # trilinear sampling, the indexed front end
-    gltf_scene, cfg_gltf, gltf_outs = gltf_phase(cfg, res, device)
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    gltf_dir = os.path.join(scratch.name, "gltf")
+    os.makedirs(gltf_dir)
+    gltf_scene, cfg_gltf, gltf_outs, gltf_path = gltf_phase(
+        cfg, res, device, gltf_dir)
+
+    # ---- tools phase: the user entry points at full width
+    tools_phase(gltf_path, scratch.name, device)
+    scratch.cleanup()
 
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()

@@ -22,14 +22,22 @@ times, N_FRAMES frames each, the first WARMUP_FRAMES of each unmeasured:
 4. with probes: the kernels, copies and device ms of one probe_trace call
    on the last frame's inputs, under torch.profiler; with ray-traced GTAO
    the same for one gtao_rt call.
+5. count read: plain frames as in 1, in runs that alternate between the
+   exact bin-pair list (one host read of the pair count per raster call)
+   and vkr_tpu's static capacity max(1.5 T, 4 n_tiles, 4096), which reads
+   nothing; the median frame of each, so the read's host cost is measured
+   in one process.
 
     python3 profile_frame.py default gltf_trilinear   # only these frames
     python3 profile_frame.py --root DIR default
+    python3 profile_frame.py default --kernels-out kernels.tsv
 
 --root profiles the vkr_tpu_torch package of another checkout at DIR
 (an unpacked parent commit, say), so that two versions are compared in one
 call on one card; a step that version lacks is not timed. The glTF frames
-need this version's loader.
+need this version's loader. --kernels-out appends every kernel and copy
+of phase 3 (ms and launches per frame, name) to a file, so that two
+versions' launch counts can be compared name by name.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -165,6 +173,9 @@ def main(argv=None) -> int:
                     help=f"frames to profile, of {', '.join(FRAMES)} "
                          "(default: all, in that order)")
     ap.add_argument("--root", help="checkout whose vkr_tpu_torch to profile")
+    ap.add_argument("--kernels-out", metavar="FILE",
+                    help="also write every kernel and copy of the busy-share "
+                         "frames (ms and launches per frame, name) to FILE")
     args = ap.parse_args(argv)
     wanted = args.frames or list(FRAMES)
     unknown = sorted(set(wanted) - set(FRAMES))
@@ -229,7 +240,7 @@ def main(argv=None) -> int:
     for name in wanted:
         what, sc, c, g, tg = runs[name]
         print(f"==== {what}")
-        profile(sc, res, c, device, g, tg)
+        profile(sc, res, c, device, g, tg, args.kernels_out)
     return 0
 
 
@@ -249,7 +260,7 @@ def gltf_scene_np():
                           native_sizes=True)
 
 
-def profile(scene, res, cfg, device, grid, tri_grid):
+def profile(scene, res, cfg, device, grid, tri_grid, kernels_out=None):
     import torch
 
     from vkr_tpu_torch.passes import gtao, probes
@@ -299,12 +310,62 @@ def profile(scene, res, cfg, device, grid, tri_grid):
     for key, ms in device_ms.most_common(12):
         print(f"  {ms / n_measured:8.4f} {launches[key] / n_measured:7.1f}  "
               f"{key[:100]}")
+    if kernels_out:
+        with open(kernels_out, "a") as f:
+            for key, ms in sorted(device_ms.items()):
+                f.write(f"{ms / n_measured:.4f}\t"
+                        f"{launches[key] / n_measured:.1f}\t{key}\n")
 
     # ---- 4. one probe trace or one gtao_rt call ----
     for on, mod, attr in ((grid is not None, probes, "probe_trace"),
                           (tri_grid is not None, gtao, "gtao_rt")):
         if on:
             one_call(mod, attr, run)
+
+    # ---- 5. the pair-count read against a static capacity ----
+    count_read(run, label)
+
+
+def count_read(run, label, order="ESSE" * 5):
+    """Plain frames with the exact bin-pair list (E) and with vkr_tpu's
+    static capacity (S), the runs in `order`; prints each side's median
+    frame, the median of the differences E - S between the runs' medians
+    taken two by two (so the host's drift between runs cancels), and the
+    pairs the static capacity dropped (a version whose raster passes a
+    capacity itself runs the same frame both ways)."""
+    from vkr_tpu_torch.raster import setup
+
+    exact = setup.bin_triangles_t
+    dropped = []
+
+    def static(bbox, valid, width, height, tile_h, tile_w, pair_capacity):
+        if pair_capacity is None:
+            n_src = valid.shape[0] // 2  # clipping emits 2 rows per source
+            n_tiles = -(-width // tile_w) * -(-height // tile_h)
+            pair_capacity = max(int(n_src * 1.5), 4 * n_tiles, 4096)
+        out = exact(bbox, valid, width, height, tile_h, tile_w,
+                    pair_capacity)
+        dropped.append(out[3])
+        return out
+
+    runs = []
+    for side in order:
+        setup.bin_triangles_t = static if side == "S" else exact
+        try:
+            runs.append((side, run(contextlib.nullcontext)[0]))
+        finally:
+            setup.bin_triangles_t = exact
+    med = {k: statistics.median([t for s, ts in runs if s == k for t in ts])
+           * 1e3 for k in "ES"}
+    diffs = []
+    for (s0, t0), (s1, t1) in zip(runs[::2], runs[1::2]):
+        d = statistics.median(t0) - statistics.median(t1)
+        diffs.append(round((d if s0 == "E" else -d) * 1e3, 3))
+    print(f"count read: median frame {med['E']:.3f} ms exact, "
+          f"{med['S']:.3f} ms static over {label} of {order.count('E')} "
+          f"runs each, in the order {order}; exact - static, runs two by "
+          f"two: median {statistics.median(diffs):.3f} ms, all {diffs}; "
+          f"static capacity dropped {sum(int(d) for d in dropped)} pairs")
 
 
 def one_call(mod, attr, run):

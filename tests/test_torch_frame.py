@@ -194,7 +194,10 @@ def test_port_imports_no_jax():
     imported = done.stdout.split()
     assert len(imported) > 20
     for name in ("scene.accel", "passes.ssao", "passes.gtao", "frame",
-                 "convert", "scene.gltf", "raster.resolve", "raster.kernel"):
+                 "convert", "scene.gltf", "raster.resolve", "raster.kernel",
+                 "scene.camera", "core.platform", "native", "tools.render",
+                 "tools.parity", "tools.profile", "tools.scene_info",
+                 "tools.viewer", "tools.showcase"):
         assert "vkr_tpu_torch." + name in imported, name
 
 

@@ -16,12 +16,16 @@ This package never imports jax or vkr_tpu.
                 names with hot reload (registry.py), the pass graph with
                 task labels, DAG dump and per-pass timing (graph.py),
                 readback and PNG / depth-CSV capture (readback.py),
-                FrameState checkpoints (checkpoint.py) and the start-up
-                disk cache (diskcache.py)
+                FrameState checkpoints (checkpoint.py), the start-up
+                disk cache (diskcache.py) and the device choice
+                (platform.py)
+  native/     — the asset pipeline's C++ library (mips, resize), built
+                with the host compiler at first use, and its ctypes
+                loader
   scene/      — the glTF loader and its PNG decoder, CompiledScene and
                 load_scene (uniform or native-size textures), the
-                procedural scenes, the uniform-grid acceleration
-                structure (accel.py)
+                procedural scenes, the fly camera (camera.py), the
+                uniform-grid acceleration structure (accel.py)
   raster/     — raster front ends (corner tables, indexed), pair rows, the
                 G-buffer kernel (K1), the oracle raster and its gather
                 resolve, texture packing and sampling, the window-gather
@@ -33,7 +37,10 @@ This package never imports jax or vkr_tpu.
                 passes and the fetch heatmap (trace_samples.py); importing
                 the package registers every pass
   frame.py    — render_frame: the frame chain through the registry under
-                add_task, and its history remaps
+                add_task, and its history remaps; Tuning (the viewer's
+                sliders) and the oracle frame (use_kernels=False)
+  tools/      — the user entry points: render, parity, profile,
+                scene_info, viewer, showcase
   convert.py  — carry vkr_tpu's numpy scene / FrameState / probe grid /
                 scene grid arrays across
 """

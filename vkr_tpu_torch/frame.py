@@ -16,6 +16,12 @@ Every pass is built through the registry (core/registry.get, the
 reference's shader manifest) under add_task with the reference's task
 names (core/graph.py), in vkr_tpu's order: a PassGraph records the chain,
 and a function swapped on its module reaches the frame.
+
+use_kernels=False is vkr_tpu's use_pallas=False frame, the oracle the
+tools compare against: the brute-force G-buffer (render_gbuffer(
+oracle=True)), vkr_tpu's exact single-strategy GTAO pass, and each other
+kernel's plain version, on any device. tuning= overrides the viewer's
+slider scalars (Tuning) for one frame.
 """
 
 from __future__ import annotations
@@ -80,6 +86,32 @@ def build_ssr_resources(lut_size: int = 1024,
                                device=device))
 
 
+class Tuning(NamedTuple):
+    """Per-frame tuning scalars, 0-d tensors or Python scalars: the
+    reference's ImGui-slider push constants (GTAO weight_ratio
+    gtao.cpp:533, SSSR max roughness advanced_ssr.cpp:558, the shading
+    roughness remap defered_shading.cpp:122-123, SSSR temporal rays), as
+    vkr_tpu's frame.Tuning. Unlike RenderConfig they change per frame
+    without a new frame function. `Tuning.of(cfg)` takes the config's
+    values, which is what the frame uses when no override is passed."""
+
+    weight_ratio: float         # GTAO MIS strategy weight (1..5)
+    ssr_max_roughness: float    # SSSR roughness cutoff/bias (0..1)
+    shade_min_roughness: float  # shading roughness remap lo (0..1)
+    shade_max_roughness: float  # shading roughness remap hi (0..1)
+    ssr_temporal_rays: int      # halton counter period (1..128)
+
+    @staticmethod
+    def of(cfg: RenderConfig) -> "Tuning":
+        return Tuning(
+            weight_ratio=cfg.gtao.weight_ratio,
+            ssr_max_roughness=cfg.ssr.max_roughness,
+            shade_min_roughness=cfg.shading.min_roughness,
+            shade_max_roughness=cfg.shading.max_roughness,
+            ssr_temporal_rays=cfg.ssr.max_accumulated_rays,
+        )
+
+
 class CameraFrame(NamedTuple):
     """Per-frame camera matrices (DrawTAAParams analog,
     scene_renderer.hpp:26-33), float32 tensors."""
@@ -92,11 +124,14 @@ class CameraFrame(NamedTuple):
 
 
 def camera_frame(cfg: RenderConfig, view, prev_view, frame_index: int,
-                 device) -> CameraFrame:
+                 device, use_jitter: bool = True) -> CameraFrame:
+    """The frame's matrices on `device`. The TAA jitter is on where both
+    use_jitter (the viewer's `j` key, main.cpp:358) and cfg.taa.jitter
+    are."""
     proj = perspective(cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
                        cfg.camera.zfar)
     seq = taa_jitter_sequence(cfg.width, cfg.height)
-    jitter = seq[frame_index % 4] if cfg.taa.jitter else (
+    jitter = seq[frame_index % 4] if (use_jitter and cfg.taa.jitter) else (
         np.zeros(2, np.float32))
 
     def t(a):
@@ -108,13 +143,14 @@ def camera_frame(cfg: RenderConfig, view, prev_view, frame_index: int,
 
 
 def build_probe_grid(scene_cpu, cfg: RenderConfig, margin: float = 0.5,
-                     probe_y: float = 1.5,
+                     probe_y: float = 1.5, use_kernels: bool = True,
                      device=_ssr.CUDA) -> _probes.ProbeGrid:
     """Render the octahedral probe grid over the scene's xz bounds on
     `device`, the card unless the caller asks for another (start-up task,
     like the reference's render_probe_grid call site,
     probe_renderer.cpp:290-384). scene_cpu: CompiledScene (host arrays for
-    the bounds); the device scene is uploaded here."""
+    the bounds); the device scene is uploaded here. use_kernels=False
+    renders the faces through the brute-force G-buffer."""
     pos = np.asarray(scene_cpu.positions)
     lo = pos.min(axis=0) if len(pos) else np.zeros(3)
     hi = pos.max(axis=0) if len(pos) else np.zeros(3)
@@ -122,7 +158,8 @@ def build_probe_grid(scene_cpu, cfg: RenderConfig, margin: float = 0.5,
     pmax = np.array([hi[0] - margin, probe_y, hi[2] - margin], np.float32)
     return _probes.render_probe_grid(
         upload_scene(scene_cpu, device), pmin, pmax, cfg.probes.grid,
-        cube_size=cfg.probes.cube_size, oct_size=cfg.probes.oct_size)
+        cube_size=cfg.probes.cube_size, oct_size=cfg.probes.oct_size,
+        oracle=not use_kernels)
 
 
 def build_scene_tri_grid(scene_cpu, resolution: int = 48, cap: int = 24,
@@ -160,7 +197,8 @@ def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
 
 def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
                  ssr_res: SSRResources, cfg: RenderConfig, *,
-                 probe_grid=None, tri_grid=None):
+                 probe_grid=None, tri_grid=None, use_kernels: bool = True,
+                 tuning: Tuning = None):
     """One frame: returns (final color (H, W, 3), new FrameState, aux).
 
     probe_grid: the start-up ProbeGrid (build_probe_grid); with
@@ -168,7 +206,9 @@ def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
     one the frame is the probeless frame, as in vkr_tpu. tri_grid: the
     start-up TriGrid (build_scene_tri_grid); with cfg.gtao.use_ray_query
     GTAO's main pass is gtao_rt over it. Without one the main pass is the
-    one the frame takes with use_ray_query off, as in vkr_tpu."""
+    one the frame takes with use_ray_query off, as in vkr_tpu.
+    use_kernels=False: the oracle frame (module docstring). tuning: the
+    slider scalars, Tuning.of(cfg) when None."""
     gbuf = add_task(
         "GbufferPass",
         lambda: registry.get("gbuf_opaque_taa")(
@@ -177,20 +217,37 @@ def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
             quantize=cfg.quantize_formats,
             mask_peel_layers=cfg.raster.mask_peel_layers,
             trilinear=cfg.trilinear_textures,
+            oracle=not use_kernels,
         ),
     )
+    return shade_frame(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
+                       tri_grid=tri_grid, use_kernels=use_kernels,
+                       tuning=tuning)
+
+
+def shade_frame(gbuf, state: FrameState, cam: CameraFrame,
+                ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None,
+                tri_grid=None, use_kernels: bool = True,
+                tuning: Tuning = None):
+    """The image-space chain after the G-buffer (hi-Z -> SSR -> GTAO ->
+    shading -> TAA -> history) = frame_mid, then frame_tail, as vkr_tpu's
+    shade_frame. Returns (final color, new FrameState, aux)."""
     mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
-                    tri_grid=tri_grid)
-    return frame_tail(gbuf, mid, state, cam, ssr_res, cfg)
+                    tri_grid=tri_grid, use_kernels=use_kernels,
+                    tuning=tuning)
+    return frame_tail(gbuf, mid, state, cam, ssr_res, cfg,
+                      use_kernels=use_kernels, tuning=tuning)
 
 
 def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
               ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None,
-              tri_grid=None):
+              tri_grid=None, use_kernels: bool = True,
+              tuning: Tuning = None):
     """hi-Z downsample -> SSR (trace/filter/blur) -> probe GI -> GTAO
     (main/filter/accumulate). Returns the dict of products the tail
     consumes."""
     h, w = cfg.height, cfg.width
+    t = Tuning.of(cfg) if tuning is None else tuning
     dev = gbuf.depth.device
     inv_view = _inv4(cam.view)
     prev_inv_view = _inv4(cam.prev_view)
@@ -206,12 +263,12 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         sp = _ssr.SSRParams(
             normal_mat=nm, fovy=cfg.camera.fovy, aspect=cfg.aspect,
             znear=cfg.camera.znear, zfar=cfg.camera.zfar,
-            max_roughness=cfg.ssr.max_roughness,
+            max_roughness=t.ssr_max_roughness,
         )
         # the reference's per-frame halton counter: ++ modulo
         # max_accumulated_rays when update_random, else frozen
         # (advanced_ssr.cpp:168-170 / 237-239)
-        frame_random = (state.frame_index % cfg.ssr.max_accumulated_rays
+        frame_random = (state.frame_index % t.ssr_temporal_rays
                         if cfg.ssr.update_random else 0)
         pyr = _ssr.pack_pyramid(hiz.mips)
         rays, ssr_occ = add_task(
@@ -219,7 +276,8 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             lambda: registry.get("sssr_trace")(
                 pyr, hiz.normal_half, gbuf.material, ssr_res.pdf_lut, sp,
                 frame_random, ssr_res.halton,
-                max_iterations=cfg.ssr.max_iterations))
+                max_iterations=cfg.ssr.max_iterations,
+                use_kernel=use_kernels))
         reflections = add_task(
             "SSSR_filter",
             lambda: registry.get("sssr_filter")(
@@ -231,7 +289,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             inverse_camera=inv_view, prev_inverse_camera=prev_inv_view,
             fovy=cfg.camera.fovy, aspect=cfg.aspect,
             znear=cfg.camera.znear, zfar=cfg.camera.zfar,
-            max_roughness=cfg.ssr.max_roughness,
+            max_roughness=t.ssr_max_roughness,
             accumulate=cfg.ssr.accumulate,
             disable_blur=not cfg.ssr.use_blur,
         )
@@ -240,7 +298,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             lambda: registry.get("sssr_blur")(
                 reflections, depth_half, hiz.normal_half, gbuf.material,
                 state.ssr_history, hiz.velocity_half, state.prev_depth_half,
-                blur_params))
+                blur_params, use_kernel_gather=use_kernels))
     else:
         ssr_occ = None
         # SSR off: shading sees no reflections
@@ -289,14 +347,17 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
                 lambda: registry.get("gtao_main_mis")(
                     depth_half, hiz.normal_half, gbuf.material,
                     ssr_res.pdf_lut, ssr_occ, gp, base_angle,
-                    weight_ratio=cfg.gtao.weight_ratio,
-                    reflections_only=cfg.gtao.reflections_only))
+                    weight_ratio=t.weight_ratio,
+                    reflections_only=cfg.gtao.reflections_only,
+                    use_kernel=use_kernels))
         else:
             # without SSR's occlusion estimate the MIS main pass cannot
-            # run; like vkr_tpu, the frame takes the single-strategy pass
+            # run; like vkr_tpu, the frame takes the single-strategy pass:
+            # K4's, or in the oracle frame vkr_tpu's exact one
             raw_ao = add_task(
                 "GTAO_main",
-                lambda: registry.get("gtao_main")(
+                lambda: registry.get(
+                    "gtao_main" if use_kernels else "gtao_compute_main")(
                     depth_half, hiz.normal_half, gp, base_angle,
                     2 if cfg.gtao.two_directions else 1))
         filtered_ao = add_task(
@@ -313,7 +374,8 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
             lambda: registry.get("gtao_accumulate")(
                 depth_half, state.prev_depth_half, filtered_ao,
                 hiz.velocity_half, state.gtao_accum, ap,
-                clear_history=state.frame_index == 0))
+                clear_history=state.frame_index == 0,
+                use_kernel_gather=use_kernels))
         occlusion = gtao_accum[..., 0]
     else:
         gtao_accum = state.gtao_accum
@@ -325,9 +387,11 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
 
 
 def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
-               ssr_res: SSRResources, cfg: RenderConfig):
+               ssr_res: SSRResources, cfg: RenderConfig, *,
+               use_kernels: bool = True, tuning: Tuning = None):
     """Deferred shading -> TAA -> end-of-frame history remaps
     (main.cpp:416-420). Returns (final color, new FrameState, aux)."""
+    t = Tuning.of(cfg) if tuning is None else tuning
     inv_view = _inv4(cam.view)
     prev_inv_view = _inv4(cam.prev_view)
     depth_half = mid["depth_half"]
@@ -336,8 +400,8 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
     shade_params = _shading.ShadingParams(
         inverse_camera=inv_view, fovy=cfg.camera.fovy, aspect=cfg.aspect,
         znear=cfg.camera.znear, zfar=cfg.camera.zfar,
-        min_roughness=cfg.shading.min_roughness,
-        max_roughness=cfg.shading.max_roughness,
+        min_roughness=t.shade_min_roughness,
+        max_roughness=t.shade_max_roughness,
         show_ao=cfg.show_ao_only,
     )
     color = add_task(
@@ -357,7 +421,7 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
             "TAA",
             lambda: registry.get("taa_resolve")(
                 state.taa_history, state.prev_depth, gbuf.depth,
-                gbuf.velocity, color, tp))
+                gbuf.velocity, color, tp, use_kernel_gather=use_kernels))
     else:
         final = color
 

@@ -172,16 +172,19 @@ def _camera_space(depth_half, normal_half, params, base_angle, dirs_count,
 
 
 def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
-                 exact=False):
+                 exact=False, use_kernel=True):
     """Max horizon cosine along dir_uv (find_horizon in gtao_camera_space,
     main.comp:195-225): 16 bilinear depth taps at fractions 1/16..16/16 of
     the per-pixel direction, with the thickness break. The taps come from
-    ONE K4 call, or with exact=True from bilinear_sample step by step."""
+    ONE K4 call (its plain version with use_kernel=False), or with
+    exact=True from bilinear_sample step by step."""
     H, W = depth_half.shape
     if not exact:
         fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
                            device=depth_half.device) / N_STEPS)[:, None, None]
-        sds = _gather.window_gather_bilinear_multi(
+        gather = (_gather.window_gather_bilinear_multi if use_kernel
+                  else _gather.window_gather_multi_reference)
+        sds = gather(
             depth_half.contiguous(), fr * (dir_uv[..., 1] * H)[None],
             fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS)
     h_cos = torch.full_like(depth_half, -1.0)
@@ -404,14 +407,15 @@ def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
 @register("gtao_main_mis")
 def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
                   params: GTAOParams, base_angle: float,
-                  weight_ratio: float = 1.0, reflections_only: bool = False):
+                  weight_ratio: float = 1.0, reflections_only: bool = False,
+                  use_kernel: bool = True):
     """main.comp mis_gtao (219-274): MIS-combine one uniform-direction GTAO
     arc with the SSR trace's GGX-importance occlusion estimate
     (ssr_occlusion (h, w, 2) = (sum, pdf), ssr.ssr_trace's second output).
     The reference's default main-pass mode (gtao.hpp:112 mis_gtao = true).
 
-    The 16 horizon taps come from one K4 call, as in vkr_tpu's
-    use_kernel=True path; the radius is at most 16 px = N_STEPS, so K4's
+    The 16 horizon taps come from one K4 call (its plain version with
+    use_kernel=False), as in vkr_tpu's use_kernel=True path; the radius is at most 16 px = N_STEPS, so K4's
     +-radius clamp never binds and this equals vkr_tpu's bilinear_sample
     loop (use_kernel=False) up to rounding. material: FULL-res G-buffer
     material (roughness in .g) or an already-half-res (h, w, C) tensor.
@@ -437,7 +441,8 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
                                      params)
 
-    h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params)
+    h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
+                         use_kernel=use_kernel)
     occlusion = (1.0 / PI) * _arc_integral(h_cos, n_proj_len, n_angle)
 
     # roughness = texture(gbuffer_material, screen_uv).g: half-res pixel
@@ -585,10 +590,12 @@ class GTAOAccumParams(NamedTuple):
 
 @register("gtao_accumulate")
 def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
-                    history, params: GTAOAccumParams, clear_history: bool):
+                    history, params: GTAOAccumParams, clear_history: bool,
+                    use_kernel_gather: bool = True):
     """Temporal accumulation (accum.comp): velocity reprojection validated
     by world-space reconstruction; running mean with sample count in .y.
-    Both reprojections go through K5.
+    Both reprojections go through K5, or its plain version with
+    use_kernel_gather=False.
 
     history: (h, w, 2) = (ao, samples/255). Returns the same shape."""
     h, w = depth_half.shape
@@ -599,7 +606,8 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     in_bounds = ((prev_uv[..., 0] >= 0.0) & (prev_uv[..., 0] <= 1.0)
                  & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0))
 
-    d_prev = reproject_bilinear(prev_depth_half, velocity)
+    d_prev = reproject_bilinear(prev_depth_half, velocity,
+                                use_kernel=use_kernel_gather)
     v_cam = reconstruct_view_vec(prev_uv, d_prev, params.fovy, params.aspect,
                                  params.znear, params.zfar)
     m = params.prev_inverse_camera
@@ -626,7 +634,8 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     if clear_history:
         reprojected = torch.zeros_like(reprojected)
 
-    accumulated = reproject_bilinear(history, velocity)
+    accumulated = reproject_bilinear(history, velocity,
+                                     use_kernel=use_kernel_gather)
     samples = 255.0 * accumulated[..., 1] * valid_samples
     acc_ao = (accumulated[..., 0] * samples + filtered_ao) / (samples + 1.0)
     samples_next = samples + 1.0

@@ -105,9 +105,11 @@ class Probe(NamedTuple):
 
 
 @register("cubemap_probe")
-def render_probe_cubemap(scene: SceneDevice, position, cube_size: int = 128):
+def render_probe_cubemap(scene: SceneDevice, position, cube_size: int = 128,
+                         oracle: bool = False):
     """Raster the scene 6x from `position`. Returns (color (6, S, S, 3),
-    distance (6, S, S), bin pairs dropped (6,), covered share (6,))."""
+    distance (6, S, S), bin pairs dropped (6,), covered share (6,)).
+    oracle: the brute-force G-buffer (render_gbuffer(oracle=True))."""
     dev = scene.corner_world_o.device
     proj = perspective(FOV, 1.0, ZNEAR, ZFAR)
     pos = np.asarray(position, np.float32)
@@ -120,7 +122,8 @@ def render_probe_cubemap(scene: SceneDevice, position, cube_size: int = 128):
                        np.asarray(up, np.float32))
         vp = torch.as_tensor(proj @ view, device=dev)
         g = render_gbuffer(scene, vp, vp, no_jitter, width=cube_size,
-                           height=cube_size, quantize=False)
+                           height=cube_size, quantize=False,
+                           oracle=oracle)
         view_pos = reconstruct_view_vec(uv, g.depth, FOV, 1.0, ZNEAR, ZFAR)
         bg = g.depth >= 1.0
         colors.append(torch.where(bg[..., None], background,
@@ -193,10 +196,10 @@ def oct_depth_pyramid(oct_depth) -> Tuple[torch.Tensor, ...]:
 
 
 def render_probe(scene: SceneDevice, position, cube_size: int = 128,
-                 oct_size: int = 256) -> Probe:
+                 oct_size: int = 256, oracle: bool = False) -> Probe:
     """ProbeRenderer::render_probe: cubemap -> octahedral map + depth mips."""
     color_faces, dist_faces, overflow, coverage = render_probe_cubemap(
-        scene, position, cube_size)
+        scene, position, cube_size, oracle=oracle)
     color, depth = cube_to_oct(color_faces, dist_faces, oct_size)
     return Probe(color=color, depth_mips=oct_depth_pyramid(depth),
                  face_overflow=overflow, face_coverage=coverage)
@@ -221,7 +224,7 @@ class ProbeGrid(NamedTuple):
 
 def render_probe_grid(scene: SceneDevice, probe_min, probe_max,
                       grid_size: int, cube_size: int = 128,
-                      oct_size: int = 256) -> ProbeGrid:
+                      oct_size: int = 256, oracle: bool = False) -> ProbeGrid:
     dev = scene.corner_world_o.device
     pmin = np.asarray(probe_min, np.float32)
     pmax = np.asarray(probe_max, np.float32)
@@ -230,7 +233,8 @@ def render_probe_grid(scene: SceneDevice, probe_min, probe_max,
     for y in range(grid_size):
         for x in range(grid_size):
             pos = pmin + np.array([x, 0, y], np.float32) * step
-            probes.append(render_probe(scene, pos, cube_size, oct_size))
+            probes.append(render_probe(scene, pos, cube_size, oct_size,
+                                       oracle=oracle))
     offsets, off = [], 0
     for m in probes[0].depth_mips:
         offsets.append(off)

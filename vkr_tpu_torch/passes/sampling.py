@@ -138,19 +138,21 @@ def bilinear_from_quad(qimg, channels: int, uv):
 
 
 def reproject_bilinear(img, uv_offset, *, radius: int = 16,
-                       texel_offset=None):
+                       texel_offset=None, use_kernel: bool = True):
     """Bilinear sample at (pixel uv + uv_offset), the reprojection pattern
     of TAA / temporal accumulation, through the window-gather kernel (K5):
     offsets clamped to +-radius px. texel_offset: optional (dx, dy)
-    constant texel offset (textureOffset analog)."""
+    constant texel offset (textureOffset analog). use_kernel=False takes
+    K5's plain version on any device (vkr_tpu's use_kernel=False)."""
     h, w = img.shape[:2]
     off_x = uv_offset[..., 0] * w
     off_y = uv_offset[..., 1] * h
     if texel_offset is not None:
         off_x = off_x + texel_offset[0]
         off_y = off_y + texel_offset[1]
-    return _gather.window_gather_bilinear(img.contiguous(), off_y, off_x,
-                                          radius=radius)
+    gather = (_gather.window_gather_bilinear if use_kernel
+              else _gather.window_gather_reference)
+    return gather(img.contiguous(), off_y, off_x, radius=radius)
 
 
 def screen_uv_grid(height: int, width: int, device):

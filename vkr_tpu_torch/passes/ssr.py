@@ -262,14 +262,18 @@ def _reflection_ray_setup(uv, pixel_depth, normal_half, roughness, params,
 @register("sssr_trace")
 def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
               params: SSRParams, frame_random: int, halton,
-              max_iterations: int = 80):
+              max_iterations: int = 80, use_kernel: bool = True):
     """trace.comp main(): returns (ray_info (h, w, 4) = hit uvz + src depth
     [1.0 = invalid], occlusion (h, w, 2) = AO estimate + pdf).
 
     The march is ssr_march.hierarchical_march: the CUDA kernel on a CUDA
-    tensor, its plain version on a CPU tensor. Unlike vkr_tpu's Pallas
-    march it drops no ray (no compaction, no phase-A shell retire)."""
-    from vkr_tpu_torch.passes.ssr_march import hierarchical_march
+    tensor, its plain version on a CPU tensor or with use_kernel=False.
+    Unlike vkr_tpu's Pallas march it drops no ray (no compaction, no
+    phase-A shell retire)."""
+    from vkr_tpu_torch.passes import ssr_march
+
+    march = (ssr_march.hierarchical_march if use_kernel
+             else ssr_march.hierarchical_march_reference)
 
     h, w = hiz.heights[0], hiz.widths[0]
     dev = hiz.flat.device
@@ -284,7 +288,7 @@ def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
     view_vec, w0, n, r, ray_start, ray_dir = _reflection_ray_setup(
         uv, pixel_depth, normal_half, roughness, params, frame_random,
         halton)
-    position, hor, iters = hierarchical_march(
+    position, hor, iters = march(
         hiz, ray_start, ray_dir, view_vec, w0, params, max_iterations)
     valid_hit = iters <= max_iterations
 
@@ -443,10 +447,12 @@ MAX_BLUR_RADIUS = 11  # sigma <= 4 -> r = floor(12 - eps)
 
 @register("sssr_blur")
 def ssr_blur(reflections, depth_half, normal_half, material_full, history,
-             velocity_half, prev_depth_half, params: SSRBlurParams):
+             velocity_half, prev_depth_half, params: SSRBlurParams,
+             use_kernel_gather: bool = True):
     """blur.comp: per-pixel roughness-adaptive gaussian (sigma in
     [0.4, 4]) with depth/normal bilateral weights, then velocity-validated
-    history blend (0.1). Returns (h, w, 3).
+    history blend (0.1). Returns (h, w, 3). The reprojections go through
+    K5, or its plain version with use_kernel_gather=False.
 
     The 23x23 taps run as 23 row steps, each taking its 23 column offsets
     as one stacked (23, h, w) tensor op (about 350 launches instead of
@@ -518,7 +524,8 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
         return vc @ inv_cam[:3, :3].T + inv_cam[:3, 3]
 
     w_cur = world(depth_c, params.inverse_camera, uv)
-    w_prev = world(reproject_bilinear(prev_depth_half, velocity),
+    w_prev = world(reproject_bilinear(prev_depth_half, velocity,
+                                      use_kernel=use_kernel_gather),
                    params.prev_inverse_camera, prev_uv)
     cam = params.inverse_camera[:3, 3]
     err = _norm(w_cur - w_prev)

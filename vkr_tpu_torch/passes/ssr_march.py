@@ -41,9 +41,12 @@ FIND_HOR_PREFIX = 15  # iterations 0..14 stay at mip 0 (trace.comp find_hor)
 
 
 def _pyramid(mips):
-    from vkr_tpu_torch.passes.ssr import FlatPyramid, pack_pyramid
+    """A FlatPyramid, or the list of levels packed into one. Read by its
+    fields: registry.reload() re-executes ssr.py, and a pyramid made
+    before a reload is an instance of the class it replaced."""
+    from vkr_tpu_torch.passes.ssr import pack_pyramid
 
-    return mips if isinstance(mips, FlatPyramid) else pack_pyramid(mips)
+    return mips if hasattr(mips, "flat") else pack_pyramid(mips)
 
 
 def _constants(params):

@@ -31,10 +31,12 @@ class TAAParams(NamedTuple):
 
 @register("taa_resolve")
 def taa_resolve(history_color, history_depth, current_depth, velocity,
-                current_color, params: TAAParams):
+                current_color, params: TAAParams,
+                use_kernel_gather: bool = True):
     """history_color (H, W, 3), history_depth (H, W) previous frame depth,
     current_depth (H, W), velocity (H, W, 2), current_color (H, W, 3).
-    Returns the resolved (H, W, 3)."""
+    Returns the resolved (H, W, 3). The six history taps are one K6 call,
+    or its plain version with use_kernel_gather=False."""
     H, W = current_depth.shape
     uv = screen_uv_grid(H, W, current_depth.device)
     delta_len = torch.linalg.vector_norm(velocity, dim=-1)
@@ -42,7 +44,9 @@ def taa_resolve(history_color, history_depth, current_depth, velocity,
     in_bounds = ((prev_uv[..., 0] >= 0) & (prev_uv[..., 0] <= 1)
                  & (prev_uv[..., 1] >= 0) & (prev_uv[..., 1] <= 1))
 
-    taps = _gather.taa_history_gather(
+    gather = (_gather.taa_history_gather if use_kernel_gather
+              else _gather.taa_history_gather_reference)
+    taps = gather(
         history_color.contiguous(), history_depth.contiguous(),
         velocity[..., 1] * H, velocity[..., 0] * W)
     history = taps[0:3].permute(1, 2, 0)

@@ -297,14 +297,15 @@ def triangle_setup(corners, valid, width: int, height: int, jitter=None
 
 
 def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
-                    tile_w: int, pair_capacity: int):
+                    tile_w: int, pair_capacity: "int | None"):
     """Expand triangles into per-tile work lists (sorted segment layout).
 
     bbox: [4] of (T,) int32; valid: (T,) bool. Each valid triangle emits one
     pair per tile its bbox touches; pairs beyond pair_capacity are dropped
     and counted (vkr_tpu's jnp.repeat(..., total_repeat_length=cap)
-    truncation). In-tile order is ascending triangle id, which decides
-    LESS_OR_EQUAL depth ties.
+    truncation). pair_capacity None sizes the list to the pairs there are
+    (one host read of their count), so none is dropped. In-tile order is
+    ascending triangle id, which decides LESS_OR_EQUAL depth ties.
 
     Returns (pair_tri (CAP,) int32 sorted segment layout (-1 = padding),
     seg_starts (n_tiles,) int32, seg_counts (n_tiles,) int32,
@@ -314,9 +315,9 @@ def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
     tiles_x = -(-width // tile_w)
     tiles_y = -(-height // tile_h)
     n_tiles = tiles_x * tiles_y
-    cap = pair_capacity
     n_tri = valid.shape[0]
     if n_tri == 0:
+        cap = 1 if pair_capacity is None else pair_capacity
         zeros = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
         return (torch.full((cap,), -1, dtype=torch.int32, device=dev),
                 zeros, zeros.clone(),
@@ -331,6 +332,7 @@ def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
     counts = wspan * hspan  # (T,)
     ends = torch.cumsum(counts, 0)
     total = ends[-1]
+    cap = max(int(total), 1) if pair_capacity is None else pair_capacity
 
     # slot -> emitting triangle: the repeat of triangle ids by counts,
     # truncated to the capacity (a search, so no host sync)

@@ -175,6 +175,9 @@ def pack_texture_array_native(images, wrap, mat_albedo_tex, mat_mr_tex,
                        device)
 
 
+_RHO_MIN = torch.tensor(1e-12)  # a CPU scalar: no copy to the card
+
+
 def quad_derivative_lod(uv, base_size: int):
     """Hardware-style 2x2 quad derivatives -> mip LOD per pixel.
 
@@ -200,7 +203,10 @@ def _lod(uv, scale):
         torch.linalg.vector_norm(dx * scale, dim=-1),
         torch.linalg.vector_norm(dy * scale, dim=-1),
     )
-    return torch.log2(rho.clamp(min=1e-12))
+    # fmax, not clamp: a NaN rho (a NaN uv of the oracle resolve) gives the
+    # lowest LOD, so level 0, as XLA's NaN-to-0 cast gives vkr_tpu, and not
+    # a NaN level that the CPU would cast to an out-of-bounds index
+    return torch.log2(torch.fmax(rho, _RHO_MIN))
 
 
 def _wrap_coord(i, size, repeat):

@@ -8,3 +8,4 @@ from vkr_tpu_torch.scene.scene import (
 )
 from vkr_tpu_torch.scene.procedural import colonnade_scene, build_colonnade
 from vkr_tpu_torch.scene.orbit import bench_orbit_view
+from vkr_tpu_torch.scene.camera import Camera
