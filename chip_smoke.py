@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Needs a CUDA card (exits 1 without one) and prints nvidia-smi's name and
-   power limit of the card.
+   power limit of the card. (`python3 chip_smoke.py --multi-card`, on a
+   host of several cards, runs only the multi-device phase below over
+   NCCL, one rank per card.)
 2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
    vkr_tpu_torch/build/, one nvcc per source, all in parallel) and the
    native asset pipeline (vkr_tpu_torch/native, c++) and prints the build
@@ -104,7 +106,23 @@
    the next frame) with its ms per frame printed; the showcase into a
    temporary directory (a GIF89a of 32 frames at a third of the size and
    the 1080p still).
-13. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+13. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
+   with 2 ranks on this card (it prints what NCCL says; it refuses ranks
+   that share a card). Then 4 ranks, processes on this one card in a gloo
+   group,
+   render frames 0-2 of the bench orbit banded (render_frame_banded, 270
+   rows each); fails unless the G-buffer and prev_depth equal the main
+   phase's frames bit for bit, the colour and TAA history are within 1e-6
+   (vkr_tpu's bound), and every rank launched K1, the march, K4, K5 and K6
+   in every frame. Rank 1 captures its kernel calls (band offset 270 rows,
+   135 at half res) and holds each against its plain version with the
+   kernel phase's tolerances, with their times and bounds, and runs its
+   band of the opaque layer through K7 against the whole frame's rows.
+   Then 4 ranks render 4 orbit views (render_views_sharded), each within
+   1e-6 of that view's one-device frame. Prints the ms per band frame of 4
+   ranks sharing one card (no speed-up figure), the gather ms, each rank's
+   launches and peak memory.
+14. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -120,15 +138,17 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-14. Renders the main phase's 8 frames, the probe phase's 3, the RT
+15. Renders the main phase's 8 frames, the probe phase's 3, the RT
    phase's 3 and the glTF phase's 3 trilinear frames with the plain
    versions substituted for the kernels, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
-15. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
-   on the probe faces (times per face, launches per start-up), and, last,
-   the line {"ok": true, "device": {...}}.
+16. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+   on the probe faces (times per face, launches per start-up) and a
+   "(band)" row for each kernel of the band frame (rank 1's calls; its
+   launches summed over the 4 ranks' 3 frames), and, last, the line
+   {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line is printed.
 """
@@ -488,17 +508,21 @@ def compare(name, got, want, args):
 
 
 def shape_of(name, args, kw):
+    band = (f", rows from {kw['row_offset']}" if kw.get("row_offset")
+            else f", rows from {kw['row0']}" if kw.get("row0") else "")
     if name == "gbuf_tiles":
         return (f"{kw['width']}x{kw['height']}, "
                 f"{kw['tile_h']}x{kw['tile_w']} tiles, "
                 f"{int(args[2].sum())} pairs"
-                + (", peel" if args[3] is not None else ""))
+                + (", peel" if args[3] is not None else "") + band)
     if name == "rasterize_tiles":
-        return (f"{kw['width']}x{kw['height']}, {int(args[2].sum())} pairs")
+        return (f"{kw['width']}x{kw['height']}, {int(args[2].sum())} pairs"
+                + band)
     if name == "hierarchical_march":
         return (f"{tuple(args[1].shape[:-1])} rays, "
                 f"{len(args[0].offsets)} levels, max {args[6]} iterations")
-    return " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
+    return " ".join(str(tuple(a.shape)) for a in args
+                    if hasattr(a, "shape")) + band
 
 
 def walk_pairs(rows, starts, counts):
@@ -533,7 +557,8 @@ def covered_pair_pixels(rows, starts, counts, kw, chunk_evals=1 << 24):
     for lo in range(0, tile.numel(), step):
         t = tile[lo:lo + step, None]
         px = ((t % tiles_x) * tile_w + lx).float() + 0.5
-        py = ((t // tiles_x) * tile_h + ly).float() + 0.5
+        py = ((t // tiles_x) * tile_h + ly
+              + kw.get("row_offset", 0)).float() + 0.5
         q = r[lo:lo + step]
         cover = torch.ones(px.shape, dtype=torch.bool, device=dev)
         for i in range(3):
@@ -560,7 +585,8 @@ def patch_survivors(rows, starts, counts, kw):
     py0 = torch.arange(0, tile_h, 8, device=dev)[:, None]
     px0 = torch.arange(0, tile_w, 16, device=dev)[None, :]
     x0 = ((tile % tiles_x) * tile_w)[:, None, None] + px0 + 0.5
-    y0 = ((tile // tiles_x) * tile_h)[:, None, None] + py0 + 0.5
+    y0 = ((tile // tiles_x) * tile_h + kw.get("row_offset", 0))[
+        :, None, None] + py0 + 0.5
     x0, y0 = x0.float(), y0.float()
     x1, y1 = x0 + 15.0, y0 + 7.0
     rejected = torch.zeros(x0.shape, dtype=torch.bool, device=dev)
@@ -635,11 +661,17 @@ def work_of(name, args, kw, plain):
         n_rays = rays[0].numel() // 3
         return (nbytes(pyr.flat, *rays) + n_rays * 5 * 4,
                 int(steps.sum()) * MARCH_FLOPS_PER_ITERATION)
-    # window gathers: about 10 float32 operations per bilinear tap
+    # window gathers: about 10 float32 operations per bilinear tap; a band
+    # call's taps reach only its rows and a radius-wide halo of the images
     out = plain
     taps = out.numel() // (out.shape[-1] if name == "window_gather_bilinear"
                            and out.ndim == 3 else 1)
-    return nbytes(*args) + nbytes(out), taps * 10
+    n_img = 2 if name == "taa_history_gather" else 1
+    bh = args[n_img].shape[-2]
+    radius = kw.get("radius", 16)
+    images = sum(nbytes(a) * min(1.0, (bh + 2 * radius + 1) / a.shape[0])
+                 for a in args[:n_img])
+    return int(images) + nbytes(*args[n_img:]) + nbytes(out), taps * 10
 
 
 def simt_efficiency(steps, patch_w, patch_h):
@@ -761,7 +793,9 @@ def library_call(name, args, kw):
         return None
     img, off_y, off_x = args[:3]
     h, w = img.shape[:2]
-    ys = torch.arange(h, device=img.device, dtype=torch.float32)[:, None]
+    row0 = kw.get("row0", 0)
+    ys = torch.arange(row0, row0 + off_y.shape[-2], device=img.device,
+                      dtype=torch.float32)[:, None]
     xs = torch.arange(w, device=img.device, dtype=torch.float32)
     gx = (xs + off_x + 0.5) / w * 2.0 - 1.0
     gy = (ys + off_y + 0.5) / h * 2.0 - 1.0
@@ -1618,18 +1652,502 @@ def manifest_phase(cfg, device, f0, f1):
               f"{label} {ms:.3f}" for label, (_, ms) in results.items()))
 
 
-def main() -> int:
+# ---- multi-device phase: the band frame and view parallelism, ranks on
+# one card through gloo
+BAND_RANKS = 4
+BAND_FRAMES = 3
+# --multi-card: the band frames of the NCCL run, enough for a median over
+# frames WARMUP_FRAMES..
+MULTI_CARD_FRAMES = 8
+# the rank whose band calls (offset 270 rows, 135 at half res) are held
+# against their plain versions
+BAND_CAPTURE_RANK = 1
+# vkr_tpu's bound for the band frame's colour and TAA history
+# (tests/test_parallel.py:101-155)
+BAND_COLOR_ATOL = 1e-6
+RANK_TIMEOUT_S = 600
+# the kernels every rank's band frame must launch, with their rows in the
+# kernels line
+BAND_ROWS = {name: f"{name} (band)" for name in (
+    "gbuf_tiles", "hierarchical_march", "window_gather_bilinear_multi",
+    "window_gather_bilinear", "taa_history_gather")}
+
+
+def band_offset(name, args, kw):
+    """A captured kernel call's band offset in rows: its row_offset or row0
+    argument; for the march, which takes neither, its ray rows short of
+    the screen's (nonzero only on a band)."""
+    if name == "hierarchical_march":
+        return args[0].heights[0] - args[1].shape[0]
+    return kw.get("row_offset", 0) or kw.get("row0", 0)
+
+
+def measure_call(name, args, kw, wrappers, plain):
+    """A captured call through its kernel and its plain version on the
+    card: (case for the kernels line, within tolerance, note, the plain
+    version's result)."""
+    import torch
+
+    got = wrappers[name](*args, **kw)
+    pkw = dict(kw, return_steps=True) if name == "hierarchical_march" \
+        else kw
+    want = plain[name][1](*args, **pkw)
+    torch.cuda.synchronize()
+    err, ok, note = compare(name, got, want, args)
+    nbytes, ops = work_of(name, args, kw, want)
+    bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    lib = library_call(name, args, kw)
+    case = {"shape": shape_of(name, args, kw), "max_abs_err": err,
+            "ms": time_ms(wrappers[name], args, kw),
+            "plain_ms": time_ms(plain[name][1], args, kw),
+            "library_ms": None if lib is None else time_ms(lib, (), {}),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+            "bytes": nbytes, "ops": ops}
+    return case, ok, note, want
+
+
+def _rank_setup(rank, n, port, backend):
+    """A rank's process group (`backend` on tcp://localhost), its card
+    (cuda:0 under gloo, where the ranks share it; cuda:rank under NCCL),
+    and the main phase's scene, config and LUTs."""
+    import torch
+    import torch.distributed as dist
+
+    from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.frame import build_ssr_resources
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", world_size=n,
+        rank=rank, **({"device_id": device} if backend == "nccl" else {}))
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    return (device, upload_scene(colonnade_scene(**SCENE), device), cfg,
+            build_ssr_resources(cfg.ssr.lut_size, device))
+
+
+def n_frames(backend):
+    """Band frames a run renders: BAND_FRAMES on one card (gloo),
+    MULTI_CARD_FRAMES over NCCL (--multi-card)."""
+    return BAND_FRAMES if backend == "gloo" else MULTI_CARD_FRAMES
+
+
+def _orbit_cam(cfg, i, device):
+    from vkr_tpu_torch.frame import camera_frame
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    return camera_frame(cfg, bench_orbit_view(i),
+                        bench_orbit_view(max(i - 1, 0)), i, device)
+
+
+def band_rank(rank, n, port, tmp, backend):
+    """One rank of the band frame: frames 0..n_frames(backend)-1 of the
+    bench orbit, banded. Rank 0 writes each frame's G-buffer, colour and
+    history to tmp; BAND_CAPTURE_RANK captures its kernel calls in frame
+    CAPTURE_FRAME and holds them to their plain versions afterwards, and
+    rasterises its band of the opaque layer through K7 against the whole
+    frame's rows. Returns the rank's seconds, gather seconds, launches,
+    peak memory and, from the capture rank, its cases."""
+    import torch
+    import torch.distributed as dist
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.parallel import render_frame_banded
+    from vkr_tpu_torch.parallel.band import band_rows
+
+    device, scene, cfg, res = _rank_setup(rank, n, port, backend)
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    captured, secs, gather_s = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    kernels.LAUNCHES.clear()
+    for i in range(n_frames(backend)):
+        cam = _orbit_cam(cfg, i, device)
+        stats = {}
+        capture = rank == BAND_CAPTURE_RANK and i == CAPTURE_FRAME
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (Substitute(recording(captured)) if capture
+              else contextlib.nullcontext()):
+            color, state, aux = render_frame_banded(
+                scene, state, cam, res, cfg, device=device, stats=stats)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gather_s.append(stats["gather_s"])
+        if rank == 0:
+            g = aux["gbuffer"]
+            frame = {k: getattr(g, k).cpu() for k in FRAME_CHANNELS[:5]}
+            frame.update(color=color.cpu(), taa_history=state.taa_history
+                         .cpu(), prev_depth=state.prev_depth.cpu(),
+                         overflow=int(aux["overflow"]))
+            torch.save(frame, os.path.join(tmp, f"band{i}.pt"))
+    out = {"secs": secs, "gather_s": gather_s, "gathers": stats["gathers"],
+           "launches": dict(kernels.LAUNCHES),
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "row0": band_rows(HEIGHT)[0]}
+    if rank == BAND_CAPTURE_RANK:
+        plain = plain_versions()
+        wrappers = {k: getattr(mod, k) for k, (mod, _) in plain.items()}
+        cases = []
+        for name, args, kw in captured:
+            case, ok, note, _ = measure_call(name, args, kw, wrappers, plain)
+            cases.append((name, band_offset(name, args, kw), case, ok, note))
+        out["cases"] = cases
+        out["k7"] = band_k7(scene, cfg, device, wrappers, plain)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def band_k7(scene, cfg, device, wrappers, plain):
+    """The opaque layer of main frame CAPTURE_FRAME through K7 (the
+    visibility-only raster, not on the band frame's path) at this rank's
+    band viewport: (band rows equal to the whole frame's, the band call's
+    case against its plain version)."""
+    import torch
+
+    from vkr_tpu_torch.parallel.band import band_rows
+    from vkr_tpu_torch.raster.pipeline import rasterize
+    from vkr_tpu_torch.raster.setup import corner_transform_t
+
+    cam = _orbit_cam(cfg, CAPTURE_FRAME, device)
+    corners = corner_transform_t(scene.corner_world_o, cam.mvp)
+    row0, band_h = band_rows(HEIGHT)
+    full = rasterize(corners, width=WIDTH, height=HEIGHT, jitter=cam.jitter)
+    log = []
+    with Substitute(recording(log)):
+        band = rasterize(corners, width=WIDTH, height=band_h,
+                         jitter=cam.jitter, full_height=HEIGHT,
+                         y_offset=row0)
+    torch.cuda.synchronize()
+    equal = (torch.equal(band.depth, full.depth[row0:row0 + band_h])
+             and torch.equal(band.tri_id, full.tri_id[row0:row0 + band_h]))
+    name, args, kw = log[0]
+    case, ok, note, _ = measure_call(name, args, kw, wrappers, plain)
+    return equal, case, ok
+
+
+def view_rank(rank, n, port, tmp, backend):
+    """One rank of view parallelism: view `rank` of n orbit views
+    (frame i sees orbit view i after view i-1, from a fresh FrameState).
+    Rank 0 writes the gathered colours to tmp."""
+    import torch
+    import torch.distributed as dist
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.parallel import (batch_cams, batch_states,
+                                        make_render_mesh,
+                                        render_views_sharded)
+
+    device, scene, cfg, res = _rank_setup(rank, n, port, backend)
+    mesh = make_render_mesh(device=device)
+    cams = batch_cams([_orbit_cam(cfg, v, device) for v in range(n)])
+    states = batch_states(lambda: FrameState.initial(HEIGHT, WIDTH, device),
+                          n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    colors, new_states = render_views_sharded(scene, states, cams, res, cfg,
+                                              mesh)
+    torch.cuda.synchronize()
+    out = {"secs": time.perf_counter() - t0,
+           "launches": dict(kernels.LAUNCHES),
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "frame_index": new_states.frame_index}
+    if rank == 0:
+        torch.save(colors.cpu(), os.path.join(tmp, "views.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def nccl_rank(rank, n, port, tmp, backend):
+    """One rank of the NCCL probe: an NCCL group of n ranks on cuda:0 and
+    one all_reduce. NCCL refuses ranks that share a card, which is why the
+    phase's ranks use gloo; the outcome is returned, not raised."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{port}", world_size=n,
+            rank=rank, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        return {"outcome": f"all_reduce gave {float(x)}"}
+    except Exception as e:
+        # the failed group is left to the process's exit: tearing down a
+        # communicator that never formed is not needed
+        lines = f"{type(e).__name__}: {e}".splitlines()
+        return {"outcome": " / ".join(ln for ln in lines if ln.strip())}
+
+
+def _rank_entry(job, rank, n, port, tmp, backend, q):
+    """A spawned rank: run job and put (rank, result) on q; on an error,
+    put the traceback and exit 1."""
+    try:
+        q.put((rank, job(rank, n, port, tmp, backend)))
+    except BaseException:
+        import traceback
+
+        q.put((rank, {"error": traceback.format_exc()}))
+        sys.exit(1)
+
+
+def run_ranks(job, n, tmp, backend="gloo"):
+    """Spawn n ranks of job (torch.multiprocessing, spawn), wait for each
+    one's result, and stop them all. Fails if a rank raised, died or
+    outlived RANK_TIMEOUT_S. Returns the results in rank order."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(job, r, n, port, tmp, backend, q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while len(results) < n:
+            try:
+                rank, res = q.get(timeout=5)
+                results[rank] = res
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in results]
+                check(not dead, f"{job.__name__}: ranks {dead} died "
+                      f"(exit codes {[procs[r].exitcode for r in dead]})")
+                check(time.monotonic() < deadline, f"{job.__name__}: no "
+                      f"result after {RANK_TIMEOUT_S} s from ranks "
+                      f"{sorted(set(range(n)) - set(results))}")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(n):
+        check("error" not in results[r], f"{job.__name__} rank {r} failed:"
+              f"\n{results[r].get('error')}")
+        check(procs[r].exitcode == 0, f"{job.__name__} rank {r} exited "
+              f"{procs[r].exitcode}")
+    return [results[r] for r in range(n)]
+
+
+def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
+                       n_ranks=BAND_RANKS):
+    """The band frame (n_ranks ranks, n_frames(backend) frames) and view
+    parallelism (n_ranks views). Under gloo every rank is a process on
+    this card; under NCCL each rank has a card of its own (--multi-card).
+    Holds the band frames to `outs`, the one-device frames 0..: G-buffer
+    and prev_depth bit for bit, colour and TAA history within
+    BAND_COLOR_ATOL; each view to that view's one-device frame. Every rank
+    must launch each kernel of BAND_ROWS in every band frame. Returns
+    (the capture rank's (kernel, offset, case, ok, note) band calls, the
+    band run's launches summed over the ranks, the ms per band frame of
+    the slowest rank)."""
+    import tempfile
+
+    import torch
+
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import render_frame
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        if backend == "gloo":
+            print("NCCL probe, 2 ranks on this one card: " + "; ".join(
+                r["outcome"] for r in run_ranks(nccl_rank, 2, tmp)))
+        ranks = run_ranks(band_rank, n_ranks, tmp, backend)
+        for i in range(n_frames(backend)):
+            band = torch.load(os.path.join(tmp, f"band{i}.pt"))
+            ref = outs[i]
+            for k in FRAME_CHANNELS[:5]:
+                check(torch.equal(band[k].to(device), ref[k]),
+                      f"band frame {i}: G-buffer {k} differs from the "
+                      "one-device frame's")
+            check(torch.equal(band["prev_depth"].to(device), ref["depth"]),
+                  f"band frame {i}: prev_depth differs")
+            check(band["overflow"] == 0, f"band frame {i}: overflow "
+                  f"{band['overflow']}")
+            color = band["color"].to(device)
+            diffs = {k: float((band[k].to(device) - ref["color"]).abs()
+                              .max()) for k in ("color", "taa_history")}
+            same = float((color == ref["color"]).float().mean())
+            print(f"band frame {i}: G-buffer and prev_depth equal to main "
+                  f"frame {i} bit for bit; colour max |diff| "
+                  f"{diffs['color']:.3g}, TAA history "
+                  f"{diffs['taa_history']:.3g} (bit-equal pixels {same:.6f})")
+            check(max(diffs.values()) <= BAND_COLOR_ATOL, f"band frame {i}: "
+                  f"colour/history differ by {diffs} (> {BAND_COLOR_ATOL})")
+        view_ranks = run_ranks(view_rank, n_ranks, tmp, backend)
+        views = torch.load(os.path.join(tmp, "views.pt")).to(device)
+    check(tuple(views.shape) == (n_ranks, HEIGHT, WIDTH, 3),
+          f"views: shape {tuple(views.shape)}")
+    view_diff = []
+    for v in range(n_ranks):
+        color, _, _ = render_frame(
+            scene, FrameState.initial(HEIGHT, WIDTH, device),
+            _orbit_cam(cfg, v, device), res, cfg)
+        view_diff.append(float((views[v] - color).abs().max()))
+    check(max(view_diff) <= BAND_COLOR_ATOL, f"views: max |diff| to the "
+          f"one-device frames {view_diff}")
+    check(all(r["frame_index"] == (1,) * n_ranks for r in view_ranks),
+          "views: the batched frame_index after one frame from fresh "
+          "states")
+
+    for r, out in enumerate(ranks):
+        for name in BAND_ROWS:
+            per_frame = MIN_LAUNCHES_PER_FRAME[name]
+            got = out["launches"].get(name, 0)
+            check(got >= per_frame * n_frames(backend), f"band rank {r}: "
+                  f"{name} launched {got} times in {n_frames(backend)} "
+                  "frames")
+    for r, out in enumerate(view_ranks):
+        check(all(out["launches"].get(k, 0) >= v for k, v in
+                  MIN_LAUNCHES_PER_FRAME.items()),
+              f"view rank {r}: launches {out['launches']}")
+    frame_ms = [max(out["secs"][i] for out in ranks) * 1e3
+                for i in range(n_frames(backend))]
+    gather_ms = [max(out["gather_s"][i] for out in ranks) * 1e3
+                 for i in range(n_frames(backend))]
+    layout = ("sharing one card (gloo, bands staged through host memory; "
+              "this shows no speed-up)" if backend == "gloo"
+              else "on a card each (NCCL)")
+    print(f"band: {n_ranks} ranks {layout}, {WIDTH}x{HEIGHT}, "
+          f"ms per band frame (slowest rank) {[round(t, 3) for t in frame_ms]}"
+          f" (frame {CAPTURE_FRAME} with rank {BAND_CAPTURE_RANK}'s capture), "
+          f"of it in {ranks[0]['gathers']} gathers per frame "
+          f"{[round(t, 3) for t in gather_ms]} ms")
+    for r, out in enumerate(ranks):
+        last = out["row0"] + HEIGHT // n_ranks - 1
+        print(f"band rank {r} (rows {out['row0']}..{last}): launches "
+              f"{out['launches']}, peak device memory {out['peak_bytes']} "
+              "bytes")
+    print(f"views: {n_ranks} ranks, one orbit view each: max |diff| to "
+          f"the one-device frames {view_diff}; ms per rank "
+          f"{[round(o['secs'] * 1e3, 3) for o in view_ranks]}; peak device "
+          f"memory {[o['peak_bytes'] for o in view_ranks]} bytes")
+
+    equal, k7_case, k7_ok = ranks[BAND_CAPTURE_RANK]["k7"]
+    print(f"kernel rasterize_tiles band [{k7_case['shape']}]: the band's "
+          f"rows {'equal' if equal else 'DIFFER FROM'} the whole frame's; "
+          f"max_abs_err {k7_case['max_abs_err']:.3g} against the plain "
+          f"version ({'ok' if k7_ok else 'OUT OF TOLERANCE'}), "
+          f"{k7_case['ms']:.4f} ms, plain {k7_case['plain_ms']:.4f} ms")
+    check(equal and k7_ok, "band K7: the band raster differs")
+    cases = ranks[BAND_CAPTURE_RANK]["cases"]
+    failures = []
+    for name, offset, case, ok, note in cases:
+        lib = case["library_ms"]
+        what = ("ray rows short of the screen's" if name ==
+                "hierarchical_march" else "band offset")
+        print(f"kernel {BAND_ROWS.get(name, name)} [{case['shape']}], "
+              f"{what} {offset}: max_abs_err {case['max_abs_err']:.3g} "
+              f"({'ok' if ok else 'OUT OF TOLERANCE'}"
+              f"{', ' + note if note else ''}), {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}: "
+              f"{case['bytes'] / 1e6:.1f} MB, {case['ops'] / 1e9:.3f} GFLOP)")
+        if not ok or offset == 0:
+            failures.append(f"{name} offset {offset}: {case['max_abs_err']}")
+    check(not failures, "band kernel calls: " + "; ".join(failures))
+    check({c[0] for c in cases} >= set(BAND_ROWS), "band: rank "
+          f"{BAND_CAPTURE_RANK} captured {sorted({c[0] for c in cases})}")
+    launches = {}
+    for out in ranks:
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return cases, launches, frame_ms
+
+
+def multi_card_main() -> int:
+    """`python3 chip_smoke.py --multi-card`, on a host with several cards:
+    the multi-device phase over NCCL, one rank per card, against the
+    one-device frames rendered on card 0 in the same run, with the ms per
+    band frame beside the one-device frame's."""
+    import torch
+
+    if not cards():
+        return 1
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.frame import build_ssr_resources
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--multi-card needs at least 2 cards, found {n}")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    print(f"build: {kernels.build():.2f} s")
+    scene = upload_scene(colonnade_scene(**SCENE), device)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    res = build_ssr_resources(cfg.ssr.lut_size, device)
+    outs, secs = render(scene, res, cfg, device, MULTI_CARD_FRAMES)
+    _, launches, frame_ms = multi_device_phase(scene, res, cfg, device, outs,
+                                               backend="nccl", n_ranks=n)
+    one_ms = print_medians("one-device (card 0)", secs)
+    band_ms = statistics.median(frame_ms[WARMUP_FRAMES:])
+    print(f"band frame on {n} cards: median {band_ms:.3f} ms over frames "
+          f"{WARMUP_FRAMES}..{len(frame_ms) - 1} against the one-device "
+          f"frame's {one_ms:.3f} ms (ratio {one_ms / band_ms:.3f}); band "
+          f"launches summed over the ranks {launches}")
+    ok_line()
+    return 0
+
+
+def cards() -> bool:
+    """False, with a message, without a CUDA card; else prints each card's
+    name and power limit (nvidia-smi) and True."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
               "run needs a CUDA card", file=sys.stderr)
-        return 1
+        return False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     print(smi.stdout.strip())
+    return True
+
+
+def ok_line():
+    import torch
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main() -> int:
+    import torch
+
+    if not cards():
+        return 1
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -1924,6 +2442,11 @@ def main() -> int:
     tools_phase(gltf_path, scratch.name, device)
     scratch.cleanup()
 
+    # ---- multi-device phase: the band frame and view parallelism, ranks
+    # on this card
+    band_cases, band_launches, _ = multi_device_phase(scene, res, cfg,
+                                                      device, outs)
+
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
     wrappers = {name: getattr(mod, name) for name, (mod, _) in plain.items()}
@@ -1936,24 +2459,10 @@ def main() -> int:
     check([c[1] for c in calls[-2:]] == ["gbuf_tiles"] * 2,
           "probe grid: K1's calls on the first face were not captured")
     for row, name, args, kw in calls:
-        got = wrappers[name](*args, **kw)
-        pkw = dict(kw, return_steps=True) if name == "hierarchical_march" \
-            else kw
-        want = plain[name][1](*args, **pkw)
-        torch.cuda.synchronize()
-        err, ok, note = compare(name, got, want, args)
-        nbytes, ops = work_of(name, args, kw, want)
-        bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
-        ms = time_ms(wrappers[name], args, kw)
-        plain_ms = time_ms(plain[name][1], args, kw)
-        lib = library_call(name, args, kw)
-        library_ms = None if lib is None else time_ms(lib, (), {})
-        case = {"shape": shape_of(name, args, kw), "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations")}
+        case, ok, note, want = measure_call(name, args, kw, wrappers, plain)
+        err, ms, plain_ms, library_ms = (case[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "library_ms"))
+        nbytes, ops = case["bytes"], case["ops"]
         results.setdefault(row, []).append(case)
         if name == "window_gather_bilinear":
             note += (f"empty kernel on its grid "
@@ -2072,8 +2581,12 @@ def main() -> int:
               f"versions (< {MIN_PSNR_DB})")
 
     launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]
+    for name, row in BAND_ROWS.items():
+        results[row] = [c[2] for c in band_cases if c[0] == name]
+        launches[row] = band_launches.get(name, 0)
     table = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in list(KERNELS.items()) + [
+            (row, KERNELS[name]) for name, row in BAND_ROWS.items()]:
         cases = results[name]
 
         def total(key):
@@ -2093,15 +2606,14 @@ def main() -> int:
             "library_ms": total("library_ms"),
         })
     print(json.dumps({"kernels": table}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    ok_line()
     return 0
 
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(multi_card_main() if sys.argv[1:] == ["--multi-card"]
+                 else main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

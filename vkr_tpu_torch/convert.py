@@ -71,7 +71,10 @@ def tri_grid_from_numpy(grid, device):
 
 def framestate_from_numpy(state_arrays, device) -> FrameState:
     """FrameState from a mapping or object with FrameState's fields as
-    arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict)."""
+    arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict). A batch
+    of views (vkr_tpu's parallel.sharding.batch_states: every field with a
+    leading view axis, frame_index (V,)) becomes the port's batched
+    FrameState (parallel.sharding.batch_states), frame_index a tuple."""
     def get(name):
         if isinstance(state_arrays, dict):
             return state_arrays[name]
@@ -81,13 +84,27 @@ def framestate_from_numpy(state_arrays, device) -> FrameState:
         name: torch.as_tensor(np.array(get(name), np.float32), device=device)
         for name in FrameState.FIELDS if name != "frame_index"
     }
-    return FrameState(frame_index=int(np.asarray(get("frame_index"))),
-                      **tensors)
+    index = np.asarray(get("frame_index"))
+    return FrameState(frame_index=(tuple(int(i) for i in index) if index.ndim
+                                   else int(index)), **tensors)
 
 
 def framestate_to_numpy(state: FrameState) -> dict:
-    """FrameState -> dict of numpy arrays (frame_index as int32 0-d)."""
+    """FrameState -> dict of numpy arrays (frame_index as int32, 0-d, or
+    (V,) for a batched FrameState)."""
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in FrameState.FIELDS if name != "frame_index"}
     out["frame_index"] = np.asarray(state.frame_index, np.int32)
     return out
+
+
+def camera_frame_from_numpy(cam, device):
+    """vkr_tpu's CameraFrame (view, prev_view, mvp, prev_mvp, jitter: arrays
+    numpy can read, one camera or a batch stacked on a leading axis as
+    vkr_tpu's batch_cams makes it) -> the port's frame.CameraFrame on
+    `device`."""
+    from vkr_tpu_torch.frame import CameraFrame
+
+    return CameraFrame(*(
+        torch.as_tensor(np.array(getattr(cam, name), np.float32),
+                        device=device) for name in CameraFrame._fields))

@@ -66,6 +66,15 @@
 // plain PyTorch version (gbuf_kernel.py) evaluates the same form, so the
 // two agree bit for bit. Bounds are the plain segment [start, start+count);
 // the TPU kernel's 8-row DMA alignment served only Mosaic.
+//
+// Band viewports (multi-device rendering, vkr_tpu's yoff_ref): y_offset is
+// the first pixel row of the band in the full frame. The planes stay in
+// full-frame coordinates, so every plane is evaluated at the global row
+// y_offset + gy, while outputs, keys and the peel floor are indexed by the
+// band-local row gy. A band that is not whole tile-rows (1080 / 4 = 270
+// rows: 33 tile-rows of 8 and one of 6) bins nothing past its last row (the
+// setup clamps the bbox to the band); the tile-aligned grid's two rows past
+// it are evaluated like any others and cropped by the caller.
 
 #include <cuda_runtime.h>
 
@@ -219,10 +228,10 @@ __device__ __forceinline__ float material_of(const float* w) {
 // background.
 template <bool kWithResolve>
 __device__ __forceinline__ void resolve(
-    const float* __restrict__ pairs, int win, int gx, int gy, int wp,
-    long long n_px, float* __restrict__ zbuf, int* __restrict__ tid,
+    const float* __restrict__ pairs, int win, int gx, int gy, int y_offset,
+    int wp, long long n_px, float* __restrict__ zbuf, int* __restrict__ tid,
     float* __restrict__ attrs) {
-  const float px = (float)gx + 0.5f, py = (float)gy + 0.5f;
+  const float px = (float)gx + 0.5f, py = (float)(gy + y_offset) + 0.5f;
   const long long pix = (long long)gy * wp + gx;
   const float* w = winner_row(pairs, win);
   zbuf[pix] = depth_at(w, px, py);
@@ -239,9 +248,9 @@ __device__ __forceinline__ void resolve(
 template <bool kWithResolve>
 __device__ __forceinline__ void resolve4(
     const float* __restrict__ pairs, const int (&win)[kPixels], int gx,
-    int gy, int wp, long long n_px, float* __restrict__ zbuf,
+    int gy, int y_offset, int wp, long long n_px, float* __restrict__ zbuf,
     int* __restrict__ tid, float* __restrict__ attrs) {
-  const float py = (float)gy + 0.5f;
+  const float py = (float)(gy + y_offset) + 0.5f;
   const long long pix = (long long)gy * wp + gx;
   const float* w[kPixels];
   float px[kPixels];
@@ -274,8 +283,9 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
     const int* __restrict__ seg_counts, int* __restrict__ table, int n_tiles,
     const float* __restrict__ peel, int peel_h, int peel_w, int tiles_x,
     int tile_h, int tile_w, int cells_x, int n_cells, int wp, long long n_px,
-    unsigned long long* __restrict__ keys, float* __restrict__ zbuf,
-    int* __restrict__ tid, float* __restrict__ attrs) {
+    int y_offset, unsigned long long* __restrict__ keys,
+    float* __restrict__ zbuf, int* __restrict__ tid,
+    float* __restrict__ attrs) {
   __shared__ float4 stage[2][kChunk * 3];
   __shared__ Item items[2];
   __shared__ int item_ids[2];
@@ -339,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
     __syncthreads();  // stage[b] complete for every thread
 
     const int gy = it.gy0 + r, gx = it.gx0 + c0;
-    const float py = (float)gy + 0.5f;
+    const float py = (float)(gy + y_offset) + 0.5f;
     float px[kPixels], floor_d[kPixels], z[kPixels];
     int win[kPixels];
     for (int k = 0; k < kPixels; ++k) {
@@ -352,10 +362,10 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
       z[k] = 1.0f;  // depth clear
       win[k] = -1;
     }
-    // the warp's patch of pixel centres
+    // the warp's patch of pixel centres, rows in full-frame coordinates
     const float x0 = (float)(it.gx0 + warp * kPatchW) + 0.5f;
     const float x1 = x0 + (float)(kPatchW - 1);
-    const float y0 = (float)it.gy0 + 0.5f;
+    const float y0 = (float)(it.gy0 + y_offset) + 0.5f;
     const float y1 = y0 + (float)(kCellH - 1);
 
     const float4* s = stage[b];
@@ -398,8 +408,8 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
       __syncthreads();
       for (int q = threadIdx.x; q < kCellH * kCellW; q += kThreads)
         resolve<kWithResolve>(pairs, cell_win[q], it.gx0 + q % kCellW,
-                              it.gy0 + q / kCellW, wp, n_px, zbuf, tid,
-                              attrs);
+                              it.gy0 + q / kCellW, y_offset, wp, n_px, zbuf,
+                              tid, attrs);
     } else {  // merge into the keys; the cell's last chunk resolves it
       unsigned long long* key = keys + (long long)gy * wp + gx;
       for (int k = 0; k < kPixels; ++k) {
@@ -420,8 +430,8 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
           const unsigned long long v = __ldcg(key + k);
           win[k] = v == kEmpty ? -1 : (int)(0xFFFFFFFFu - (unsigned)v);
         }
-        resolve4<kWithResolve>(pairs, win, gx, gy, wp, n_px, zbuf, tid,
-                               attrs);
+        resolve4<kWithResolve>(pairs, win, gx, gy, y_offset, wp, n_px, zbuf,
+                               tid, attrs);
       }
     }
     b ^= 1;
@@ -431,8 +441,8 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(
 template <bool kWithResolve>
 int walk(const float* pairs, const int* seg_starts, const int* seg_counts,
          const float* peel, int peel_h, int peel_w, int tiles_x, int tiles_y,
-         int tile_h, int tile_w, float* zbuf, int* tid, float* attrs,
-         void* keys, int* table, cudaStream_t stream) {
+         int tile_h, int tile_w, int y_offset, float* zbuf, int* tid,
+         float* attrs, void* keys, int* table, cudaStream_t stream) {
   if (tile_h % kCellH || tile_w % kCellW) return (int)cudaErrorInvalidValue;
   const int n_tiles = tiles_x * tiles_y;
   const int wp = tiles_x * tile_w;
@@ -454,8 +464,8 @@ int walk(const float* pairs, const int* seg_starts, const int* seg_counts,
   }
   walk_kernel<kWithResolve><<<blocks, kThreads, 0, stream>>>(
       pairs, seg_starts, seg_counts, table, n_tiles, peel, peel_h, peel_w,
-      tiles_x, tile_h, tile_w, cells_x, n_cells, wp, n_px, k, zbuf, tid,
-      attrs);
+      tiles_x, tile_h, tile_w, cells_x, n_cells, wp, n_px, y_offset, k, zbuf,
+      tid, attrs);
   return (int)cudaGetLastError();
 }
 
@@ -464,24 +474,26 @@ int walk(const float* pairs, const int* seg_starts, const int* seg_counts,
 // peel: the (peel_h, peel_w) depth-peel floor or null; pixels outside it
 // have none. Scratch from the caller: keys, (hp * wp) 8-byte words; table,
 // (n_tiles * (1 + (tile_h / 8) * (tile_w / 128)) + 2) ints. tile_h must
-// be a multiple of 8 and tile_w of 128.
+// be a multiple of 8 and tile_w of 128. y_offset: the band's first row in
+// the full frame (0 for a whole frame).
 extern "C" int vkr_gbuf_tiles(const float* pairs, const int* seg_starts,
                               const int* seg_counts, const float* peel,
                               int peel_h, int peel_w, int tiles_x,
                               int tiles_y, int tile_h, int tile_w,
-                              float* zbuf, int* tid, float* attrs,
-                              void* keys, int* table, void* stream) {
+                              int y_offset, float* zbuf, int* tid,
+                              float* attrs, void* keys, int* table,
+                              void* stream) {
   return walk<true>(pairs, seg_starts, seg_counts, peel, peel_h, peel_w,
-                    tiles_x, tiles_y, tile_h, tile_w, zbuf, tid, attrs, keys,
-                    table, (cudaStream_t)stream);
+                    tiles_x, tiles_y, tile_h, tile_w, y_offset, zbuf, tid,
+                    attrs, keys, table, (cudaStream_t)stream);
 }
 
 extern "C" int vkr_rasterize_tiles(const float* pairs, const int* seg_starts,
                                    const int* seg_counts, int tiles_x,
                                    int tiles_y, int tile_h, int tile_w,
-                                   float* zbuf, int* tid, void* keys,
-                                   int* table, void* stream) {
+                                   int y_offset, float* zbuf, int* tid,
+                                   void* keys, int* table, void* stream) {
   return walk<false>(pairs, seg_starts, seg_counts, nullptr, 0, 0, tiles_x,
-                     tiles_y, tile_h, tile_w, zbuf, tid, nullptr, keys, table,
-                     (cudaStream_t)stream);
+                     tiles_y, tile_h, tile_w, y_offset, zbuf, tid, nullptr,
+                     keys, table, (cudaStream_t)stream);
 }

@@ -29,6 +29,12 @@
 // to this on the card: a warp's tap loads then span four times the cache
 // lines, which cost most with two channels.
 //
+// Band mode (multi-device rendering): the offsets and the output cover rows
+// [row0, row0 + bh) of the image, which stays whole. Output row y samples
+// image row row0 + y; the +-radius clamp and the clamp to the image's edges
+// stay those of the full frame. vkr_tpu slices its padded image at row0
+// in the wrapper (gather_kernel.py:160-162, :262-264, :450-452).
+//
 // Arithmetic: built with -fmad=false; per tap, o = clamp(off, -r, r),
 // i = floor(o), f = o - i (exact), then a y-lerp of both columns and an
 // x-lerp, in the plain PyTorch versions' order, so kernel and plain
@@ -71,7 +77,7 @@ __device__ __forceinline__ float bilerp(const float* __restrict__ img, int w,
                img[((long long)ty.i1 * w + tx.i1) * ch + c], ty.f, tx.f);
 }
 
-// K5: one tap per pixel, C channels. out (H, W, C). Thread (tx, ty) of
+// K5: one tap per pixel, C channels. out (bh, W, C). Thread (tx, ty) of
 // block (bx, by) takes pixel x = 32 bx + tx of row y = 8 by + ty: a warp
 // holds 32 adjacent pixels of one row, so its offset loads, its taps
 // (neighbours in the image) and its stores coalesce.
@@ -80,15 +86,15 @@ constexpr int kK5Rows = 8;
 
 template <int C>
 __global__ void __launch_bounds__(kK5ThreadsX * kK5Rows)
-    window_gather_k5(const float* __restrict__ img, int h, int w,
-                     const float* __restrict__ off_y,
+    window_gather_k5(const float* __restrict__ img, int h, int w, int bh,
+                     int row0, const float* __restrict__ off_y,
                      const float* __restrict__ off_x, float r,
                      float* __restrict__ out) {
   const int x = blockIdx.x * kK5ThreadsX + threadIdx.x;
   const int y = blockIdx.y * kK5Rows + threadIdx.y;
-  if (x >= w || y >= h) return;
+  if (x >= w || y >= bh) return;
   const int p = y * w + x;
-  const Tap ty = axis_tap(__ldg(off_y + p), r, y, h);
+  const Tap ty = axis_tap(__ldg(off_y + p), r, row0 + y, h);
   const Tap tx = axis_tap(__ldg(off_x + p), r, x, w);
   const float* a0 = img + (ty.i0 * w + tx.i0) * C;
   const float* a1 = img + (ty.i1 * w + tx.i0) * C;
@@ -100,36 +106,37 @@ __global__ void __launch_bounds__(kK5ThreadsX * kK5Rows)
                            __ldg(b1 + c), ty.f, tx.f);
 }
 
-// K4: K taps per pixel of one (H, W) image. off_* and out (K, H, W).
+// K4: K taps per pixel of one (H, W) image. off_* and out (K, bh, W).
 __global__ void window_gather_multi_kernel(const float* __restrict__ img,
-                                           int h, int w, int k_sets,
+                                           int h, int w, int bh, int row0,
+                                           int k_sets,
                                            const float* __restrict__ off_y,
                                            const float* __restrict__ off_x,
                                            float r, float* __restrict__ out) {
-  const long long n = (long long)h * w;
+  const long long n = (long long)bh * w;
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n * k_sets) return;
   const long long p = q % n;
   const int y = (int)(p / w);
   const int x = (int)(p - (long long)y * w);
-  out[q] = bilerp(img, w, 1, 0, axis_tap(off_y[q], r, y, h),
+  out[q] = bilerp(img, w, 1, 0, axis_tap(off_y[q], r, row0 + y, h),
                   axis_tap(off_x[q], r, x, w));
 }
 
-// K6: the six TAA history taps. history (H, W, 3), depth (H, W);
-// out (16, H, W) = centre rgb, rgb at (+1,0), (0,+1), (-1,0), (0,-1)
+// K6: the six TAA history taps. history (H, W, 3), depth (H, W); off_*
+// (bh, W); out (16, bh, W) = centre rgb, rgb at (+1,0), (0,+1), (-1,0), (0,-1)
 // texels, centre prev depth. Each tap clamps off + d on its own.
 __global__ void taa_history_gather_kernel(const float* __restrict__ hist,
                                           const float* __restrict__ depth,
-                                          int h, int w,
+                                          int h, int w, int bh, int row0,
                                           const float* __restrict__ off_y,
                                           const float* __restrict__ off_x,
                                           float r, float* __restrict__ out) {
-  const long long n = (long long)h * w;
+  const long long n = (long long)bh * w;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const int y = (int)(p / w);
-  const int x = (int)(p - (long long)y * w);
+  const int y = row0 + (int)(p / w);
+  const int x = (int)(p % w);
   const float oy = off_y[p];
   const float ox = off_x[p];
   const int dxs[5] = {0, 1, 0, -1, 0};
@@ -159,25 +166,27 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// ch in {1, 2, 3} and h * w * ch < 2^31 (the wrapper checks both).
+// ch in {1, 2, 3} and h * w * ch < 2^31 (the wrapper checks both). The
+// offsets and out cover image rows [row0, row0 + bh) (all: 0, h).
 extern "C" int vkr_window_gather(const float* img, int h, int w, int ch,
-                                 const float* off_y, const float* off_x,
-                                 float radius, float* out, void* stream) {
-  if (h <= 0 || w <= 0) return 0;
-  const dim3 grid = k5_grid(h, w), block(kK5ThreadsX, kK5Rows);
+                                 int bh, int row0, const float* off_y,
+                                 const float* off_x, float radius, float* out,
+                                 void* stream) {
+  if (bh <= 0 || w <= 0) return 0;
+  const dim3 grid = k5_grid(bh, w), block(kK5ThreadsX, kK5Rows);
   cudaStream_t s = (cudaStream_t)stream;
   switch (ch) {
     case 1:
-      window_gather_k5<1><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
-                                                 radius, out);
+      window_gather_k5<1><<<grid, block, 0, s>>>(img, h, w, bh, row0, off_y,
+                                                 off_x, radius, out);
       break;
     case 2:
-      window_gather_k5<2><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
-                                                 radius, out);
+      window_gather_k5<2><<<grid, block, 0, s>>>(img, h, w, bh, row0, off_y,
+                                                 off_x, radius, out);
       break;
     case 3:
-      window_gather_k5<3><<<grid, block, 0, s>>>(img, h, w, off_y, off_x,
-                                                 radius, out);
+      window_gather_k5<3><<<grid, block, 0, s>>>(img, h, w, bh, row0, off_y,
+                                                 off_x, radius, out);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -193,25 +202,27 @@ extern "C" int vkr_window_gather_empty(int h, int w, void* stream) {
 }
 
 extern "C" int vkr_window_gather_multi(const float* img, int h, int w,
-                                       int k_sets, const float* off_y,
+                                       int bh, int row0, int k_sets,
+                                       const float* off_y,
                                        const float* off_x, float radius,
                                        float* out, void* stream) {
-  const long long n = (long long)h * w * k_sets;
+  const long long n = (long long)bh * w * k_sets;
   if (n > 0)
     window_gather_multi_kernel<<<blocks(n), kThreads, 0,
                                  (cudaStream_t)stream>>>(
-        img, h, w, k_sets, off_y, off_x, radius, out);
+        img, h, w, bh, row0, k_sets, off_y, off_x, radius, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int vkr_taa_history_gather(const float* hist, const float* depth,
-                                      int h, int w, const float* off_y,
-                                      const float* off_x, float radius,
-                                      float* out, void* stream) {
-  const long long n = (long long)h * w;
+                                      int h, int w, int bh, int row0,
+                                      const float* off_y, const float* off_x,
+                                      float radius, float* out,
+                                      void* stream) {
+  const long long n = (long long)bh * w;
   if (n > 0)
     taa_history_gather_kernel<<<blocks(n), kThreads, 0,
                                 (cudaStream_t)stream>>>(
-        hist, depth, h, w, off_y, off_x, radius, out);
+        hist, depth, h, w, bh, row0, off_y, off_x, radius, out);
   return (int)cudaGetLastError();
 }

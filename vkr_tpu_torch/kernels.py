@@ -38,16 +38,18 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
     "gbuf_tiles": {
-        "vkr_gbuf_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                           _P, _P, _P, _P],
-        "vkr_rasterize_tiles": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                _P],
+        "vkr_gbuf_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _P],
+        "vkr_rasterize_tiles": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                _P, _P],
     },
     "window_gather": {
-        "vkr_window_gather": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
+        "vkr_window_gather": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P],
         "vkr_window_gather_empty": [_I, _I, _P],
-        "vkr_window_gather_multi": [_P, _I, _I, _I, _P, _P, _F, _P, _P],
-        "vkr_taa_history_gather": [_P, _P, _I, _I, _P, _P, _F, _P, _P],
+        "vkr_window_gather_multi": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _P,
+                                    _P],
+        "vkr_taa_history_gather": [_P, _P, _I, _I, _I, _I, _P, _P, _F, _P,
+                                   _P],
     },
     "ssr_march": {
         "vkr_ssr_march": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,

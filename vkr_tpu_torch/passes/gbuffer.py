@@ -156,14 +156,15 @@ def _split(resolved):
 
 
 def _resolve_attrs(vis, indices, tri_mat, uvs, world_n, prev_clip, *,
-                   width, height):
+                   width, height, row_offset=0):
     """Per-pixel {uv, normal, prev_clip, mat_id}: K1 resolved them on the
     kernel paths; the oracle's winners are resolved by gathering their
     corner attributes and interpolating with perspective-correct
     barycentrics (resolve.py)."""
     if vis.resolved is not None:
         return _split(vis.resolved)
-    bary, _ = pixel_barycentrics(vis.tri_id, vis.setup, width, height)
+    bary, _ = pixel_barycentrics(vis.tri_id, vis.setup, width, height,
+                                 row_offset)
 
     def corners(attr):
         return corner_attributes(attr, indices, vis.weights, vis.src)
@@ -225,8 +226,16 @@ def render_gbuffer(
     mask_peel_layers: int = 1,
     trilinear: bool = False,
     oracle: bool = False,
+    full_height: "int | None" = None,
+    row_offset: int = 0,
 ) -> GBuffer:
     """view_proj/prev_view_proj: (4, 4) tensors; jitter: (2,) NDC offset.
+
+    full_height/row_offset: the band viewport of multi-device rendering
+    (parallel/band.py, vkr_tpu gbuffer.py:248-302): rows [row_offset,
+    row_offset + height) of a full_height-tall frame, bit for bit those
+    rows of the full frame's G-buffer. The velocity takes the global rows;
+    the texture LOD's 2x2 quads need an even row_offset.
 
     mask_peel_layers: alpha-MASK transparency layers to resolve. 1 = the
     closest masked fragment only; 2 adds a depth-peeled pass so a masked
@@ -266,9 +275,11 @@ def render_gbuffer(
 
     def resolve(vis, tri, tri_mat):
         return _resolve_attrs(vis, tri, tri_mat, scene.uvs, world_n,
-                              prev_clip, width=width, height=height)
+                              prev_clip, width=width, height=height,
+                              row_offset=row_offset)
 
-    rkw = dict(width=width, height=height, jitter=jitter)
+    rkw = dict(width=width, height=height, jitter=jitter,
+               full_height=full_height, y_offset=row_offset)
     geom_o = front(scene.corner_world_o, scene.corner_attr_o,
                    scene.tri_opaque)
     vis = rasterize(tri_mat=scene.tri_opaque_mat, **geom_o, **rkw)
@@ -350,7 +361,8 @@ def render_gbuffer(
     # Current unjittered NDC is analytic: the raster covered this pixel with
     # jittered geometry, so interpolated pos_after == pixel ndc - jitter.
     xs = (torch.arange(width, **f32) + 0.5) / width * 2.0 - 1.0
-    ys = (torch.arange(height, **f32) + 0.5) / height * 2.0 - 1.0
+    ys = (torch.arange(row_offset, row_offset + height, **f32) + 0.5) \
+        / (full_height or height) * 2.0 - 1.0
     cur_ndc = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), -1) - jitter
     velocity = 0.5 * (prev_ndc - cur_ndc)  # opaque_taa.frag:46
 

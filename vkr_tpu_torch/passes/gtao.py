@@ -15,6 +15,12 @@ SSR's occlusion estimate), the single-strategy main pass gtao_main_window
 gtao_filter and gtao_accumulate; and vkr_tpu's other variants, which no
 frame of the port takes: gtao_main_exact, gtao_main_dense,
 gtao_normal_space, gtao_reproject and the deinterleaved main pass.
+
+Band mode (row0/band_h, parallel/band.py): the main passes, the filter
+and the accumulation compute only the half-res rows [row0, row0 + band_h)
+from whole-frame inputs, bit for bit those rows of the full call; the
+dither pattern, the uv and the reprojection take global rows, and the
+filter's halo replicates the frame's edges.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from vkr_tpu_torch.mathlib.projection import (
     project_view_vec,
     reconstruct_view_vec,
 )
-from vkr_tpu_torch.passes.sampling import (bilinear_sample,
+from vkr_tpu_torch.passes.sampling import (band_slice, bilinear_sample,
                                           reproject_bilinear, screen_uv_grid)
 from vkr_tpu_torch.raster import gather_kernel as _gather
 from vkr_tpu_torch.scene import accel as _accel
@@ -59,11 +65,12 @@ def frame_base_angle(frame_index: int) -> float:
     return float(np.float32(offset + rnd))
 
 
-def gtao_direction_pattern(height: int, width: int, device):
+def gtao_direction_pattern(height: int, width: int, device, row0: int = 0):
     """main.comp:292-294: (1/16) * ((((x+y)&3)<<2) + (x&3)), per pixel.
-    Returns the int class in [0, 16); pattern value = class / 16."""
+    Returns the int class in [0, 16); pattern value = class / 16. row0
+    (band mode): the rows are the global rows row0 + i."""
     x = torch.arange(width, device=device)[None, :]
-    y = torch.arange(height, device=device)[:, None]
+    y = torch.arange(row0, row0 + height, device=device)[:, None]
     return (((x + y) & 3) << 2) + (x & 3)
 
 
@@ -107,77 +114,88 @@ def _arc_integral(h_cos, n_proj_len, n_angle):
     )
 
 
-def _common(depth_half, normal_half, params):
+def _common(depth_half, normal_half, params, row0=None, band_h=None):
     """Shared per-pixel terms: uv, view position, view dir, view normal,
-    march radius in pixels."""
+    march radius in pixels, and the centre depth. row0/band_h (band mode,
+    vkr_tpu gtao.py:111): the rows [row0, row0 + band_h) only."""
     H, W = depth_half.shape
-    uv = screen_uv_grid(H, W, depth_half.device)
+    h = H if row0 is None else band_h
+    depth_c = band_slice(depth_half, row0, h)
+    uv = screen_uv_grid(h, W, depth_half.device, row0=row0 or 0,
+                        full_height=H)
     camera_pos = reconstruct_view_vec(
-        uv, depth_half, params.fovy, params.aspect, params.znear,
+        uv, depth_c, params.fovy, params.aspect, params.znear,
         params.zfar,
     )
     w0 = -camera_pos / _norm(camera_pos, True).clamp(min=1e-20)
-    world_n = decode_normal(normal_half)
+    world_n = decode_normal(band_slice(normal_half, row0, h))
     cam_n = world_n @ params.normal_mat[:3, :3].T
     cam_n = cam_n / _norm(cam_n, True).clamp(min=1e-20)
     # dir_radius in pixels: min(100/|campos|, 16) (gtao_camera_space)
     radius_px = torch.clamp(100.0 / _norm(camera_pos).clamp(min=1e-20),
                             max=16.0)
-    return uv, camera_pos, w0, cam_n, radius_px
+    return uv, camera_pos, w0, cam_n, radius_px, depth_c
 
 
 @register("gtao_main")
 def gtao_main_window(depth_half, normal_half, params: GTAOParams,
-                     base_angle: float, dirs_count: int = 1):
+                     base_angle: float, dirs_count: int = 1,
+                     row0: "int | None" = None, band_h: "int | None" = None):
     """GTAO main pass with the reference's exact sampling: 16 bilinear
     depth taps at fractions 1/16..16/16 of the per-pixel radius
     (gtao_camera_space, main.comp:195-225), all fetched by ONE K4 call per
-    direction. Returns (H/2, W/2) raw AO."""
+    direction. Returns (H/2, W/2) raw AO (band mode: the band's rows,
+    vkr_tpu gtao.py:198)."""
     return _camera_space(depth_half, normal_half, params, base_angle,
-                         dirs_count, exact=False)
+                         dirs_count, False, row0, band_h)
 
 
 @register("gtao_compute_main")
 def gtao_main_exact(depth_half, normal_half, params: GTAOParams,
-                    base_angle: float, dirs_count: int = 1):
+                    base_angle: float, dirs_count: int = 1,
+                    row0: "int | None" = None, band_h: "int | None" = None):
     """gtao_main_window with each of the 16 taps taken by bilinear_sample
     (vkr_tpu's gtao_main_exact, registered as gtao_compute_main: the main
-    pass of its use_pallas=False frame). Returns (H/2, W/2) raw AO."""
+    pass of its use_pallas=False frame). Returns (H/2, W/2) raw AO (band
+    mode: the band's rows, vkr_tpu gtao.py:145)."""
     return _camera_space(depth_half, normal_half, params, base_angle,
-                         dirs_count, exact=True)
+                         dirs_count, True, row0, band_h)
 
 
 def _camera_space(depth_half, normal_half, params, base_angle, dirs_count,
-                  exact):
+                  exact, row0=None, band_h=None):
     H, W = depth_half.shape
-    uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
-                                                   params)
-    cls = gtao_direction_pattern(H, W, depth_half.device).float() / 16.0
+    uv, camera_pos, w0, cam_n, radius_px, depth_c = _common(
+        depth_half, normal_half, params, row0, band_h)
+    h = depth_c.shape[0]
+    cls = gtao_direction_pattern(h, W, depth_half.device,
+                                 row0 or 0).float() / 16.0
     size = torch.tensor([W, H], dtype=torch.float32,
                         device=depth_half.device)
 
-    total = torch.zeros_like(depth_half)
+    total = torch.zeros_like(depth_c)
     for d in range(dirs_count):
         angle = 2.0 * PI * (cls + base_angle + d / dirs_count)
         dir_uv = radius_px[..., None] * torch.stack(
             [torch.cos(angle), torch.sin(angle)], -1) / size
-        n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
+        n_proj_len, n_angle = _arc_terms(uv, depth_c, w0, cam_n, dir_uv,
                                          params)
         h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
-                             exact)
+                             exact, row0=row0 or 0)
         total = total + _arc_integral(h_cos, n_proj_len, n_angle)
 
     ao = 2.0 * total / dirs_count
-    return torch.where(depth_half >= 1.0, 0.0, ao)
+    return torch.where(depth_c >= 1.0, 0.0, ao)
 
 
 def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
-                 exact=False, use_kernel=True):
+                 exact=False, use_kernel=True, row0=0):
     """Max horizon cosine along dir_uv (find_horizon in gtao_camera_space,
     main.comp:195-225): 16 bilinear depth taps at fractions 1/16..16/16 of
     the per-pixel direction, with the thickness break. The taps come from
     ONE K4 call (its plain version with use_kernel=False), or with
-    exact=True from bilinear_sample step by step."""
+    exact=True from bilinear_sample step by step. uv and the rays cover
+    the rows from row0 of the whole depth_half."""
     H, W = depth_half.shape
     if not exact:
         fr = (torch.arange(1, N_STEPS + 1, dtype=torch.float32,
@@ -186,10 +204,10 @@ def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
                   else _gather.window_gather_multi_reference)
         sds = gather(
             depth_half.contiguous(), fr * (dir_uv[..., 1] * H)[None],
-            fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS)
-    h_cos = torch.full_like(depth_half, -1.0)
+            fr * (dir_uv[..., 0] * W)[None], radius=N_STEPS, row0=row0)
+    h_cos = torch.full_like(camera_pos[..., 2], -1.0)
     prev_z = camera_pos[..., 2]
-    alive = torch.ones_like(depth_half, dtype=torch.bool)
+    alive = torch.ones_like(h_cos, dtype=torch.bool)
     for i in range(1, N_STEPS + 1):
         tc = uv + (float(i) / N_STEPS) * dir_uv
         sd = bilinear_sample(depth_half, tc) if exact else sds[i - 1]
@@ -205,27 +223,33 @@ def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
 
 @register("gtao_main_dense")
 def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
-                    base_angle: float, dirs_count: int = 1):
+                    base_angle: float, dirs_count: int = 1,
+                    row0: "int | None" = None, band_h: "int | None" = None):
     """vkr_tpu's gtao_main_dense: per dither class, march 16 integer-pixel
     offsets round(j * (cos, sin)) of the class's direction as shifts of
     the edge-padded depth image, and keep the arc on the pixels of that
     class. The sample placement differs from the reference's fractional
-    steps (gtao_main_exact). Returns (H/2, W/2) raw AO."""
+    steps (gtao_main_exact). Returns (H/2, W/2) raw AO (band mode: the
+    band's rows, each shift reading the padded frame's rows around it,
+    vkr_tpu gtao.py:265)."""
     H, W = depth_half.shape
     dev = depth_half.device
-    uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
-                                                   params)
-    cls_img = gtao_direction_pattern(H, W, dev)
+    uv, camera_pos, w0, cam_n, radius_px, depth_c = _common(
+        depth_half, normal_half, params, row0, band_h)
+    h = depth_c.shape[0]
+    r0 = row0 or 0
+    cls_img = gtao_direction_pattern(h, W, dev, r0)
     size = torch.tensor([W, H], dtype=torch.float32, device=dev)
     pad = N_STEPS
     dep_pad = torch.nn.functional.pad(depth_half[None, None],
                                       (pad, pad, pad, pad),
                                       mode="replicate")[0, 0]
+    dep_pad = dep_pad[r0:r0 + h + 2 * pad]
 
     f32 = np.float32
-    total = torch.zeros_like(depth_half)
+    total = torch.zeros_like(depth_c)
     for d in range(dirs_count):
-        ao_d = torch.zeros_like(depth_half)
+        ao_d = torch.zeros_like(depth_c)
         for c in range(N_CLASSES):
             # the class's angle in float32, on the host: its integer
             # offsets index the padded image
@@ -233,17 +257,17 @@ def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
                                      + f32(d / dirs_count))
             ca, sa = np.cos(angle), np.sin(angle)
             dir_uv = radius_px[..., None] * torch.stack(
-                [torch.full_like(depth_half, float(ca)),
-                 torch.full_like(depth_half, float(sa))], -1) / size
-            n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n,
+                [torch.full_like(depth_c, float(ca)),
+                 torch.full_like(depth_c, float(sa))], -1) / size
+            n_proj_len, n_angle = _arc_terms(uv, depth_c, w0, cam_n,
                                              dir_uv, params)
-            h_cos = torch.full_like(depth_half, -1.0)
+            h_cos = torch.full_like(depth_c, -1.0)
             prev_z = camera_pos[..., 2]
-            alive = torch.ones_like(depth_half, dtype=torch.bool)
+            alive = torch.ones_like(depth_c, dtype=torch.bool)
             for j in range(1, N_STEPS + 1):
                 ox = int(np.round(f32(j) * ca))
                 oy = int(np.round(f32(j) * sa))
-                sd = dep_pad[pad + oy: pad + oy + H, pad + ox: pad + ox + W]
+                sd = dep_pad[pad + oy: pad + oy + h, pad + ox: pad + ox + W]
                 shift = np.array([ox, oy], f32) / np.array([W, H], f32)
                 tc = torch.stack([uv[..., 0] + float(shift[0]),
                                   uv[..., 1] + float(shift[1])], -1)
@@ -263,7 +287,7 @@ def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
         total = total + ao_d
 
     ao = 2.0 * total / dirs_count
-    return torch.where(depth_half >= 1.0, 0.0, ao)
+    return torch.where(depth_c >= 1.0, 0.0, ao)
 
 
 def ao_ray_directions(count: int = 64, seed: int = 7):
@@ -287,29 +311,33 @@ def ao_ray_directions(count: int = 64, seed: int = 7):
 @register("gtao_rt_main")  # manifest name (config.json: gtao/rt_main_frag)
 def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
             znear, zfar, rotation: float, directions, rt_radius: float = 0.2,
-            max_steps: int = 12, dir_chunk: int = 8):
+            max_steps: int = 12, dir_chunk: int = 8,
+            row0: "int | None" = None, band_h: "int | None" = None):
     """Ray-traced GTAO (shaders/gtao/rt_main.frag): per half-res pixel,
     trace the fixed hemisphere direction set, turned into the surface's
     frame by the per-pixel dither angle plus the per-frame rotation,
     against the scene grid (scene.accel.TriGrid, the TLAS analog);
     AO = 2 * mean(visibility * NdotL). directions: (N, 3) tensor from
     ao_ray_directions. The rays of dir_chunk directions at a time go
-    through ray_any_hit(max_steps=12). Returns (H/2, W/2) raw AO."""
+    through ray_any_hit(max_steps=12). Returns (H/2, W/2) raw AO (band
+    mode: the rows [row0, row0 + band_h), vkr_tpu gtao.py:373)."""
     H, W = depth_half.shape
+    h = H if row0 is None else band_h
     dev = depth_half.device
-    uv = screen_uv_grid(H, W, dev)
-    view_vec = reconstruct_view_vec(uv, depth_half, fovy, aspect, znear,
+    depth_c = band_slice(depth_half, row0, h)
+    uv = screen_uv_grid(h, W, dev, row0=row0 or 0, full_height=H)
+    view_vec = reconstruct_view_vec(uv, depth_c, fovy, aspect, znear,
                                     zfar)
     c2w = camera_to_world
     world_pos = view_vec @ c2w[:3, :3].T + c2w[:3, 3]
-    n = decode_normal(normal_half)
+    n = decode_normal(band_slice(normal_half, row0, h))
     world_pos = world_pos + 1e-6 * n
 
     # tangent frame and per-pixel dither rotation (rt_main.frag:47-86)
     t = _unit(_tangent(n))
     b = _unit(_accel.cross(n, t))
     t = _accel.cross(b, n)
-    cls = gtao_direction_pattern(H, W, dev).float() / 16.0
+    cls = gtao_direction_pattern(h, W, dev, row0 or 0).float() / 16.0
     angle = 2.0 * PI * (rotation + cls)
     t = _unit(torch.cos(angle)[..., None] * t
               + torch.sin(angle)[..., None] * b)
@@ -317,7 +345,7 @@ def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
     t = _unit(_accel.cross(b, n))
 
     n_dirs = directions.shape[0]
-    total = torch.zeros_like(depth_half)
+    total = torch.zeros_like(depth_c)
     for c0 in range(0, n_dirs, dir_chunk):
         d_loc = _unit(directions[c0: c0 + dir_chunk])  # (C, 3)
         # local -> world per pixel: (H, W, C, 3)
@@ -330,7 +358,7 @@ def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
         total = total + torch.where(hit, 0.0, ndl).sum(-1)
 
     ao = 2.0 * total / n_dirs
-    return torch.where(depth_half >= 1.0, 0.0, ao)
+    return torch.where(depth_c >= 1.0, 0.0, ao)
 
 
 def _sum3(v):
@@ -408,7 +436,8 @@ def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
 def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
                   params: GTAOParams, base_angle: float,
                   weight_ratio: float = 1.0, reflections_only: bool = False,
-                  use_kernel: bool = True):
+                  use_kernel: bool = True, row0: "int | None" = None,
+                  band_h: "int | None" = None):
     """main.comp mis_gtao (219-274): MIS-combine one uniform-direction GTAO
     arc with the SSR trace's GGX-importance occlusion estimate
     (ssr_occlusion (h, w, 2) = (sum, pdf), ssr.ssr_trace's second output).
@@ -419,37 +448,42 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     +-radius clamp never binds and this equals vkr_tpu's bilinear_sample
     loop (use_kernel=False) up to rounding. material: FULL-res G-buffer
     material (roughness in .g) or an already-half-res (h, w, C) tensor.
-    Returns (h, w) raw AO."""
+    Returns (h, w) raw AO. row0/band_h (band mode, vkr_tpu gtao.py:537):
+    the rows [row0, row0 + band_h), from the whole depth, normals and SSR
+    occlusion."""
     from vkr_tpu_torch.passes.sampling import downsample_full_to_half
     from vkr_tpu_torch.passes.ssr import sample_ggx_dir_pdf
 
     H, W = depth_half.shape
-    uv, camera_pos, w0, cam_n, radius_px = _common(depth_half, normal_half,
-                                                   params)
-    cls = gtao_direction_pattern(H, W, depth_half.device).float() / 16.0
+    uv, camera_pos, w0, cam_n, radius_px, depth_c = _common(
+        depth_half, normal_half, params, row0, band_h)
+    h = depth_c.shape[0]
+    cls = gtao_direction_pattern(h, W, depth_half.device,
+                                 row0 or 0).float() / 16.0
     size = torch.tensor([W, H], dtype=torch.float32,
                         device=depth_half.device)
     angle = 2.0 * PI * (cls + base_angle)
     dir_uv = radius_px[..., None] * torch.stack(
         [torch.cos(angle), torch.sin(angle)], -1) / size
 
-    sample_end = reconstruct_view_vec(uv + dir_uv, depth_half, params.fovy,
+    sample_end = reconstruct_view_vec(uv + dir_uv, depth_c, params.fovy,
                                       params.aspect, params.znear,
                                       params.zfar)
     ldir = sample_end - camera_pos
     ldir = ldir / _norm(ldir, True).clamp(min=1e-20)
-    n_proj_len, n_angle = _arc_terms(uv, depth_half, w0, cam_n, dir_uv,
+    n_proj_len, n_angle = _arc_terms(uv, depth_c, w0, cam_n, dir_uv,
                                      params)
 
     h_cos = _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel, row0=row0 or 0)
     occlusion = (1.0 / PI) * _arc_integral(h_cos, n_proj_len, n_angle)
 
     # roughness = texture(gbuffer_material, screen_uv).g: half-res pixel
     # centres land between full-res texels, so bilinear = the 2x2 mean
-    rough_half = (material[..., 1] if material.shape[:2] == (H, W)
-                  else downsample_full_to_half(material[..., 1]))
-    ao = ssr_occlusion
+    rough_half = band_slice(
+        material[..., 1] if material.shape[:2] == (H, W)
+        else downsample_full_to_half(material[..., 1]), row0, h)
+    ao = band_slice(ssr_occlusion, row0, h)
     pdf_ggx = sample_ggx_dir_pdf(pdf_lut, w0, cam_n, ldir,
                                  rough_half * rough_half)
     pdf_uniform = 1.0 / (2.0 * PI)
@@ -458,7 +492,7 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
         res = ao[..., 0] / torch.where(ao[..., 1].abs() < 1e-20, 1e-20,
                                        ao[..., 1])
         res = torch.where(torch.isnan(res), 1.0, res)
-        return torch.where(depth_half >= 1.0, 0.0, res)
+        return torch.where(depth_c >= 1.0, 0.0, res)
 
     alpha = 1.0 / (weight_ratio + 1.0)
     beta = 1.0 - alpha
@@ -467,7 +501,7 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     mis_ao = ao[..., 0] * mw1 + occlusion * mw2
     mis_ao = torch.where(torch.isnan(mis_ao), occlusion / pdf_uniform,
                          mis_ao)
-    return torch.where(depth_half >= 1.0, 0.0, mis_ao)
+    return torch.where(depth_c >= 1.0, 0.0, mis_ao)
 
 
 @register("gtao_reproject")
@@ -557,17 +591,27 @@ def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
 
 
 @register("gtao_filter")
-def gtao_filter(depth_half, raw_ao, znear: float, zfar: float):
+def gtao_filter(depth_half, raw_ao, znear: float, zfar: float,
+                row0: "int | None" = None, band_h: "int | None" = None):
     """4x4 depth-bilateral average (filter.comp:32-50): offsets -2..+1,
-    weight = max(0, 1 - 5|zs - z| / |z|), edge-clamped taps."""
-    h, w = depth_half.shape
-    z = linearize_depth(depth_half, znear, zfar)
-    pad_d = torch.nn.functional.pad(depth_half[None, None], (2, 2, 2, 2),
-                                    mode="replicate")[0, 0]
-    pad_ao = torch.nn.functional.pad(raw_ao[None, None], (2, 2, 2, 2),
-                                     mode="replicate")[0, 0]
-    weight_sum = torch.zeros_like(depth_half)
-    ao = torch.zeros_like(depth_half)
+    weight = max(0, 1 - 5|zs - z| / |z|), edge-clamped taps. row0/band_h
+    (band mode, vkr_tpu gtao.py:767): the rows [row0, row0 + band_h) from
+    the whole depth and raw AO, a 2-row halo replicating the frame's
+    edges."""
+    H, w = depth_half.shape
+    h = H if row0 is None else band_h
+    r0 = row0 or 0
+    depth_c = band_slice(depth_half, row0, h)
+    z = linearize_depth(depth_c, znear, zfar)
+
+    def halo(a):
+        return torch.nn.functional.pad(a[None, None], (2, 2, 2, 2),
+                                       mode="replicate")[0, 0][r0:r0 + h + 4]
+
+    pad_d = halo(depth_half)
+    pad_ao = halo(raw_ao)
+    weight_sum = torch.zeros_like(depth_c)
+    ao = torch.zeros_like(depth_c)
     for dx in range(-2, 2):
         for dy in range(-2, 2):
             zs = linearize_depth(
@@ -591,23 +635,31 @@ class GTAOAccumParams(NamedTuple):
 @register("gtao_accumulate")
 def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
                     history, params: GTAOAccumParams, clear_history: bool,
-                    use_kernel_gather: bool = True):
+                    use_kernel_gather: bool = True,
+                    row0: "int | None" = None, band_h: "int | None" = None):
     """Temporal accumulation (accum.comp): velocity reprojection validated
     by world-space reconstruction; running mean with sample count in .y.
     Both reprojections go through K5, or its plain version with
     use_kernel_gather=False.
 
-    history: (h, w, 2) = (ao, samples/255). Returns the same shape."""
-    h, w = depth_half.shape
-    uv = screen_uv_grid(h, w, depth_half.device)
-    ts = torch.tensor([w, h], dtype=torch.float32, device=depth_half.device)
-    velocity = velocity_half
+    history: (h, w, 2) = (ao, samples/255). Returns the same shape.
+    row0/band_h (band mode, vkr_tpu gtao.py:821): the rows [row0, row0 +
+    band_h) from whole-frame inputs. The velocity's pixel length scales by
+    the frame's height; vkr_tpu's band form takes the band's height there
+    (gtao.py:886-887, ROADMAP queue 3)."""
+    H, w = depth_half.shape
+    h = H if row0 is None else band_h
+    r0 = row0 or 0
+    uv = screen_uv_grid(h, w, depth_half.device, row0=r0, full_height=H)
+    ts = torch.tensor([w, H], dtype=torch.float32, device=depth_half.device)
+    depth_c = band_slice(depth_half, row0, h)
+    velocity = band_slice(velocity_half, row0, h)
     prev_uv = uv + velocity
     in_bounds = ((prev_uv[..., 0] >= 0.0) & (prev_uv[..., 0] <= 1.0)
                  & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0))
 
     d_prev = reproject_bilinear(prev_depth_half, velocity,
-                                use_kernel=use_kernel_gather)
+                                use_kernel=use_kernel_gather, row0=r0)
     v_cam = reconstruct_view_vec(prev_uv, d_prev, params.fovy, params.aspect,
                                  params.znear, params.zfar)
     m = params.prev_inverse_camera
@@ -620,12 +672,12 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     prev_world_uv = 0.5 * prev_ndc[..., :2] + 0.5
     delta = (prev_world_uv - uv).abs() * ts
 
-    cur_z = linearize_depth(depth_half, params.znear, params.zfar)
+    cur_z = linearize_depth(depth_c, params.znear, params.zfar)
     prev_z = linearize_depth(prev_ndc[..., 2], params.znear, params.zfar)
     depth_err = (prev_z - cur_z).abs()
 
     vel_delta = torch.maximum(velocity[..., 0].abs() * w,
-                              velocity[..., 1].abs() * h)
+                              velocity[..., 1].abs() * H)
     error = 0.1 * vel_delta + depth_err
     valid_samples = (1.0 - error).clamp(0.8, 1.0)
     reprojected = (in_bounds
@@ -635,7 +687,8 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
         reprojected = torch.zeros_like(reprojected)
 
     accumulated = reproject_bilinear(history, velocity,
-                                     use_kernel=use_kernel_gather)
+                                     use_kernel=use_kernel_gather, row0=r0)
+    filtered_ao = band_slice(filtered_ao, row0, h)
     samples = 255.0 * accumulated[..., 1] * valid_samples
     acc_ao = (accumulated[..., 0] * samples + filtered_ao) / (samples + 1.0)
     samples_next = samples + 1.0

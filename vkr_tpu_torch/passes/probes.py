@@ -37,7 +37,8 @@ from vkr_tpu_torch.mathlib.octahedral import (decode_normal, oct_decode_dir,
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
 from vkr_tpu_torch.mathlib.transforms import look_at, perspective
 from vkr_tpu_torch.passes.gbuffer import SceneDevice, render_gbuffer
-from vkr_tpu_torch.passes.sampling import bilinear_sample, screen_uv_grid
+from vkr_tpu_torch.passes.sampling import (band_slice, bilinear_sample,
+                                          screen_uv_grid)
 
 ZNEAR = 0.05   # cube2oct/shader.comp:10
 ZFAR = 80.0
@@ -386,14 +387,19 @@ def _segments(origin, inv_dir, tmin, tmax):
 
 @register("trace_probe")
 def probe_trace(depth, normal_oct, grid: ProbeGrid, inverse_view, fovy,
-                aspect, znear, zfar):
+                aspect, znear, zfar, row0: "int | None" = None,
+                band_h: "int | None" = None):
     """ProbeTracePass: per-pixel probe-grid reflection
     (trace_probe/shader.comp main + trace over neighbor probes). depth
     (H, W), normal_oct (H, W, 2), inverse_view (4, 4). Returns (H, W, 4):
-    probe colour and 1 where a probe hit, else 0."""
-    h, w = depth.shape
+    probe colour and 1 where a probe hit, else 0. row0/band_h (band mode,
+    vkr_tpu probes.py:382): the rows [row0, row0 + band_h) only."""
+    H, w = depth.shape
+    h = H if row0 is None else band_h
+    depth = band_slice(depth, row0, h)
+    normal_oct = band_slice(normal_oct, row0, h)
     dev = depth.device
-    uv = screen_uv_grid(h, w, dev)
+    uv = screen_uv_grid(h, w, dev, row0=row0 or 0, full_height=H)
     view_vec = reconstruct_view_vec(uv, depth, fovy, aspect, znear, zfar)
     inv = inverse_view
     n = decode_normal(normal_oct)

@@ -138,12 +138,15 @@ def bilinear_from_quad(qimg, channels: int, uv):
 
 
 def reproject_bilinear(img, uv_offset, *, radius: int = 16,
-                       texel_offset=None, use_kernel: bool = True):
+                       texel_offset=None, use_kernel: bool = True,
+                       row0: int = 0):
     """Bilinear sample at (pixel uv + uv_offset), the reprojection pattern
     of TAA / temporal accumulation, through the window-gather kernel (K5):
     offsets clamped to +-radius px. texel_offset: optional (dx, dy)
     constant texel offset (textureOffset analog). use_kernel=False takes
-    K5's plain version on any device (vkr_tpu's use_kernel=False)."""
+    K5's plain version on any device (vkr_tpu's use_kernel=False).
+    row0 (band mode, vkr_tpu sampling.py:212-240): uv_offset covers rows
+    [row0, row0 + bh) of the whole img."""
     h, w = img.shape[:2]
     off_x = uv_offset[..., 0] * w
     off_y = uv_offset[..., 1] * h
@@ -152,14 +155,24 @@ def reproject_bilinear(img, uv_offset, *, radius: int = 16,
         off_y = off_y + texel_offset[1]
     gather = (_gather.window_gather_bilinear if use_kernel
               else _gather.window_gather_reference)
-    return gather(img.contiguous(), off_y, off_x, radius=radius)
+    return gather(img.contiguous(), off_y, off_x, radius=radius, row0=row0)
 
 
-def screen_uv_grid(height: int, width: int, device):
+def band_slice(a, row0, band_h):
+    """Rows [row0, row0 + band_h) of a, the band of band mode; all of a
+    when row0 is None (the whole frame)."""
+    return a if row0 is None else a[row0:row0 + band_h]
+
+
+def screen_uv_grid(height: int, width: int, device, row0: int = 0,
+                   full_height: "int | None" = None):
     """Per-pixel uv at pixel centers — the fullscreen-triangle varying
-    (screen_uv in the deferred shaders). (H, W, 2)."""
+    (screen_uv in the deferred shaders). (H, W, 2). row0/full_height (band
+    mode, vkr_tpu sampling.py:243-255): rows [row0, row0 + height) of a
+    full_height-tall frame."""
     f32 = dict(dtype=torch.float32, device=device)
     u = (torch.arange(width, **f32) + 0.5) / width
-    v = (torch.arange(height, **f32) + 0.5) / height
+    v = (torch.arange(row0, row0 + height, **f32) + 0.5) / (full_height
+                                                           or height)
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     return torch.stack([uu, vv], dim=-1)

@@ -25,6 +25,7 @@ from vkr_tpu_torch.mathlib.brdf import (
 from vkr_tpu_torch.mathlib.octahedral import decode_normal
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
 from vkr_tpu_torch.passes.sampling import (
+    band_slice,
     bilinear_from_quad,
     quad_pack,
     screen_uv_grid,
@@ -50,16 +51,43 @@ def _norm(v, keepdim=False):
     return torch.linalg.vector_norm(v, dim=-1, keepdim=keepdim)
 
 
-def sample_occlusion_ssr(depth_full, depth_half, occlusion, reflections):
+def sample_occlusion_ssr(depth_full, depth_half, occlusion, reflections,
+                         row0: "int | None" = None):
     """Depth-aware 4-tap half-res upsample (shader.frag:104-129): pick the
     half-res texel (of 4 neighbors) whose depth best matches full-res; the
     first of equal candidates wins. The taps are regular-grid, so they run
-    as dense 2x upsampling."""
+    as dense 2x upsampling.
+
+    row0 (band mode, full-res rows, even; vkr_tpu shading.py:45):
+    depth_full covers only the band; the half-res inputs stay whole and are
+    cut to the band with a 2-row halo, so the upsample's phases and edge
+    clamps are the full frame's."""
+    if row0 is None:
+        def cut(a):
+            return a
+    else:
+        bhf = depth_full.shape[0]
+        h = depth_half.shape[0]
+
+        def half_halo(a):
+            # half-res rows [row0/2 - 2, row0/2 + bhf/2 + 2), the frame's
+            # edges replicated
+            idx = (torch.arange(row0 // 2 - 2, row0 // 2 + bhf // 2 + 2,
+                                device=a.device)).clamp(0, h - 1)
+            return a.index_select(0, idx)
+
+        depth_half, occlusion, reflections = (
+            half_halo(a) for a in (depth_half, occlusion, reflections))
+
+        def cut(a):
+            # upsampled rows [4, 4 + bhf) are the band
+            return a[4:4 + bhf]
     best_delta = best_occ = best_refl = None
     for off in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        delta = (upsample_half_bilinear(depth_half, off) - depth_full).abs()
-        occ = upsample_half_bilinear(occlusion, off)
-        refl = upsample_half_bilinear(reflections, off)
+        delta = (cut(upsample_half_bilinear(depth_half, off))
+                 - depth_full).abs()
+        occ = cut(upsample_half_bilinear(occlusion, off))
+        refl = cut(upsample_half_bilinear(reflections, off))
         if best_delta is None:
             best_delta, best_occ, best_refl = delta, occ, refl
             continue
@@ -73,18 +101,24 @@ def sample_occlusion_ssr(depth_full, depth_half, occlusion, reflections):
 
 @register("defered_shading")
 def deferred_shading(gbuffer, params: ShadingParams, occlusion, reflections,
-                     brdf_lut, depth_half):
+                     brdf_lut, depth_half, row0: "int | None" = None,
+                     band_h: "int | None" = None):
     """gbuffer: GBuffer; occlusion (H/2, W/2); reflections (H/2, W/2, 3);
-    brdf_lut (S, S, 2); depth_half (H/2, W/2). Returns (H, W, 3)."""
-    h, w = gbuffer.depth.shape
-    uv = screen_uv_grid(h, w, gbuffer.depth.device)
-    normal = decode_normal(gbuffer.normal)
-    albedo = gbuffer.albedo[..., :3]
-    material = gbuffer.material
-    depth = gbuffer.depth
+    brdf_lut (S, S, 2); depth_half (H/2, W/2). Returns (H, W, 3).
+    row0/band_h (band mode, full-res rows, even; vkr_tpu shading.py:103):
+    the rows [row0, row0 + band_h) from the whole G-buffer."""
+    H, w = gbuffer.depth.shape
+    h = H if row0 is None else band_h
+    uv = screen_uv_grid(h, w, gbuffer.depth.device, row0=row0 or 0,
+                        full_height=H)
+    normal_oct, albedo, material, depth = (
+        band_slice(a, row0, h) for a in (gbuffer.normal, gbuffer.albedo,
+                                         gbuffer.material, gbuffer.depth))
+    normal = decode_normal(normal_oct)
+    albedo = albedo[..., :3]
 
     occ, refl = sample_occlusion_ssr(depth, depth_half, occlusion,
-                                     reflections)
+                                     reflections, row0)
 
     view_vec = reconstruct_view_vec(uv, depth, params.fovy, params.aspect,
                                     params.znear, params.zfar)

@@ -12,7 +12,11 @@ preintegrate,preintegrate_ssr}.comp; vkr_tpu/passes/ssr.py. Chain
   blur   — roughness-adaptive gaussian with depth/normal bilateral weights
            + velocity-validated history reprojection (0.1 blend, K5)
 
-Band mode (row0/band_h, vkr_tpu's parallel/band.py) is not ported.
+Band mode (row0/band_h, parallel/band.py): each pass computes only the
+half-res rows [row0, row0 + band_h) from full-frame inputs, bit for bit
+those rows of its full call. The trace's Halton and rand() rows, the
+filter's uv and the blur's reprojection take global rows; the filter's
+and the blur's halos replicate the frame's edges, not the band's.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from vkr_tpu_torch.mathlib.projection import (
     reconstruct_view_vec,
 )
 from vkr_tpu_torch.passes.sampling import (
+    band_slice,
     bilinear_from_quad,
     downsample_full_to_half,
     downsample_full_to_half_corner,
@@ -262,32 +267,40 @@ def _reflection_ray_setup(uv, pixel_depth, normal_half, roughness, params,
 @register("sssr_trace")
 def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
               params: SSRParams, frame_random: int, halton,
-              max_iterations: int = 80, use_kernel: bool = True):
+              max_iterations: int = 80, use_kernel: bool = True,
+              row0: "int | None" = None, band_h: "int | None" = None):
     """trace.comp main(): returns (ray_info (h, w, 4) = hit uvz + src depth
     [1.0 = invalid], occlusion (h, w, 2) = AO estimate + pdf).
 
     The march is ssr_march.hierarchical_march: the CUDA kernel on a CUDA
     tensor, its plain version on a CPU tensor or with use_kernel=False.
     Unlike vkr_tpu's Pallas march it drops no ray (no compaction, no
-    phase-A shell retire)."""
+    phase-A shell retire).
+
+    row0/band_h (band mode, vkr_tpu ssr.py:277): trace only the rows
+    [row0, row0 + band_h); the pyramid, normals and material stay whole
+    (the march and the hit validation fetch anywhere)."""
     from vkr_tpu_torch.passes import ssr_march
 
     march = (ssr_march.hierarchical_march if use_kernel
              else ssr_march.hierarchical_march_reference)
 
     h, w = hiz.heights[0], hiz.widths[0]
+    bh = h if row0 is None else band_h
     dev = hiz.flat.device
-    uv = screen_uv_grid(h, w, dev)
+    uv = screen_uv_grid(bh, w, dev, row0=row0 or 0, full_height=h)
     size = torch.tensor([w, h], dtype=torch.float32, device=dev)
-    pixel_depth = hiz.flat[: h * w].reshape(h, w)
+    depth_full = hiz.flat[: h * w].reshape(h, w)
+    pixel_depth = band_slice(depth_full, row0, bh)
 
-    material = downsample_full_to_half(material_full)[:h, :w]
+    material = band_slice(downsample_full_to_half(material_full)[:h, :w],
+                          row0, bh)
     biased = params.max_roughness * material[..., 1]
     roughness = biased * biased  # alpha
 
     view_vec, w0, n, r, ray_start, ray_dir = _reflection_ray_setup(
-        uv, pixel_depth, normal_half, roughness, params, frame_random,
-        halton)
+        uv, pixel_depth, band_slice(normal_half, row0, bh), roughness, params,
+        frame_random, halton)
     position, hor, iters = march(
         hiz, ray_start, ray_dir, view_vec, w0, params, max_iterations)
     valid_hit = iters <= max_iterations
@@ -303,7 +316,7 @@ def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
                               | ((n * r).sum(-1) < 0))
 
     # textureLod(DEPTH, xy, 0) = bilinear on the half-res base mip
-    hit_depth = bilinear_from_quad(quad_pack(pixel_depth), 1,
+    hit_depth = bilinear_from_quad(quad_pack(depth_full), 1,
                                    position[..., :2])[..., 0]
     hit_z = linearize_depth(hit_depth, params.znear, params.zfar)
     ray_z = linearize_depth(position[..., 2], params.znear, params.zfar)
@@ -341,11 +354,6 @@ def _pad_edge(a, dim: int, pad: int):
     return a.index_select(dim, idx)
 
 
-def _pad_edge2(a, pad: int):
-    """Edge padding of the two leading (row, column) dims."""
-    return _pad_edge(_pad_edge(a, 0, pad), 1, pad)
-
-
 def _ray_weight(n, v, l, f0, roughness):
     """filter.comp ray_weight: F * G2 / G1 (note the reference passes
     (NdotL, NdotV) into brdfG2's (NdotV, NdotL) slots — kept)."""
@@ -363,38 +371,56 @@ def _ray_weight(n, v, l, f0, roughness):
 @register("sssr_filter")
 def ssr_filter(rays, depth_half, albedo_full, normal_half, material_full,
                params: SSRParams, flags_normalize: bool = True,
-               flags_bilateral: bool = True):
+               flags_bilateral: bool = True, row0: "int | None" = None,
+               band_h: "int | None" = None):
     """filter.comp: 5-tap cross resolve, BRDF-weighted. Returns (h, w, 3).
 
     Each tap samples radiance at the NEIGHBOR ray's hit uv, which is the
     value the center tap computes at that neighbor pixel: the radiance is
-    gathered once per pixel and shifted, as vkr_tpu does."""
-    h, w = depth_half.shape
+    gathered once per pixel and shifted, as vkr_tpu does.
+
+    row0/band_h (band mode, vkr_tpu ssr.py:647): rows [row0, row0 +
+    band_h) from the whole frame's rays and planes, with a one-row halo
+    that replicates the frame's edges (ssr.py:700-705). The cross's uv
+    step is one row of the frame, 1/H; vkr_tpu's band form divides by the
+    band's height there (ssr.py:735), which changes every tap's view
+    vector (ROADMAP queue 3)."""
+    H, w = depth_half.shape
+    h = H if row0 is None else band_h
+    r0 = row0 or 0
     dev = depth_half.device
     f32 = dict(dtype=torch.float32, device=dev)
     # NOTE: filter.comp uses uv = pixel/tex_size (no half-texel!)
-    vv, uu = torch.meshgrid(torch.arange(h, **f32) / h,
+    vv, uu = torch.meshgrid(torch.arange(r0, r0 + h, **f32) / H,
                             torch.arange(w, **f32) / w, indexing="ij")
     uv = torch.stack([uu, vv], dim=-1)
 
-    material = downsample_full_to_half_corner(material_full)[:h, :w]
+    material = band_slice(
+        downsample_full_to_half_corner(material_full)[:H, :w], row0, h)
     metallic = material[..., 2]
     roughness = material[..., 1]
-    albedo = downsample_full_to_half_corner(albedo_full[..., :3])[:h, :w]
+    albedo = band_slice(
+        downsample_full_to_half_corner(albedo_full[..., :3])[:H, :w], row0,
+        h)
     f0 = f0_approximation(albedo, metallic)
     nm = params.normal_mat
-    center_depth = depth_half
+    center_depth = band_slice(depth_half, row0, h)
 
     pad = 1
-    rays_h = _pad_edge(rays, 0, pad)
+
+    def halo_rows(a):
+        # rows [r0 - pad, r0 + h + pad), the frame's edges replicated
+        return _pad_edge(a, 0, pad)[r0:r0 + h + 2 * pad]
+
+    rays_h = halo_rows(rays)
     radiance_h = torch.where(
         (rays_h[..., 3] != 1.0)[..., None],
         bilinear_from_quad(quad_pack(albedo_full[..., :3]), 3,
                            rays_h[..., :2]), 0.0)
     rays_p = _pad_edge(rays_h, 1, pad)
     rad_p = _pad_edge(radiance_h, 1, pad)
-    depth_p = _pad_edge2(depth_half, pad)
-    normal_p = _pad_edge2(normal_half, pad)
+    depth_p = _pad_edge(halo_rows(depth_half), 1, pad)
+    normal_p = _pad_edge(halo_rows(normal_half), 1, pad)
 
     color_sum = torch.zeros((h, w, 3), **f32)
     weight_sum = torch.zeros((h, w, 3), **f32)
@@ -405,7 +431,7 @@ def ssr_filter(rays, depth_half, albedo_full, normal_half, material_full,
         cols = slice(pad + dx, pad + dx + w)
         tr = rays_p[rows, cols]
         p_depth = depth_p[rows, cols]
-        p_uv = uv + torch.tensor([dx / w, dy / h], **f32)
+        p_uv = uv + torch.tensor([dx / w, dy / H], **f32)
         view_vec = reconstruct_view_vec(p_uv, p_depth, params.fovy,
                                         params.aspect, params.znear,
                                         params.zfar)
@@ -448,7 +474,8 @@ MAX_BLUR_RADIUS = 11  # sigma <= 4 -> r = floor(12 - eps)
 @register("sssr_blur")
 def ssr_blur(reflections, depth_half, normal_half, material_full, history,
              velocity_half, prev_depth_half, params: SSRBlurParams,
-             use_kernel_gather: bool = True):
+             use_kernel_gather: bool = True, row0: "int | None" = None,
+             band_h: "int | None" = None):
     """blur.comp: per-pixel roughness-adaptive gaussian (sigma in
     [0.4, 4]) with depth/normal bilateral weights, then velocity-validated
     history blend (0.1). Returns (h, w, 3). The reprojections go through
@@ -460,30 +487,44 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
     here each row's 23 taps are summed first, then added to the running
     sum. The colour therefore differs from vkr_tpu's by float32
     reassociation only: a few ulps of the weight sum, under 1e-5 on
-    colours in [0, 1] (tests/test_torch_ssr.py holds it there)."""
-    h, w = depth_half.shape
-    dev = depth_half.device
-    uv = screen_uv_grid(h, w, dev)
+    colours in [0, 1] (tests/test_torch_ssr.py holds it there).
 
-    roughness = downsample_full_to_half(material_full[..., 1])[:h, :w]
+    row0/band_h (band mode, vkr_tpu ssr.py:786): rows [row0, row0 +
+    band_h) from whole-frame inputs, with a MAX_BLUR_RADIUS halo that
+    replicates the frame's edges; the reprojection reads the whole
+    previous depth (K5 with row0)."""
+    H, w = depth_half.shape
+    h = H if row0 is None else band_h
+    r0 = row0 or 0
+    dev = depth_half.device
+    uv = screen_uv_grid(h, w, dev, row0=r0, full_height=H)
+
+    roughness = band_slice(
+        downsample_full_to_half(material_full[..., 1])[:H, :w], row0, h)
     roughness = params.max_roughness * roughness
     sigma = 0.4 + (4.0 - 0.4) * roughness
     if params.disable_blur:
         sigma = torch.full_like(sigma, 0.35)
     r_pix = torch.floor(3.0 * sigma - 0.01)
 
-    center_normal = decode_normal(normal_half)
+    center_normal = decode_normal(band_slice(normal_half, row0, h))
     # blur.comp's gaussian prefactor 1/(2 pi sigma^2) multiplies every
     # tap equally and cancels in color/weight_sum — not computed.
     e = 2.0 * sigma * sigma
 
     pad = MAX_BLUR_RADIUS
     side = 2 * pad + 1
-    refl_p = _pad_edge2(reflections, pad)
-    depth_p = _pad_edge2(depth_half, pad)
+
+    def halo(a):
+        # rows [r0 - pad, r0 + h + pad), columns padded, the frame's edges
+        # replicated
+        return _pad_edge(_pad_edge(a, 0, pad)[r0:r0 + h + 2 * pad], 1, pad)
+
+    refl_p = halo(reflections)
+    depth_p = halo(depth_half)
     # decode the octahedral normals once on the padded array, not per tap
-    normal_p = decode_normal(_pad_edge2(normal_half, pad))
-    depth_c = depth_half
+    normal_p = decode_normal(halo(normal_half))
+    depth_c = band_slice(depth_half, row0, h)
     depth_abs = depth_c.abs().clamp(min=1e-20)
     fi = torch.arange(-pad, pad + 1, dtype=torch.float32,
                       device=dev)[:, None, None]
@@ -513,7 +554,7 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
     color = color / torch.maximum(weight_sum, floor)[..., None]
 
     # history reprojection (blur.comp:82-106)
-    velocity = velocity_half
+    velocity = band_slice(velocity_half, row0, h)
     prev_uv = uv + velocity
     in_b = ((prev_uv[..., 0] >= 0) & (prev_uv[..., 0] <= 1)
             & (prev_uv[..., 1] >= 0) & (prev_uv[..., 1] <= 1))
@@ -525,7 +566,7 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
 
     w_cur = world(depth_c, params.inverse_camera, uv)
     w_prev = world(reproject_bilinear(prev_depth_half, velocity,
-                                      use_kernel=use_kernel_gather),
+                                      use_kernel=use_kernel_gather, row0=r0),
                    params.prev_inverse_camera, prev_uv)
     cam = params.inverse_camera[:3, 3]
     err = _norm(w_cur - w_prev)
@@ -537,5 +578,6 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
         reprojected = torch.zeros_like(reprojected)
 
     # NOTE: blur.comp samples HISTORY_TEX at screen_uv (not prev_uv)
+    history = band_slice(history, row0, h)
     return torch.where(reprojected[..., None],
                        history + (color - history) * 0.1, color)

@@ -16,7 +16,7 @@ import torch
 
 from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.projection import reconstruct_view_vec
-from vkr_tpu_torch.passes.sampling import screen_uv_grid
+from vkr_tpu_torch.passes.sampling import band_slice, screen_uv_grid
 from vkr_tpu_torch.raster import gather_kernel as _gather
 
 
@@ -32,13 +32,21 @@ class TAAParams(NamedTuple):
 @register("taa_resolve")
 def taa_resolve(history_color, history_depth, current_depth, velocity,
                 current_color, params: TAAParams,
-                use_kernel_gather: bool = True):
+                use_kernel_gather: bool = True, row0: "int | None" = None,
+                band_h: "int | None" = None):
     """history_color (H, W, 3), history_depth (H, W) previous frame depth,
     current_depth (H, W), velocity (H, W, 2), current_color (H, W, 3).
     Returns the resolved (H, W, 3). The six history taps are one K6 call,
-    or its plain version with use_kernel_gather=False."""
+    or its plain version with use_kernel_gather=False. row0/band_h (band
+    mode, vkr_tpu taa.py:33): the rows [row0, row0 + band_h) from
+    whole-frame inputs; K6 reads the whole history."""
     H, W = current_depth.shape
-    uv = screen_uv_grid(H, W, current_depth.device)
+    h = H if row0 is None else band_h
+    velocity, current_color, current_depth = (
+        band_slice(a, row0, h) for a in (velocity, current_color,
+                                         current_depth))
+    uv = screen_uv_grid(h, W, current_depth.device, row0=row0 or 0,
+                        full_height=H)
     delta_len = torch.linalg.vector_norm(velocity, dim=-1)
     prev_uv = uv + velocity
     in_bounds = ((prev_uv[..., 0] >= 0) & (prev_uv[..., 0] <= 1)
@@ -48,7 +56,7 @@ def taa_resolve(history_color, history_depth, current_depth, velocity,
               else _gather.taa_history_gather_reference)
     taps = gather(
         history_color.contiguous(), history_depth.contiguous(),
-        velocity[..., 1] * H, velocity[..., 0] * W)
+        velocity[..., 1] * H, velocity[..., 0] * W, row0=row0 or 0)
     history = taps[0:3].permute(1, 2, 0)
     c0, c1, c2, c3 = (taps[3 * k: 3 * k + 3].permute(1, 2, 0)
                       for k in range(1, 5))

@@ -55,13 +55,17 @@ def _peel_floor(peel_depth, hp, wp, device):
 
 
 def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
-               width: int, height: int, tile_h: int = 8, tile_w: int = 128):
+               width: int, height: int, tile_h: int = 8, tile_w: int = 128,
+               row_offset: int = 0):
     """Run the merged raster + resolve over binned pair segments.
 
     pair_rows: (n_pairs, 64) f32 (or vkr_tpu's (n_rows, 128) view of it);
     seg_starts/seg_counts: (n_tiles,) int32, tiles row-major;
     peel_depth: optional (height, width) f32 — only fragments strictly
     BEHIND it survive (the alpha-MASK depth-peel layer).
+    row_offset: the band's first pixel row in the full frame (band
+    viewports, vkr_tpu gbuf_kernel.py:150-182): the planes are evaluated at
+    rows row_offset + r, the outputs hold the band's rows.
 
     Returns (zbuf (H', W') f32, tri_id (H', W') int32,
     attrs (N_CHANNELS + 1, H', W') f32 = [uv(2), normal(3), prev_clip(4),
@@ -74,7 +78,8 @@ def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
     if rows.device.type == "cpu":
         return gbuf_tiles_reference(rows, seg_starts, seg_counts, peel_depth,
                                     width=width, height=height,
-                                    tile_h=tile_h, tile_w=tile_w)
+                                    tile_h=tile_h, tile_w=tile_w,
+                                    row_offset=row_offset)
     if not rows.is_cuda:
         raise ValueError(f"gbuf_tiles: unsupported device {rows.device}")
     n_tiles = tiles_x * tiles_y
@@ -107,7 +112,8 @@ def gbuf_tiles(pair_rows, seg_starts, seg_counts, peel_depth=None, *,
         rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
         None if peel is None else peel.data_ptr(),
         *((0, 0) if peel is None else peel.shape), tiles_x, tiles_y, tile_h,
-        tile_w, zbuf.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
+        tile_w, int(row_offset), zbuf.data_ptr(), tid.data_ptr(),
+        attrs.data_ptr(),
         keys.data_ptr(), table.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream)
     kernels.check(err, "gbuf_tiles")
@@ -134,10 +140,12 @@ def walk_scratch(rows, n_tiles: int, tile_h: int, tile_w: int, hp: int,
 
 
 def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,
-                   tile_h: int, tile_w: int, chunk_evals: int = 1 << 24):
+                   tile_h: int, tile_w: int, chunk_evals: int = 1 << 24,
+                   row_offset: int = 0):
     """The in-order LESS_OR_EQUAL walk of every tile's pair segment, shared
     by the plain versions of K1 and K7. rows (n_pairs, 64); peel (hp*wp,)
-    strict depth floor. Returns (zbuf (hp*wp,), winning pair row per pixel
+    strict depth floor; row_offset: the band's first row in the full frame,
+    added to the rows the planes are evaluated at. Returns (zbuf (hp*wp,), winning pair row per pixel
     (hp*wp,) int64, -1 = background).
 
     Instead of walking each segment in order, it uses what the in-order
@@ -157,6 +165,8 @@ def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,
     row_of = seg_starts.long()[tile_of] + (order - first[tile_of])
     ly = torch.arange(tile_h, device=dev).repeat_interleave(tile_w)
     lx = torch.arange(tile_w, device=dev).repeat(tile_h)
+    # the rows the planes are evaluated at: the band's, in the full frame
+    ly_frame = ly + row_offset
     step = max(1, chunk_evals // (tile_h * tile_w))
 
     def tests(lo, hi):
@@ -165,7 +175,7 @@ def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,
         gy = (t // tiles_x) * tile_h + ly
         pix = gy * wp + gx
         px = gx.float() + 0.5
-        py = gy.float() + 0.5
+        py = ((t // tiles_x) * tile_h + ly_frame).float() + 0.5
         r = rows[row_of[lo:hi]]
 
         def row_plane(ka, kb, kc):
@@ -195,7 +205,8 @@ def walk_reference(rows, seg_starts, seg_counts, peel, *, tiles_x: int,
 
 def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
                          *, width: int, height: int, tile_h: int = 8,
-                         tile_w: int = 128, chunk_evals: int = 1 << 24):
+                         tile_w: int = 128, chunk_evals: int = 1 << 24,
+                         row_offset: int = 0):
     """Plain version of gbuf_tiles (same arguments and results, any
     device): walk_reference, then the winner's resolve planes per pixel."""
     rows = pair_rows.reshape(-1, ROW_WIDTH)
@@ -204,7 +215,7 @@ def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
     peel = _peel_floor(peel_depth, hp, wp, dev).reshape(-1)
     zbuf, win = walk_reference(rows, seg_starts, seg_counts, peel,
                                tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
-                               chunk_evals=chunk_evals)
+                               chunk_evals=chunk_evals, row_offset=row_offset)
 
     has = win >= 0
     wrow = rows[win.clamp(min=0)] if rows.shape[0] else torch.zeros(
@@ -213,7 +224,8 @@ def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
     coef = torch.where(has[:, None], wrow[:, RESOLVE_BASE:_MATERIAL + 1],
                        background)
     tid = torch.where(has, wrow[:, _TRI_ID], -1.0).to(torch.int32)
-    gy, gx = torch.meshgrid(torch.arange(hp, device=dev),
+    gy, gx = torch.meshgrid(torch.arange(row_offset, row_offset + hp,
+                                         device=dev),
                             torch.arange(wp, device=dev), indexing="ij")
     px = gx.reshape(-1).float() + 0.5
     py = gy.reshape(-1).float() + 0.5

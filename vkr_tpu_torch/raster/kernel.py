@@ -27,12 +27,14 @@ from vkr_tpu_torch.raster.pair_rows import ROW_WIDTH
 
 
 def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
-                    height: int, tile_h: int = 8, tile_w: int = 128):
+                    height: int, tile_h: int = 8, tile_w: int = 128,
+                    row_offset: int = 0):
     """Run the visibility raster over binned pair segments.
 
     pair_rows: (n_pairs, 64) f32 (or vkr_tpu's (n_rows, 128) view of it);
     only the raster fields [0:13) are read. seg_starts/seg_counts:
-    (n_tiles,) int32, tiles row-major.
+    (n_tiles,) int32, tiles row-major. row_offset: the band's first pixel
+    row in the full frame (vkr_tpu kernel.py:149-168, yoff at :95).
 
     Returns (zbuf (H', W') f32, 1.0 clear; tri_id (H', W') int32, -1 none)
     on the tile-aligned grid; crop to (height, width).
@@ -44,7 +46,8 @@ def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
     if rows.device.type == "cpu":
         return rasterize_tiles_reference(rows, seg_starts, seg_counts,
                                          width=width, height=height,
-                                         tile_h=tile_h, tile_w=tile_w)
+                                         tile_h=tile_h, tile_w=tile_w,
+                                         row_offset=row_offset)
     if not rows.is_cuda:
         raise ValueError(f"rasterize_tiles: unsupported device {rows.device}")
     n_tiles = tiles_x * tiles_y
@@ -66,8 +69,8 @@ def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
                                "rasterize_tiles")
     err = kernels.library("gbuf_tiles").vkr_rasterize_tiles(
         rows.data_ptr(), seg_starts.data_ptr(), seg_counts.data_ptr(),
-        tiles_x, tiles_y, tile_h, tile_w, zbuf.data_ptr(), tid.data_ptr(),
-        keys.data_ptr(), table.data_ptr(),
+        tiles_x, tiles_y, tile_h, tile_w, int(row_offset), zbuf.data_ptr(),
+        tid.data_ptr(), keys.data_ptr(), table.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream)
     kernels.check(err, "rasterize_tiles")
     kernels.LAUNCHES["rasterize_tiles"] += 1
@@ -76,7 +79,8 @@ def rasterize_tiles(pair_rows, seg_starts, seg_counts, *, width: int,
 
 def rasterize_tiles_reference(pair_rows, seg_starts, seg_counts, *,
                               width: int, height: int, tile_h: int = 8,
-                              tile_w: int = 128, chunk_evals: int = 1 << 24):
+                              tile_w: int = 128, chunk_evals: int = 1 << 24,
+                              row_offset: int = 0):
     """Plain version of rasterize_tiles (same arguments and results, any
     device): gbuf_kernel.walk_reference without a peel floor."""
     rows = pair_rows.reshape(-1, ROW_WIDTH)
@@ -85,26 +89,28 @@ def rasterize_tiles_reference(pair_rows, seg_starts, seg_counts, *,
                          device=rows.device)
     zbuf, win = walk_reference(rows, seg_starts, seg_counts, no_peel,
                                tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
-                               chunk_evals=chunk_evals)
+                               chunk_evals=chunk_evals, row_offset=row_offset)
     won = rows[win.clamp(min=0), _TRI_ID] if rows.shape[0] else -1.0
     tid = torch.where(win >= 0, won, -1.0).to(torch.int32)
     return zbuf.reshape(hp, wp), tid.reshape(hp, wp)
 
 
 def rasterize_reference(setup, width: int, height: int, peel_depth=None,
-                        chunk_evals: int = 1 << 22):
+                        chunk_evals: int = 1 << 22, row_offset: int = 0):
     """Brute-force raster of a row-major setup.TriangleSetup (no binning):
     the oracle behind vkr_tpu's use_pallas=False. Every valid triangle's
     edge and depth planes (K1's fma form, gbuf_kernel.plane) over every
-    pixel centre, coverage 0 <= d <= 1 and d above the optional peel floor
-    (H, W), LESS_OR_EQUAL in triangle order: the winner is the nearest
+    pixel centre (rows row_offset + r: a band of the full frame, vkr_tpu
+    kernel.py:199-207), coverage 0 <= d <= 1 and d above the optional peel
+    floor (H, W), LESS_OR_EQUAL in triangle order: the winner is the nearest
     covering triangle, the later one on a tie. O(T * pixels), in chunks of
     about chunk_evals triangle-pixels: tests and small scenes.
 
     Returns (zbuf (H, W) f32, 1.0 clear; tri_id (H, W) int32, -1 none)."""
     dev = setup.a.device
     px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    py = torch.arange(row_offset, row_offset + height, dtype=torch.float32,
+                      device=dev)[:, None] + 0.5
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
     tid = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     peel = -1.0 if peel_depth is None else peel_depth

@@ -71,6 +71,8 @@ def rasterize(
     indices=None,
     vertex_attrs=None,
     oracle: bool = False,
+    full_height: Optional[int] = None,
+    y_offset: int = 0,
 ) -> VisibilityBuffer:
     """Rasterize T triangles given as pre-gathered corners, or indexed.
 
@@ -99,11 +101,17 @@ def rasterize(
     prepared: a prior VisibilityBuffer of the SAME geometry and camera,
     built with keep_prepared=True — skip the front end and rerun only K1
     (the peel pass differs from the first masked pass only in peel_depth).
+    full_height/y_offset: the band viewport (vkr_tpu pipeline.py:59-218):
+    rows [y_offset, y_offset + height) of a full_height-tall frame, bit for
+    bit those rows of the full frame (setup.triangle_setup_t).
     """
-    kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w)
+    kw = dict(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+              row_offset=y_offset)
+    band = dict(full_height=full_height, y_offset=y_offset)
     if corners_t is None and prepared is None:
         if oracle:
-            return _oracle(clip, indices, jitter, peel_depth, width, height)
+            return _oracle(clip, indices, jitter, peel_depth, width, height,
+                           band)
         corners_t = _setup.corner_table(clip, indices)
         if vertex_attrs is not None:
             corner_attrs_t = _setup.corner_table(vertex_attrs, indices)
@@ -126,7 +134,7 @@ def rasterize(
         tri2, weights_t, valid = _setup.clip_near_corners_t(corners_t, n_src)
         corners_c = _setup.corners_from_weights_t(tri2, weights_t)
         setup_t = _setup.triangle_setup_t(corners_c, valid, width, height,
-                                          jitter)
+                                          jitter, **band)
         pair_tri, seg_starts, seg_counts, overflow = _setup.bin_triangles_t(
             setup_t.bbox, setup_t.valid, width, height, tile_h, tile_w,
             None)
@@ -154,13 +162,15 @@ def rasterize(
     )
 
 
-def _oracle(clip, indices, jitter, peel_depth, width, height):
+def _oracle(clip, indices, jitter, peel_depth, width, height, band):
     """The brute-force raster of the indexed triangles, with the records
     the gather resolve needs."""
     corners, weights, src, valid = _setup.clip_near_triangles(clip, indices)
-    setup = _setup.triangle_setup(corners, valid, width, height, jitter)
+    setup = _setup.triangle_setup(corners, valid, width, height, jitter,
+                                  **band)
     zbuf, tid = _kernel.rasterize_reference(setup, width, height,
-                                            peel_depth=peel_depth)
+                                            peel_depth=peel_depth,
+                                            row_offset=band["y_offset"])
     return VisibilityBuffer(
         depth=zbuf, tri_id=tid,
         overflow=torch.zeros((), dtype=torch.int32, device=zbuf.device),

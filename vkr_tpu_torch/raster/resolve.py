@@ -31,19 +31,22 @@ def corner_attributes(vertex_attr, indices, weights, src):
                  w[:, :, 2] * tri_attr[:, None, 2])
 
 
-def pixel_barycentrics(tid, setup, width: int, height: int):
+def pixel_barycentrics(tid, setup, width: int, height: int,
+                       row_offset: int = 0):
     """Perspective-correct barycentrics of each pixel's winning triangle.
 
     tid: (H, W) int visibility buffer (-1 = background); setup: the
-    row-major setup.TriangleSetup. Returns (bary (H, W, 3) f32,
+    row-major setup.TriangleSetup. row_offset: the band's first row in the
+    full frame: the edge planes are full-frame, so a band's pixels are
+    evaluated at their global rows (vkr_tpu resolve.py:44-59). Returns (bary (H, W, 3) f32,
     mask (H, W) bool)."""
     t = tid.clamp(min=0).long()
     mask = tid >= 0
     dev = setup.a.device
     px = (torch.arange(width, dtype=torch.float32, device=dev)
           + 0.5)[None, :, None]
-    py = (torch.arange(height, dtype=torch.float32, device=dev)
-          + 0.5)[:, None, None]
+    py = (torch.arange(row_offset, row_offset + height, dtype=torch.float32,
+                       device=dev) + 0.5)[:, None, None]
     e = setup.a[t] * px + setup.b[t] * py + setup.c[t]  # (H, W, 3)
     e = e.clamp(min=0.0)  # guard the fill-rule bias at edges
     sb = e / _sum3(e[..., 0], e[..., 1], e[..., 2]).clamp(min=1e-20)[..., None]

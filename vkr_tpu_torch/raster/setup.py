@@ -228,10 +228,19 @@ def corners_from_weights_t(tri2, weights):
              for j in range(4)] for c in range(3)]
 
 
-def triangle_setup_t(corners, valid, width: int, height: int, jitter=None
+def triangle_setup_t(corners, valid, width: int, height: int, jitter=None,
+                     full_height: "int | None" = None, y_offset=None
                      ) -> TriangleSetupT:
     """Edge equations from clipped corners ([3][4] of (T,)). The TAA
-    jitter (a (2,) tensor) moves raster coverage only (opaque_taa.vert:40)."""
+    jitter (a (2,) tensor) moves raster coverage only (opaque_taa.vert:40).
+
+    full_height/y_offset: the band viewport of multi-device rendering
+    (vkr_tpu setup.py:193-217, :425-441): rows [y_offset, y_offset +
+    height) of a full_height-tall frame. The edge and depth planes stay in
+    full-frame coordinates, bit for bit those of the full frame; only the
+    integer bbox rows are band-relative, so binning walks the band's tiles
+    and the kernels add y_offset to their pixel rows."""
+    y_off = 0 if y_offset is None else y_offset
     inv_w, x, y, d = [], [], [], []
     for c in range(3):
         iw = 1.0 / _guard(corners[c][3])
@@ -241,7 +250,7 @@ def triangle_setup_t(corners, valid, width: int, height: int, jitter=None
             ndc[1] = ndc[1] + jitter[1]
         inv_w.append(iw)
         x.append((ndc[0] * 0.5 + 0.5) * width)
-        y.append((ndc[1] * 0.5 + 0.5) * height)
+        y.append((ndc[1] * 0.5 + 0.5) * (full_height or height))
         d.append(ndc[2])
 
     area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0])
@@ -274,10 +283,12 @@ def triangle_setup_t(corners, valid, width: int, height: int, jitter=None
     ymax = torch.maximum(torch.maximum(y[0], y[1]), y[2])
     x0 = torch.floor(xmin - 0.5).clamp(0, width - 1)
     x1 = torch.ceil(xmax - 0.5).clamp(0, width - 1)
-    y0 = torch.floor(ymin - 0.5).clamp(0, height - 1)
-    y1 = torch.ceil(ymax - 0.5).clamp(0, height - 1)
+    y0, y1 = torch.floor(ymin - 0.5), torch.ceil(ymax - 0.5)
+    if y_off:  # band rows (the whole frame makes no extra kernel)
+        y0, y1 = y0 - y_off, y1 - y_off
+    y0, y1 = y0.clamp(0, height - 1), y1.clamp(0, height - 1)
     offscreen = ((xmax < 0.5) | (xmin > width - 0.5)
-                 | (ymax < 0.5) | (ymin > height - 0.5))
+                 | (ymax < y_off + 0.5) | (ymin > y_off + height - 0.5))
     ok = ok & ~offscreen
     # a NaN corner (degenerate clip) gives a NaN bbox; such triangles are
     # invalid, and 0 keeps their int conversion defined
@@ -289,11 +300,13 @@ def triangle_setup_t(corners, valid, width: int, height: int, jitter=None
                           bbox=bbox)
 
 
-def triangle_setup(corners, valid, width: int, height: int, jitter=None
+def triangle_setup(corners, valid, width: int, height: int, jitter=None,
+                   full_height: "int | None" = None, y_offset=None
                    ) -> TriangleSetup:
     """triangle_setup_t on row-major corners (TC, 3, 4)."""
     cols = [[corners[:, c, j] for j in range(4)] for c in range(3)]
-    return _rowmajor(triangle_setup_t(cols, valid, width, height, jitter))
+    return _rowmajor(triangle_setup_t(cols, valid, width, height, jitter,
+                                      full_height, y_offset))
 
 
 def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
