@@ -91,6 +91,21 @@
    frame. One G-buffer (frame 2) also goes through the indexed front end
    (the corner tables dropped): K1's depth and ids must equal the corner
    path's on its 3 calls, its attributes within 1e-6 + 1e-6 |x|.
+11b. JPEG glTF phase: the glTF phase's colonnade written again (.gltf +
+   .bin) with its 8 textures taken from the committed JPEGs of
+   tests/torch_images (tests/torch_images/make_images.py: the same images
+   and sizes, quality 75; baseline and progressive, 4:2:0, 4:2:2 and 4:4:4,
+   optimised tables, restart markers, greyscale, CMYK), loaded with
+   load_scene(tex_size=1024, native_sizes=True) through the port's JPEG
+   decoder; fails unless every decoded texture's SHA-256 equals the
+   committed digest of PIL's convert("RGBA") (digests.json). Prints the
+   decode seconds per texture and in total, and the upload seconds.
+   Renders 3 frames of the bench orbit with RenderConfig() and the main
+   phase's checks, and fails unless K1 x3, the march, K4, K5 x3 and K6
+   launched in each frame; frame 2 runs under torch.profiler (device ms,
+   kernels and copies). Then main frame 0 through aot.cached_jit must
+   equal the direct call bit for bit. (The main phase prints the 1024^2
+   PDF LUT's non-finite texels and fails unless there are none.)
 12. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
    calls them. render --scene colonnade at 1920x1080, 8 frames, --orbit
    0.01 through the kernels (K1, the march, K4, K5 and K6 must launch,
@@ -139,8 +154,8 @@
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
 15. Renders the main phase's 8 frames, the probe phase's 3, the RT
-   phase's 3 and the glTF phase's 3 trilinear frames with the plain
-   versions substituted for the kernels, and
+   phase's 3, the glTF phase's 3 trilinear frames and the JPEG glTF
+   phase's 3 with the plain versions substituted for the kernels, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
@@ -894,7 +909,8 @@ def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
                name="scene"):
     """Write the geometry, materials and draw calls of a GltfScene as
     <directory>/<name>.gltf with one <name>.bin, texture t showing
-    images[t] (RGBA8, written as PNG) with wrap mode wraps[t] (WRAP_*).
+    images[t] (RGBA8, written as PNG; or the bytes of an encoded PNG or
+    JPEG, written as they are) with wrap mode wraps[t] (WRAP_*).
     Images go in files, except those in data_uri (base64 data: URIs) and
     buffer_view (PNG bytes in the .bin). Positions and normals interleave
     in one strided buffer view; each draw call is a node with its matrix.
@@ -951,15 +967,19 @@ def write_gltf(directory, scene, images, wraps, data_uri=(), buffer_view=(),
         meshes.append({"primitives": out})
     gl_images = []
     for t, img in enumerate(images):
-        data = png_bytes(img, filters=GLTF_FILTERS, level=1)
+        if isinstance(img, bytes):
+            data = img
+        else:
+            data = png_bytes(img, filters=GLTF_FILTERS, level=1)
+        ext = "jpeg" if data[:2] == b"\xff\xd8" else "png"
         if t in data_uri:
-            gl_images.append({"uri": "data:image/png;base64,"
+            gl_images.append({"uri": f"data:image/{ext};base64,"
                               + base64.b64encode(data).decode()})
         elif t in buffer_view:
             gl_images.append({"bufferView": view(data),
-                              "mimeType": "image/png"})
+                              "mimeType": f"image/{ext}"})
         else:
-            fname = f"{name}_tex{t}.png"
+            fname = f"{name}_tex{t}.{ext.replace('jpeg', 'jpg')}"
             with open(os.path.join(directory, fname), "wb") as f:
                 f.write(data)
             gl_images.append({"uri": fname})
@@ -1012,10 +1032,11 @@ def gltf_textures(images):
 
 
 class HostTimer:
-    """Host seconds of each call of mod.attr while the block runs."""
+    """Host seconds of each call of mod.attr while the block runs (and its
+    results, where a list for them is given)."""
 
-    def __init__(self, mod, attr, log):
-        self.mod, self.attr, self.log = mod, attr, log
+    def __init__(self, mod, attr, log, results=None):
+        self.mod, self.attr, self.log, self.results = mod, attr, log, results
 
     def __enter__(self):
         fn = self.saved = getattr(self.mod, self.attr)
@@ -1024,6 +1045,8 @@ class HostTimer:
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             self.log.append(time.perf_counter() - t0)
+            if self.results is not None:
+                self.results.append(out)
             return out
         setattr(self.mod, self.attr, timed)
         return self
@@ -1154,6 +1177,162 @@ def gltf_phase(cfg, res, device, tmp):
           f"path, frame {i}: K1 depth and ids equal on its 3 calls, "
           f"attributes max |diff| {worst:.3g}; G-buffer max |diff| {gdiff}")
     return scene, cfg_gltf, outs, path
+
+
+# JPEG glTF phase: the glTF phase's colonnade with its 8 textures from the
+# committed JPEGs of tests/torch_images (make_images.py), held to the
+# digests of PIL's convert("RGBA") in its digests.json
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_images")
+JPEG_FRAMES = 3
+
+
+class FrameLaunches:
+    """on_frame hook for render(): the kernel launches of each frame by
+    wrapper (per_frame), around an optional inner hook."""
+
+    def __init__(self, inner=None):
+        self.per_frame, self.inner = [], inner
+
+    def __call__(self, i):
+        from vkr_tpu_torch import kernels
+
+        stack = contextlib.ExitStack()
+        before = dict(kernels.LAUNCHES)
+        stack.callback(lambda: self.per_frame.append(
+            {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()}))
+        if self.inner is not None:
+            stack.enter_context(self.inner(i))
+        return stack
+
+
+def device_time(prof):
+    """(device ms, kernels and copies) of a finished torch.profiler run."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def aot_check(scene, res, cfg, device):
+    """Main frame 0 through aot.cached_jit against the direct call: every
+    output tensor bit-equal. Returns the cached_jit seconds."""
+    import torch
+
+    from vkr_tpu_torch.core.aot import cached_jit
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.core.graph import _leaves
+    from vkr_tpu_torch.frame import camera_frame, render_frame
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    cam = camera_frame(cfg, bench_orbit_view(0), bench_orbit_view(0), 0,
+                       device)
+    args = (scene, FrameState.initial(HEIGHT, WIDTH, device), cam, res, cfg)
+    t0 = time.perf_counter()
+    frame = cached_jit("render_frame", render_frame, args, verbose=True)
+    aot_s = time.perf_counter() - t0
+    direct = [t for t in _leaves(render_frame(*args))
+              if isinstance(t, torch.Tensor)]
+    via = [t for t in _leaves(frame(*args)) if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    check(len(via) == len(direct) > 0
+          and all(a.shape == b.shape and a.dtype == b.dtype
+                  and torch.equal(a, b) for a, b in zip(via, direct)),
+          "aot: the frame through cached_jit differs from the direct call")
+    return aot_s, len(via)
+
+
+def jpeg_gltf_phase(cfg, res, device, tmp):
+    """The glTF phase's colonnade with the committed JPEG textures: every
+    decoded texture held to PIL's digest, JPEG_FRAMES default frames with
+    the main phase's checks and each frame's own launches, frame 2 under
+    torch.profiler. Returns (scene, outputs)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene import gltf as gltf_mod
+    from vkr_tpu_torch.scene import scene as scene_mod
+    from vkr_tpu_torch.scene.procedural import build_colonnade
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    files = sorted((v["texture"], name) for name, v in digests.items()
+                   if isinstance(v, dict))
+    jpegs = []
+    for _, name in files:
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            jpegs.append(f.read())
+    src = build_colonnade(**SCENE)
+    _, wraps = gltf_textures(src.images)
+    check(len(jpegs) == len(src.images),
+          f"jpeg gltf: {len(jpegs)} JPEGs for {len(src.images)} textures")
+    path = write_gltf(tmp, src, jpegs, wraps, name="jpeg")
+
+    decoded, decode_s = [], []
+    t0 = time.perf_counter()
+    with HostTimer(gltf_mod, "_decode_image", decode_s, decoded):
+        scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
+                                        native_sizes=True)
+    load_s = time.perf_counter() - t0
+    for (t, name), img in zip(files, decoded):
+        want = digests[name]
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        check(list(img.shape) == want["shape"] and img.dtype == np.uint8
+              and got == want["rgba_sha256"],
+              f"jpeg gltf: {name} ({want['form']}) decoded to "
+              f"{img.shape} {got}, not PIL's {want['rgba_sha256']}")
+    check(len(decoded) == len(files), f"jpeg gltf: {len(decoded)} images "
+          f"decoded of {len(files)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = upload_scene(scene_np, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    shapes = [im.shape[:2] for im in scene_np.tex_images]
+    n_tri = len(scene.tri_opaque_mat) + len(scene.tri_masked_mat)
+    print(f"jpeg gltf: {len(files)} committed JPEGs ("
+          + "; ".join(f"{name}: {digests[name]['form']}, "
+                      f"{len(data)} bytes"
+                      for (_, name), data in zip(files, jpegs))
+          + f"), each decoded to PIL's digest ({digests['made_with']}); "
+          f"decode s per texture {[round(x, 3) for x in decode_s]}, total "
+          f"{sum(decode_s):.3f} s; load_scene {load_s:.3f} s; upload "
+          f"{upload_s:.3f} s; {n_tri} triangles; native textures {shapes}")
+    check(n_tri == SCENE_TRIANGLES and shapes == GLTF_NATIVE
+          and scene.tex.paired, f"jpeg gltf: {n_tri} triangles, native "
+          f"shapes {shapes}, pairs {scene.tex.paired}")
+
+    # the profiler's first start sets up CUPTI for seconds: not in a frame
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    hook = FrameLaunches(lambda i: prof if i == WARMUP_FRAMES
+                         else contextlib.nullcontext())
+    kernels.LAUNCHES.clear()
+    outs, secs = render(scene, res, cfg, device, JPEG_FRAMES, on_frame=hook)
+    launches = dict(kernels.LAUNCHES)
+    check_frames(outs, launches, JPEG_FRAMES, MIN_LAUNCHES_PER_FRAME,
+                 "jpeg gltf")
+    for i, per in enumerate(hook.per_frame):
+        for name, n in MIN_LAUNCHES_PER_FRAME.items():
+            check(per.get(name, 0) >= n, f"jpeg gltf frame {i}: {name} "
+                  f"launched {per.get(name, 0)} times")
+    device_ms, n_kernels = device_time(prof)
+    print(f"jpeg gltf: {JPEG_FRAMES} frames (RenderConfig(), SSR on, MIS "
+          f"GTAO), coverage "
+          f"{[round(float((o['depth'] < 1.0).float().mean()), 4) for o in outs]}"
+          f", overflow 0, launches per frame {hook.per_frame}; frame "
+          f"{WARMUP_FRAMES} under torch.profiler: {device_ms:.3f} device ms "
+          f"in {n_kernels} kernels and copies, "
+          f"{secs[WARMUP_FRAMES] * 1e3:.3f} ms host wall (profiled)")
+    print_medians("jpeg gltf", secs)
+    return scene, outs
 
 
 TOOLS_FRAMES = 8
@@ -2186,6 +2365,12 @@ def main() -> int:
     res = build_ssr_resources(cfg.ssr.lut_size)
     check(res.pdf_lut.is_cuda and res.brdf_lut.is_cuda,
           "build_ssr_resources() did not put its LUTs on the card")
+    lut_nonfinite = int((~torch.isfinite(res.pdf_lut)).sum())
+    print(f"PDF LUT {cfg.ssr.lut_size}^2 on the card: {lut_nonfinite} "
+          f"non-finite texels; BRDF LUT "
+          f"{int((~torch.isfinite(res.brdf_lut)).sum())}")
+    check(lut_nonfinite == 0, f"the PDF LUT has {lut_nonfinite} non-finite "
+          "texels")
     torch.cuda.synchronize()
     n_tri = len(scene.tri_opaque_mat) + len(scene.tri_masked_mat)
     print(f"scene: {n_tri} triangles ({len(scene.tri_masked_mat)} "
@@ -2438,6 +2623,16 @@ def main() -> int:
     gltf_scene, cfg_gltf, gltf_outs, gltf_path = gltf_phase(
         cfg, res, device, gltf_dir)
 
+    # ---- JPEG glTF phase: the committed JPEG textures through the port's
+    # decoder, the default frame on them; the AOT analog on the main frame
+    jpeg_dir = os.path.join(scratch.name, "jpeg")
+    os.makedirs(jpeg_dir)
+    jpeg_scene, jpeg_outs = jpeg_gltf_phase(cfg, res, device, jpeg_dir)
+    aot_s, n_aot = aot_check(scene, res, cfg, device)
+    print(f"aot: main frame 0 through cached_jit ({aot_s:.3f} s) equals the "
+          f"direct call bit for bit on all {n_aot} output tensors; PDF LUT "
+          f"non-finite texels {lut_nonfinite}")
+
     # ---- tools phase: the user entry points at full width
     tools_phase(gltf_path, scratch.name, device)
     scratch.cleanup()
@@ -2579,6 +2774,18 @@ def main() -> int:
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"gltf {k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
+
+    with Substitute(lambda name, wrapper, p: p):
+        plain_jpeg, _ = render(jpeg_scene, res, cfg, device, JPEG_FRAMES)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          "a kernel launched while the plain versions were substituted")
+    worst = {k: min(psnr(o[k], p[k]) for o, p in zip(jpeg_outs, plain_jpeg))
+             for k in FRAME_CHANNELS}
+    print("jpeg gltf psnr kernels vs plain versions (dB, min over frames): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= MIN_PSNR_DB, f"jpeg gltf {k}: {v:.2f} dB against the "
+              f"plain versions (< {MIN_PSNR_DB})")
 
     launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]
     for name, row in BAND_ROWS.items():

@@ -16,7 +16,6 @@ import json
 import os
 import struct
 import subprocess
-import zlib
 
 import numpy as np
 import pytest
@@ -180,18 +179,21 @@ def test_png_matches_pil(ctype, filters):
         assert (got[..., 3] == 0).any()
 
 
-def _ihdr_png(depth, interlace):
-    header = struct.pack(">IIBBBBB", 2, 2, depth, 6, 0, 0, interlace)
-    return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", header)
-            + png_chunk(b"IDAT", zlib.compress(b"\0" * 80))
-            + png_chunk(b"IEND", b""))
+def _jpeg_header(marker, precision):
+    """SOI and a frame header of the given SOFn marker: 2x2, one
+    component."""
+    sof = struct.pack(">BHHB", precision, 2, 2, 1) + bytes([1, 0x11, 0])
+    return (b"\xff\xd8\xff" + bytes([marker])
+            + struct.pack(">H", len(sof) + 2) + sof)
 
 
 @pytest.mark.parametrize("data", [
-    b"\xff\xd8\xff\xe0\x00\x10JFIF\x00", _ihdr_png(16, 0), _ihdr_png(8, 1)],
-    ids=["jpeg", "16-bit", "interlaced"])
+    _jpeg_header(0xC9, 8), _jpeg_header(0xC1, 12), _jpeg_header(0xC3, 8)],
+    ids=["arithmetic-sof9", "12-bit-sof1", "lossless-sof3"])
 def test_unported_images_raise(data):
-    """Images the port cannot decode yet name their ROADMAP item."""
+    """Images the port cannot decode yet name their ROADMAP item: the
+    JPEG forms PIL cannot write (arithmetic coding, 12-bit samples,
+    lossless)."""
     from vkr_tpu_torch.scene.gltf import _decode_image
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

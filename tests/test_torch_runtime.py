@@ -131,7 +131,7 @@ def test_build_ssr_resources_cold_equals_warm(tmp_path, monkeypatch):
     monkeypatch.setenv("VKR_DISK_CACHE", str(tmp_path))
     cold = build_ssr_resources(16, device="cpu")
     assert [p.name for p in tmp_path.iterdir()] == [
-        f"ssr-luts-16-vkr_tpu_torch-cpu-v{tcache.VERSION}"]
+        f"ssr-luts-16-vkr_tpu_torch-fma-cpu-v{tcache.VERSION}"]
     warm = build_ssr_resources(16, device="cpu")
     for a, b in zip(cold, warm):
         assert torch.equal(a, b) and a.dtype == b.dtype

@@ -1,9 +1,10 @@
 """The runtime layer: storage formats, FrameState, and vkr_tpu/core's
 registry (shader manifest, hot reload), pass graph (task labels, DAG dump,
-per-pass timing), readback and capture, FrameState checkpoints and the
-start-up disk cache."""
+per-pass timing), readback and capture, FrameState checkpoints, the
+start-up disk cache and the warm-start entry (aot.cached_jit)."""
 
 from vkr_tpu_torch.core import (  # noqa: F401
+    aot,
     checkpoint,
     diskcache,
     graph,

@@ -76,12 +76,28 @@ def clear_caches() -> None:
     from vkr_tpu_torch import kernels
 
     for fn in _TRACKED_CACHES:
-        fn.cache_clear()
+        clear = getattr(fn, "cache_clear", None)
+        if clear is not None:
+            clear()
     for name in _REGISTRY:
         clear = getattr(get(name), "cache_clear", None)
         if clear is not None:
             clear()
     kernels._loaded.clear()
+
+
+def track_jit(fn: Callable) -> Callable:
+    """vkr_tpu's name for track_cache. vkr_tpu tracks its frame-level jits
+    so reload() can drop their traces; the port traces nothing, and a
+    callable tracked here is emptied by clear_caches() if it has a
+    functools cache. A plain callable (a frame built on registry.get)
+    needs nothing emptied: it resolves each pass anew at every call."""
+    return track_cache(fn)
+
+
+def clear_jit_caches() -> None:
+    """vkr_tpu's name for clear_caches()."""
+    clear_caches()
 
 
 def reload(only_module: Optional[str] = None) -> List[str]:

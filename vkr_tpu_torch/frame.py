@@ -72,7 +72,9 @@ def build_ssr_resources(lut_size: int = 1024,
     is a pure function of its size). The key names the port and the
     device type: vkr_tpu's `ssr-luts-{size}` entries share the directory
     and come from other code. A warm start returns the arrays a cold start
-    built on that device type."""
+    built on that device type. "fma" marks the PDF LUT whose contracted
+    steps are rounded once (passes/ssr.py:preintegrate_pdf): entries
+    written before that hold texels that overflowed to +inf."""
     device = torch.device(device)
 
     def build():
@@ -81,8 +83,8 @@ def build_ssr_resources(lut_size: int = 1024,
                 for name, prog in (("pdf", "pdf_preintegrate"),
                                    ("brdf", "brdf_preintegrate"))}
 
-    luts = cached_npz(f"ssr-luts-{lut_size}-vkr_tpu_torch-{device.type}",
-                      build)
+    luts = cached_npz(
+        f"ssr-luts-{lut_size}-vkr_tpu_torch-fma-{device.type}", build)
     return SSRResources(
         pdf_lut=torch.from_numpy(luts["pdf"]).to(device),
         brdf_lut=torch.from_numpy(luts["brdf"]).to(device),

@@ -27,6 +27,18 @@ def linearize_depth(d, znear, zfar):
     return znear * zfar / (d * (zfar - znear) - zfar)
 
 
+def encode_depth(z, znear, zfar):
+    """View-space z (negative) -> hardware depth [0,1].
+
+    gbuffer_encode.glsl:75-77 (encode_depth). The quotient is a true
+    division: torch's scalar / tensor multiplies by the reciprocal, an ulp
+    off vkr_tpu's on some depths.
+    """
+    z = torch.as_tensor(z)
+    return zfar / (zfar - znear) + torch.div(zfar * znear,
+                                             z * (zfar - znear))
+
+
 def reconstruct_view_vec(uv, d, fovy, aspect, znear, zfar):
     """(uv in [0,1]^2 with stacked last axis, depth) -> view-space position.
 

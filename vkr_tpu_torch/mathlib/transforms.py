@@ -34,10 +34,11 @@ def look_at(eye, center, up):
     return m
 
 
-def perspective(fovy: float, aspect: float, znear: float, zfar: float):
+def perspective_vk(fovy: float, aspect: float, znear: float, zfar: float):
     """glm::perspectiveRH with GLM_FORCE_DEPTH_ZERO_TO_ONE (depth in [0,1]).
 
-    Maps view-space z<0 in front of the camera; NDC y is down (Vulkan).
+    Matches the reference projection (main.cpp:294). Maps view-space z<0
+    in front of the camera; NDC y is down (Vulkan).
     """
     tan_half = np.tan(fovy / 2.0)
     m = np.zeros((4, 4), dtype=np.float32)
@@ -47,6 +48,21 @@ def perspective(fovy: float, aspect: float, znear: float, zfar: float):
     m[2, 3] = -(zfar * znear) / (zfar - znear)
     m[3, 2] = -1.0
     return m
+
+
+# Alias used throughout the passes.
+perspective = perspective_vk
+
+
+def inverse_rigid(m):
+    """Inverse of a rigid (rotation + translation) 4x4 matrix."""
+    m = np.asarray(m, np.float32)
+    r = m[:3, :3]
+    t = m[:3, 3]
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = r.T
+    out[:3, 3] = -r.T @ t
+    return out
 
 
 def normal_matrix(m):

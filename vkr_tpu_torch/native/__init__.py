@@ -91,6 +91,16 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """True when the library builds and loads here (vkr_tpu's
+    native.available(): True when its prebuilt library loads)."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 

@@ -46,6 +46,31 @@ def bilinear_sample(img, uv):
     return out[..., 0] if squeeze else out
 
 
+def nearest_sample(img, uv, offset_texels=None):
+    """texelFetch-style nearest sampling with clamp-to-edge.
+
+    img: (H, W) or (H, W, C); uv: (..., 2) in [0,1]; offset_texels: an
+    optional (dx, dy) added to the texel before the clamp."""
+    img, squeeze = _prep(img)
+    h, w = img.shape[:2]
+    x = torch.floor(uv[..., 0] * w).to(torch.int32)
+    y = torch.floor(uv[..., 1] * h).to(torch.int32)
+    if offset_texels is not None:
+        x = x + offset_texels[0]
+        y = y + offset_texels[1]
+    out = img[y.clamp(0, h - 1).long(), x.clamp(0, w - 1).long()]
+    return out[..., 0] if squeeze else out
+
+
+def texel_fetch(img, x, y):
+    """texelFetch(img, ivec2(x, y)) with clamp-to-edge."""
+    img, squeeze = _prep(img)
+    h, w = img.shape[:2]
+    out = img[torch.as_tensor(y).clamp(0, h - 1).long(),
+              torch.as_tensor(x).clamp(0, w - 1).long()]
+    return out[..., 0] if squeeze else out
+
+
 def upsample_half_bilinear(img_half, texel_offset=(0, 0)):
     """Dense 2x bilinear upsample of a half-res target sampled at full-res
     pixel centers (optionally with a half-res texel offset) — the regular

@@ -84,21 +84,28 @@ def _cross(a, b):
 def preintegrate_pdf(size: int = 1024, steps: int = 2000, device=CUDA):
     """GGX direction-PDF LUT (preintegrate.comp, G2 variant): integrate
     (1-t)L / (1 + t^2 - L^2/2)^2, L = (b-a)t + (b+a), t in [-1, 1].
-    Returns (size, size) float32 on `device`. The per-step scalars are
-    rounded to float32 as vkr_tpu's traced loop rounds them."""
+    Returns (size, size) float32 on `device`.
+
+    Near the denominator's zero one ulp of it moves a term by orders of
+    magnitude, so the steps follow vkr_tpu's jitted loop, which contracts
+    t = fma(2/steps, i + 0.5, -1), L = fma(p, t, q) and den = fma(-L/2, L,
+    fma(t, t, 1)): each is an exact float64 product and sum rounded once
+    to float32. Rounded step by step, texel (63, 36) of the 64² LUT
+    overflows to +inf where vkr_tpu's is finite."""
     f32 = dict(dtype=torch.float32, device=device)
     px = (torch.arange(size, **f32) + 0.5) / size
     a = (2.0 * px - 1.0)[None, :]
     b = px[:, None]
-    p = b - a
-    q = b + a
+    p = (b - a).double()
+    q = (b + a).double()
     acc = torch.zeros((size, size), **f32)
-    one = np.float32(1.0)
+    f, d = np.float32, np.float64
     for i in range(steps):
-        t = np.float32(-1.0) + np.float32(2.0 / steps) * np.float32(i + 0.5)
-        big_l = p * float(t) + q
-        nom = float(one - t) * big_l
-        den = float(one + t * t) - 0.5 * big_l * big_l
+        t = f(d(f(2.0 / steps)) * d(f(i) + f(0.5)) - 1.0)
+        big_l = (p * float(t) + q).float()
+        nom = float(f(1.0) - t) * big_l
+        den = (-(0.5 * big_l).double() * big_l.double()
+               + float(f(d(t) * d(t) + 1.0))).float()
         g = torch.where(big_l > 0.0, nom / (den * den), 0.0)
         acc = acc + g
     return 2.0 / steps * acc

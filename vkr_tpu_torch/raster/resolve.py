@@ -17,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from vkr_tpu_torch.raster.pair_rows import corner_attributes_pre_t
 from vkr_tpu_torch.raster.setup import _sum3
 
 
@@ -29,6 +30,19 @@ def corner_attributes(vertex_attr, indices, weights, src):
     return _sum3(w[:, :, 0] * tri_attr[:, None, 0],
                  w[:, :, 1] * tri_attr[:, None, 1],
                  w[:, :, 2] * tri_attr[:, None, 2])
+
+
+def corner_attributes_pre(corner_attr, weights):
+    """corner_attributes for pre-gathered corner values, row-major:
+    corner_attr (T, 3, K) at each source triangle's own corners, weights
+    (2T, 3, 3) from clip_near_corners, which emits two clipped triangles
+    per source triangle in source order. Returns (2T, 3, K), through the
+    frame's component-major pair_rows.corner_attributes_pre_t."""
+    t, _, k = corner_attr.shape
+    attr_t = corner_attr.permute(2, 1, 0).reshape(k, 3 * t)
+    w = [[weights[:, c, m] for m in range(3)] for c in range(3)]
+    cattrs = corner_attributes_pre_t(attr_t, w, t)
+    return torch.stack([torch.stack(cattrs[c], -1) for c in range(3)], 1)
 
 
 def pixel_barycentrics(tid, setup, width: int, height: int,

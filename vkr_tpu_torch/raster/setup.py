@@ -309,6 +309,14 @@ def triangle_setup(corners, valid, width: int, height: int, jitter=None,
                                       full_height, y_offset))
 
 
+def bin_triangles(setup: TriangleSetup, width: int, height: int,
+                  tile_h: int, tile_w: int, pair_capacity: "int | None"):
+    """bin_triangles_t on the row-major setup (vkr_tpu's bin_triangles)."""
+    return bin_triangles_t([setup.bbox[:, i] for i in range(4)],
+                           setup.valid, width, height, tile_h, tile_w,
+                           pair_capacity)
+
+
 def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
                     tile_w: int, pair_capacity: "int | None"):
     """Expand triangles into per-tile work lists (sorted segment layout).

@@ -8,10 +8,10 @@ transforms. Supports the subset the reference consumes (POSITION/NORMAL/
 TEXCOORD_0, scalar indices, TRS or matrix nodes, pbrMetallicRoughness) and
 tolerates missing pieces the way the reference does.
 
-vkr_tpu decodes images with PIL; the port decodes PNG itself (zlib and
-numpy), to the RGBA bytes PIL's convert("RGBA") gives: colour types 0, 2, 3
-(with tRNS), 4 and 6 at 8 bits, all five row filters. JPEG, other bit
-depths and interlaced PNGs raise NotImplementedError.
+vkr_tpu decodes images with PIL; the port decodes them itself, with zlib
+and numpy, to the RGBA bytes PIL's convert("RGBA") gives: PNG here (every
+colour type and bit depth, tRNS, Adam7 interlacing, all five row
+filters), Huffman-coded JPEG in scene/jpeg.py.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from typing import List
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
+
+from vkr_tpu_torch.scene.jpeg import decode_jpeg
 
 _COMPONENT_DTYPES = {
     5120: np.int8,
@@ -44,8 +46,6 @@ WRAP_REPEAT = 0
 WRAP_CLAMP = 1
 # glTF wrapS: REPEAT, CLAMP_TO_EDGE, MIRRORED_REPEAT (sampled as REPEAT)
 _GL_WRAP = {10497: WRAP_REPEAT, 33071: WRAP_CLAMP, 33648: WRAP_REPEAT}
-
-_UNPORTED_IMAGES = "ROADMAP queue 1 item 1"
 
 
 @dataclasses.dataclass
@@ -93,6 +93,11 @@ class GltfScene:
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _png_chunks(data: bytes):
@@ -118,8 +123,9 @@ def _skewed(h: int, w: int, c: int):
 
 
 def _unfilter(ftype: np.ndarray, raw: np.ndarray) -> np.ndarray:
-    """Undo the PNG row filters. ftype (H,) u8; raw (H, W, bpp) u8 filtered
-    bytes (a filter's left neighbour is the previous pixel: bit depth 8).
+    """Undo the PNG row filters. ftype (H,) u8; raw (H, N, bpp) u8 filtered
+    bytes: a filter's left neighbour is the byte bpp = max(1, bits per
+    pixel / 8) before, so sub-byte pixels filter byte by byte.
 
     Sub, Average and Paeth run left to right along a row and every filter
     reads the row above, so the decoded pixel (y, x) needs (y, x - 1),
@@ -164,8 +170,39 @@ def _unfilter(ftype: np.ndarray, raw: np.ndarray) -> np.ndarray:
     return sview.astype(np.uint8)
 
 
+def _png_image(raw, pos, w, h, depth, channels):
+    """Unfilter and unpack the h rows of one (sub-)image at raw[pos:].
+    Returns ((h, w, channels) int32 samples, the position after it)."""
+    bits = depth * channels
+    bpp = max(1, bits // 8)
+    stride = -(-w * bits // 8)
+    end = pos + h * (1 + stride)
+    if end > len(raw):
+        raise ValueError("PNG image data ends early")
+    rows = raw[pos:end].reshape(h, 1 + stride)
+    data = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, stride // bpp, bpp)
+                     ).reshape(h, stride).astype(np.int32)
+    if depth == 16:
+        pairs = data.reshape(h, w * channels, 2)
+        samples = (pairs[..., 0] << 8) | pairs[..., 1]
+    elif depth == 8:
+        samples = data
+    else:
+        per = 8 // depth
+        shifts = depth * np.arange(per - 1, -1, -1)
+        samples = ((data[..., None] >> shifts) & ((1 << depth) - 1)
+                   ).reshape(h, -1)[:, :w]
+    return samples.reshape(h, w, channels), end
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 4) u8, as PIL's Image.convert("RGBA") gives."""
+    """PNG bytes -> (H, W, 4) u8, as PIL's Image.convert("RGBA") gives.
+
+    PIL's modes decide the 8-bit values: grey at 1 bit is 0 or 255, at 2
+    and 4 bits scaled by 85 and 17; 16-bit grey (mode I;16) clips to 255;
+    other 16-bit samples keep their high byte. A tRNS key marks the
+    pixels whose 8-bit grey or RGB values equal its low bytes, except at
+    1-bit grey, where any nonzero key marks the white pixels."""
     if data[:len(PNG_SIGNATURE)] != PNG_SIGNATURE:
         raise ValueError("not a PNG stream")
     header = plte = trns = None
@@ -182,19 +219,21 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _PNG_CHANNELS:
-        raise ValueError(f"PNG colour type {ctype}")
-    if depth != 8 or interlace:
-        raise NotImplementedError(
-            f"PNG at bit depth {depth}{', interlaced' if interlace else ''}"
-            f": only 8-bit non-interlaced PNG is ported ({_UNPORTED_IMAGES})")
-    bpp = _PNG_CHANNELS[ctype]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
-    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+    if ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype]:
+        raise ValueError(f"PNG colour type {ctype} at bit depth {depth}")
+    channels = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace:
+        samples = np.zeros((h, w, channels), np.int32)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:  # an empty pass has no filter bytes
+                samples[y0::dy, x0::dx], pos = _png_image(
+                    raw, pos, pw, ph, depth, channels)
+    else:
+        samples, _ = _png_image(raw, 0, w, h, depth, channels)
 
-    out = np.empty((h, w, 4), np.uint8)
-    out[..., 3] = 255
     if ctype == 3:
         pal = np.zeros((256, 4), np.uint8)
         pal[:, 3] = 255
@@ -204,25 +243,37 @@ def decode_png(data: bytes) -> np.ndarray:
         if trns is not None:
             alpha = np.frombuffer(trns, np.uint8)[:256]
             pal[:len(alpha), 3] = alpha
-        return pal[px[..., 0]]
+        return pal[samples[..., 0]]
     grey = ctype in (0, 4)
+    if depth == 16:
+        px = np.minimum(samples, 255) if ctype == 0 else samples >> 8
+    elif depth < 8:
+        px = samples * (255 // ((1 << depth) - 1))
+    else:
+        px = samples
+    px = px.astype(np.uint8)
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., 3] = 255
     out[..., :3] = px[..., :1] if grey else px[..., :3]
     if ctype in (4, 6):
         out[..., 3] = px[..., -1]
     elif trns is not None:
-        # the transparent colour: one grey or RGB sample of 16 bits each,
-        # compared on its low byte (PIL's 8-bit mode)
-        key = np.frombuffer(trns, ">u2")[:1 if grey else 3] & 0xFF
-        match = (px == key.astype(np.uint8)).all(axis=-1)
+        # the transparent colour: one grey or RGB sample of 16 bits each
+        key = np.frombuffer(trns, ">u2")[:1 if grey else 3]
+        key = (np.where(key != 0, 255, 0) if depth == 1
+               else key & 0xFF).astype(np.uint8)
+        match = (px == key).all(axis=-1)
         out[..., 3] = np.where(match, 0, 255)
     return out
 
 
 def _decode_image(data: bytes) -> np.ndarray:
+    """An image's bytes -> (H, W, 4) u8, by its signature."""
     if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            f"JPEG decoding is not ported ({_UNPORTED_IMAGES})")
-    return decode_png(data)
+        return decode_jpeg(data)
+    if data[:len(PNG_SIGNATURE)] == PNG_SIGNATURE:
+        return decode_png(data)
+    raise ValueError(f"image is neither PNG nor JPEG (starts {data[:8]!r})")
 
 
 # ---------------------------------------------------------------- glTF
