@@ -106,6 +106,23 @@
    kernels and copies). Then main frame 0 through aot.cached_jit must
    equal the direct call bit for bit. (The main phase prints the 1024^2
    PDF LUT's non-finite texels and fails unless there are none.)
+11c. Sponza phase: bench.py's default workload,
+   sponza_colonnade_scene(columns=24, tessellation=80, tex_size=1024),
+   on a stand-in in Sponza's layout (write_sponza_standin: Sponza.gltf
+   with 25 materials and 69 images, the committed JPEGs of
+   tests/torch_images and seeded PNGs of every form at 512², 1024²,
+   2048x1024 and 256x512) in a temporary directory that VKR_ASSETS names
+   for the phase. Fails unless every JPEG (the 8 colonnade textures and
+   the item-18 forms PIL decodes: YCCK, arithmetic, lossless) decodes to
+   its digest of PIL's bytes on this host, and unless the scene has
+   314,988 triangles, 69 textures of 1024² and samples at most 12 of
+   them. Prints, beside the card's name and power limit, the decode
+   seconds (PNG, JPEG, the item-18 forms), the Pillow-BILINEAR resize,
+   compile_scene and upload seconds and the texture bytes on the card.
+   Renders 3 frames of the bench orbit with RenderConfig() and the main
+   phase's checks, and fails unless K1 x3, the march, K4, K5 x3 and K6
+   launched in each frame; frame 2 runs under torch.profiler (device ms,
+   kernels and copies). Prints the phase's seconds.
 12. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
    calls them. render --scene colonnade at 1920x1080, 8 frames, --orbit
    0.01 through the kernels (K1, the march, K4, K5 and K6 must launch,
@@ -115,7 +132,9 @@
    native library and through the numpy plain versions (mips equal, both
    seconds printed) and render of it; parity --size 64 (each figure
    finite and at most PARITY_MAX_DROP_DB below PARITY_64_CPU_DB, or both
-   at least PARITY_HIGH_DB) and --size 256; profile at 1080p, --reps 8;
+   at least PARITY_HIGH_DB) and --size 256; profile at 1080p, --reps 8,
+   and --scene sponza (--tex-size 512, --reps 2) on the Sponza phase's
+   stand-in;
    scene_info on the glTF file; the viewer on a free port with
    --max-frames 6, driven over HTTP (a slider, 2, j, r: each must reach
    the next frame) with its ms per frame printed; the showcase into a
@@ -154,8 +173,9 @@
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
 15. Renders the main phase's 8 frames, the probe phase's 3, the RT
-   phase's 3, the glTF phase's 3 trilinear frames and the JPEG glTF
-   phase's 3 with the plain versions substituted for the kernels, and
+   phase's 3, the glTF phase's 3 trilinear frames, the JPEG glTF
+   phase's 3 and the Sponza phase's 3 with the plain versions
+   substituted for the kernels, prints each phase's worst dB, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
@@ -183,6 +203,7 @@ import time
 
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
+CARD = ""  # nvidia-smi's name and power limit of the cards (cards())
 SSR_OFF_FRAMES = 3
 PROBE_FRAMES = 3
 RT_FRAMES = 3
@@ -1260,7 +1281,7 @@ def jpeg_gltf_phase(cfg, res, device, tmp):
     with open(os.path.join(JPEG_DIR, "digests.json")) as f:
         digests = json.load(f)
     files = sorted((v["texture"], name) for name, v in digests.items()
-                   if isinstance(v, dict))
+                   if isinstance(v, dict) and "texture" in v)
     jpegs = []
     for _, name in files:
         with open(os.path.join(JPEG_DIR, name), "rb") as f:
@@ -1332,6 +1353,299 @@ def jpeg_gltf_phase(cfg, res, device, tmp):
           f"in {n_kernels} kernels and copies, "
           f"{secs[WARMUP_FRAMES] * 1e3:.3f} ms host wall (profiled)")
     print_medians("jpeg gltf", secs)
+    return scene, outs
+
+
+# Sponza phase: bench.py's default workload (sponza_colonnade_scene, 24
+# columns, tessellation 80, 1024² textures) on a stand-in in Sponza's
+# layout: Sponza/glTF/Sponza.gltf with Sponza's 25 materials and 69 images
+# (the reference's real textures are not in this repository)
+SPONZA_MATERIALS = 25
+SPONZA_IMAGES = 69
+SPONZA_FRAMES = 3
+SPONZA_TEX = 1024
+SPONZA_PROFILE_REPS = 2  # the tools phase's profile --scene sponza --reps
+# PNG sizes of the stand-in, (height, width), taken in turn: resizes to
+# 1024² go down, up, across and stay
+SPONZA_PNG_SIZES = ((512, 512), (1024, 1024), (1024, 2048), (512, 256))
+# PNG forms, taken in turn: (colour type, label)
+SPONZA_PNG_FORMS = ((2, "RGB"), (0, "grey"), (3, "palette"),
+                    (3, "palette with tRNS"), (4, "grey+alpha"))
+# the MASK materials and their alphaCutoff (None: absent, 0.5); the first
+# one is the colonnade foliage's
+SPONZA_MASKS = {2: 0.3, 9: None, 16: 0.7}
+SPONZA_NO_MR = (20, 21, 22, 23, 24)  # no metallicRoughnessTexture
+SPONZA_NO_ALBEDO = (24,)          # no baseColorTexture
+
+
+def standin_jpegs():
+    """The committed JPEGs the stand-in takes, (name, form): the 8
+    colonnade textures and every item-18 form PIL decodes."""
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    return [(k, v["form"]) for k, v in sorted(digests.items())
+            if isinstance(v, dict) and v.get("pil", "decodes") == "decodes"]
+
+
+def _standin_pixels(rng, h, w, channels):
+    """Seeded waves: (h, w, channels) u8."""
+    import numpy as np
+
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    out = np.empty((h, w, channels), np.uint8)
+    for c in range(channels):
+        fx, fy = rng.uniform(1.0, 9.0, 2).astype(np.float32)
+        phase = np.float32(rng.uniform(0.0, 6.3))
+        out[..., c] = (127.5 + 127.0 * np.sin(
+            np.float32(6.2832) * (fx * x + fy * y) + phase)).astype(np.uint8)
+    return out
+
+
+def write_sponza_standin(root, seed=0, size_scale=1.0):
+    """Write root/Sponza/glTF/Sponza.gltf in Sponza's layout: 25
+    materials (pbrMetallicRoughness albedo and metallic-roughness
+    textures, normalTexture, MASK with and without alphaCutoff, some with
+    no metallic-roughness or no base-colour texture), 69 textures whose
+    sources are a seeded derangement of the 69 images, one REPEAT
+    sampler, no geometry. The images are the committed JPEGs
+    (standin_jpegs) and seeded PNGs written with the port's PNG writer in
+    turn RGB, grey, palette, palette with tRNS and grey+alpha at
+    SPONZA_PNG_SIZES times size_scale; the MASK materials' base colours
+    are RGBA PNGs with alphas of 0, 255 and between. Returns the .gltf
+    path and a summary dict."""
+    import numpy as np
+
+    from vkr_tpu_torch.core.readback import png_bytes, png_chunk
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "Sponza", "glTF")
+    os.makedirs(base, exist_ok=True)
+    n = SPONZA_IMAGES
+    # textures: albedo of every material but SPONZA_NO_ALBEDO, then MR of
+    # every material but SPONZA_NO_MR, then a normal map of each
+    albedo, mr, normal, t = {}, {}, {}, 0
+    for table, skip in ((albedo, SPONZA_NO_ALBEDO), (mr, SPONZA_NO_MR),
+                        (normal, ())):
+        for m in range(SPONZA_MATERIALS):
+            if m not in skip:
+                table[m] = t
+                t += 1
+    assert t == n, t
+    jpegs = standin_jpegs()
+    # image kinds: the MASK albedo images are RGBA PNGs, the JPEGs spread
+    # over the rest
+    rgba_images = list(range(len(SPONZA_MASKS)))
+    rest = rng.permutation(np.arange(len(SPONZA_MASKS), n)).tolist()
+    jpeg_images = dict(zip(sorted(rest[:len(jpegs)]), jpegs))
+    # texture -> image: the MASK albedos onto the RGBA images, the others
+    # a derangement of the remaining images
+    source = {albedo[m]: rgba_images[i] for i, m in enumerate(SPONZA_MASKS)}
+    free_t = [t for t in range(n) if t not in source]
+    free_i = [i for i in range(n) if i not in rgba_images]
+    while True:
+        perm = rng.permutation(free_i)
+        if all(int(i) != t for t, i in zip(free_t, perm)):
+            break
+    source.update({t: int(i) for t, i in zip(free_t, perm)})
+    assert all(source[t] != t for t in range(n))
+
+    images, kinds, file_bytes = [], {}, 0
+    png_i = 0
+    for i in range(n):
+        if i in jpeg_images:
+            name, form = jpeg_images[i]
+            with open(os.path.join(JPEG_DIR, name), "rb") as f:
+                data = f.read()
+            uri, kind = f"standin_{i:02d}.jpg", f"JPEG {name}: {form}"
+        else:
+            h, w = SPONZA_PNG_SIZES[png_i % len(SPONZA_PNG_SIZES)]
+            h = max(1, round(h * size_scale))
+            w = max(1, round(w * size_scale))
+            if i in rgba_images:
+                ctype, label = 6, "RGBA, partial alpha"
+                px = _standin_pixels(rng, h, w, 4)
+                a = px[..., 3].astype(np.int16)
+                px[..., 3] = np.clip(3 * (a - 128) + 128, 0, 255)
+            else:
+                ctype, label = SPONZA_PNG_FORMS[
+                    png_i % len(SPONZA_PNG_FORMS)]
+                px = _standin_pixels(rng, h, w, {2: 3, 0: 1, 3: 1,
+                                                 4: 2}[ctype])
+            extra = b""
+            if ctype == 3:
+                px = px // 16
+                extra = png_chunk(b"PLTE", rng.integers(
+                    0, 256, 48, np.uint8).tobytes())
+                if "tRNS" in label:
+                    extra += png_chunk(b"tRNS", rng.integers(
+                        0, 256, 16, np.uint8).tobytes())
+            data = png_bytes(px, colour_type=ctype, filters=GLTF_FILTERS,
+                             extra=extra, level=1)
+            uri, kind = f"standin_{i:02d}.png", f"PNG {label} {w}x{h}"
+            png_i += 1
+        with open(os.path.join(base, uri), "wb") as f:
+            f.write(data)
+        file_bytes += len(data)
+        images.append({"uri": uri})
+        kinds[i] = kind
+
+    materials = []
+    for m in range(SPONZA_MATERIALS):
+        pbr = {"metallicFactor": 0.0}
+        if m in albedo:
+            pbr["baseColorTexture"] = {"index": albedo[m]}
+        if m in mr:
+            pbr["metallicRoughnessTexture"] = {"index": mr[m]}
+        mat = {"name": f"standin_material_{m:02d}",
+               "pbrMetallicRoughness": pbr,
+               "normalTexture": {"index": normal[m]}}
+        if m in SPONZA_MASKS:
+            mat["alphaMode"] = "MASK"
+            if SPONZA_MASKS[m] is not None:
+                mat["alphaCutoff"] = SPONZA_MASKS[m]
+        materials.append(mat)
+    doc = {
+        "asset": {"version": "2.0",
+                  "generator": "chip_smoke.write_sponza_standin"},
+        "scene": 0, "scenes": [{"nodes": []}], "nodes": [], "meshes": [],
+        "materials": materials,
+        "textures": [{"sampler": 0, "source": source[t]} for t in range(n)],
+        "samplers": [{"magFilter": 9729, "minFilter": 9987,
+                      "wrapS": 10497, "wrapT": 10497}],
+        "images": images,
+    }
+    path = os.path.join(base, "Sponza.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return path, {"kinds": kinds, "file_bytes": file_bytes,
+                  "jpegs": len(jpeg_images), "pngs": n - len(jpeg_images)}
+
+
+def sponza_phase(res, cfg, device, root):
+    """bench.py's default workload, sponza_colonnade_scene(columns=24,
+    tessellation=80, tex_size=1024), on the stand-in written into root
+    (VKR_ASSETS set to it for the phase): every committed JPEG held to
+    its digest of PIL's bytes, decode, resize, compile and upload seconds
+    and the texture bytes on the card printed, SPONZA_FRAMES default
+    frames with the main phase's checks and each frame's own launches,
+    frame 2 under torch.profiler. Returns (scene, outputs)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene import gltf as gltf_mod
+    from vkr_tpu_torch.scene import procedural as proc_mod
+    from vkr_tpu_torch.scene import resample as resample_mod
+
+    phase_t0 = time.perf_counter()
+    path, info = write_sponza_standin(root, seed=0)
+    write_s = time.perf_counter() - phase_t0
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    decode_s, decoded, resize_s, compile_s = [], [], [], []
+    saved = os.environ.get("VKR_ASSETS")
+    os.environ["VKR_ASSETS"] = root
+    try:
+        t0 = time.perf_counter()
+        with HostTimer(gltf_mod, "_decode_image", decode_s, decoded), \
+                HostTimer(resample_mod, "pil_bilinear_resize", resize_s), \
+                HostTimer(proc_mod, "compile_scene", compile_s):
+            scene_np = proc_mod.sponza_colonnade_scene(
+                columns=SCENE["columns"], tessellation=SCENE["tessellation"],
+                tex_size=SPONZA_TEX)
+        build_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("VKR_ASSETS", None)
+        else:
+            os.environ["VKR_ASSETS"] = saved
+    check(len(decoded) == SPONZA_IMAGES, f"sponza: {len(decoded)} images "
+          f"decoded of {SPONZA_IMAGES}")
+    jpeg_s = {}
+    for i, img in enumerate(decoded):
+        kind = info["kinds"][i]
+        if not kind.startswith("JPEG "):
+            continue
+        name = kind.split()[1].rstrip(":")
+        want = digests[name]
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        check(list(img.shape) == want["shape"] and img.dtype == np.uint8
+              and got == want["rgba_sha256"],
+              f"sponza: {name} ({want['form']}) decoded to {img.shape} "
+              f"{got}, not PIL's {want['rgba_sha256']}")
+        jpeg_s[name] = decode_s[i]
+    png_s = sum(t for i, t in enumerate(decode_s)
+                if info["kinds"][i].startswith("PNG "))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = upload_scene(scene_np, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tex = scene.tex
+    tex_bytes = sum(t.numel() * t.element_size()
+                    for t in (tex.texels, tex.level_off, tex.level_w,
+                              tex.level_h, tex.wrap))
+    n_tri = len(scene.tri_opaque_mat) + len(scene.tri_masked_mat)
+    used = sorted(set(scene_np.tri_material.tolist()))
+    sampled = sorted({int(t) for m in used for t in (
+        scene_np.mat_albedo_tex[m], scene_np.mat_mr_tex[m]) if t >= 0})
+    level0 = SPONZA_IMAGES * SPONZA_TEX * SPONZA_TEX * 4
+    item18 = {k: round(v, 4) for k, v in jpeg_s.items()
+              if k.startswith("item18_")}
+    print(f"sponza ({CARD}): stand-in Sponza/glTF/Sponza.gltf, "
+          f"{len(scene_np.mat_albedo_tex)} materials, {SPONZA_IMAGES} images "
+          f"({info['pngs']} PNG, {info['jpegs']} JPEG; "
+          f"{info['file_bytes']} bytes) written in {write_s:.3f} s; every "
+          f"JPEG decoded to PIL's digest ({digests['made_with']}); decode "
+          f"{sum(decode_s):.3f} s for {len(decode_s)} images (PNG "
+          f"{png_s:.3f} s, JPEG {sum(jpeg_s.values()):.3f} s, the item-18 "
+          f"forms {sum(item18.values()):.3f} s: {item18}); resize "
+          f"{sum(resize_s):.3f} s; compile_scene {sum(compile_s):.3f} s; "
+          f"sponza_colonnade_scene {build_s:.3f} s in all; upload "
+          f"{upload_s:.3f} s; {n_tri} triangles "
+          f"({len(scene.tri_masked_mat)} alpha-MASK), {len(used)} materials "
+          f"drawn sampling {len(sampled)} of the {SPONZA_IMAGES} textures "
+          f"{sampled}; texture bytes on the card {tex_bytes} (level 0 "
+          f"{level0}), {tex.n_levels} levels, pairs {tex.paired}")
+    check(n_tri == SCENE_TRIANGLES
+          and len(scene.tri_masked_mat) == SCENE_MASKED,
+          f"sponza: {n_tri} triangles, {len(scene.tri_masked_mat)} masked")
+    check(scene_np.tex_mips[0].shape == (SPONZA_IMAGES, SPONZA_TEX,
+                                         SPONZA_TEX, 4)
+          and len(scene_np.mat_albedo_tex) == SPONZA_MATERIALS
+          and len(sampled) <= 12 and tex.paired,
+          f"sponza: textures {scene_np.tex_mips[0].shape}, "
+          f"{len(scene_np.mat_albedo_tex)} materials, {len(sampled)} "
+          "textures sampled")
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    hook = FrameLaunches(lambda i: prof if i == WARMUP_FRAMES
+                         else contextlib.nullcontext())
+    kernels.LAUNCHES.clear()
+    outs, secs = render(scene, res, cfg, device, SPONZA_FRAMES,
+                        on_frame=hook)
+    launches = dict(kernels.LAUNCHES)
+    check_frames(outs, launches, SPONZA_FRAMES, MIN_LAUNCHES_PER_FRAME,
+                 "sponza")
+    for i, per in enumerate(hook.per_frame):
+        for name, n in MIN_LAUNCHES_PER_FRAME.items():
+            check(per.get(name, 0) >= n, f"sponza frame {i}: {name} "
+                  f"launched {per.get(name, 0)} times")
+    device_ms, n_kernels = device_time(prof)
+    print(f"sponza: {SPONZA_FRAMES} frames (RenderConfig(), SSR on, MIS "
+          f"GTAO), coverage "
+          f"{[round(float((o['depth'] < 1.0).float().mean()), 4) for o in outs]}"
+          f", overflow 0, launches per frame {hook.per_frame}; frame "
+          f"{WARMUP_FRAMES} under torch.profiler: {device_ms:.3f} device ms "
+          f"in {n_kernels} kernels and copies, "
+          f"{secs[WARMUP_FRAMES] * 1e3:.3f} ms host wall (profiled)")
+    print_medians("sponza", secs)
+    print(f"sponza: phase {time.perf_counter() - phase_t0:.1f} s")
     return scene, outs
 
 
@@ -1439,12 +1753,14 @@ def _drive_viewer(port, device):
     return ms, seen, client_log, reloads
 
 
-def tools_phase(gltf_path, tmp, device):
+def tools_phase(gltf_path, tmp, device, sponza_root):
     """The user entry points (vkr_tpu_torch/tools) as a user calls them:
     render at 1080p through the kernels and as the oracle frame, render of
     the glTF phase's scene in uniform mode (the native asset pipeline),
-    parity at 64 and 256, profile at 1080p, scene_info, the viewer driven
-    over HTTP and the showcase, each into the temporary directory tmp."""
+    parity at 64 and 256, profile at 1080p (and --scene sponza on the
+    Sponza phase's stand-in under sponza_root), scene_info, the viewer
+    driven over HTTP and the showcase, each into the temporary directory
+    tmp."""
     import io
 
     import torch
@@ -1540,6 +1856,28 @@ def tools_phase(gltf_path, tmp, device):
     times = profile.main([*size, "--reps", "8"])
     check(len(times) == 10 and all(t > 0 for t in times.values()),
           f"profile: {times}")
+    saved = os.environ.get("VKR_ASSETS")
+    os.environ["VKR_ASSETS"] = sponza_root
+    try:
+        t0 = time.perf_counter()
+        kernels.LAUNCHES.clear()
+        times = profile.main(["--scene", "sponza", *size, "--reps",
+                              str(SPONZA_PROFILE_REPS)])
+        sponza_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("VKR_ASSETS", None)
+        else:
+            os.environ["VKR_ASSETS"] = saved
+    # profile's G-buffer: an opaque and a masked K1 call, first and reps
+    check(len(times) == 10 and all(t > 0 for t in times.values())
+          and kernels.LAUNCHES.get("gbuf_tiles", 0)
+          == 2 * (1 + SPONZA_PROFILE_REPS),
+          f"profile --scene sponza: {times}, launches "
+          f"{dict(kernels.LAUNCHES)}")
+    print(f"tools profile --scene sponza (--tex-size 512, the stand-in): "
+          f"{sponza_s:.1f} s with the texture set's load, launches "
+          f"{dict(kernels.LAUNCHES)}")
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2306,11 +2644,13 @@ def cards() -> bool:
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return False
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip())
+    CARD = smi.stdout.strip()
+    print(CARD)
     return True
 
 
@@ -2633,8 +2973,12 @@ def main() -> int:
           f"direct call bit for bit on all {n_aot} output tensors; PDF LUT "
           f"non-finite texels {lut_nonfinite}")
 
+    # ---- Sponza phase: bench.py's default workload on the stand-in
+    sponza_root = os.path.join(scratch.name, "assets")
+    sponza_scene, sponza_outs = sponza_phase(res, cfg, device, sponza_root)
+
     # ---- tools phase: the user entry points at full width
-    tools_phase(gltf_path, scratch.name, device)
+    tools_phase(gltf_path, scratch.name, device, sponza_root)
     scratch.cleanup()
 
     # ---- multi-device phase: the band frame and view parallelism, ranks
@@ -2785,6 +3129,20 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"jpeg gltf {k}: {v:.2f} dB against the "
+              f"plain versions (< {MIN_PSNR_DB})")
+
+    with Substitute(lambda name, wrapper, p: p):
+        plain_sponza, _ = render(sponza_scene, res, cfg, device,
+                                 SPONZA_FRAMES)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          "a kernel launched while the plain versions were substituted")
+    worst = {k: min(psnr(o[k], p[k]) for o, p in zip(sponza_outs,
+                                                     plain_sponza))
+             for k in FRAME_CHANNELS}
+    print("sponza psnr kernels vs plain versions (dB, min over frames): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    for k, v in worst.items():
+        check(v >= MIN_PSNR_DB, f"sponza {k}: {v:.2f} dB against the "
               f"plain versions (< {MIN_PSNR_DB})")
 
     launches[PROBE_FACE_ROW] = grid_launches["gbuf_tiles"]

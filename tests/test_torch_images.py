@@ -7,7 +7,9 @@ sizes (37x29 and 61x45, smooth and noise) at qualities 50, 90 and 100:
 baseline and progressive scans, 4:2:0, 4:2:2 and 4:4:4, optimised tables,
 restart markers, greyscale, CMYK and SOF1 with 16-bit DQT; 4:4:0 and
 4:1:1, which PIL cannot write, on small committed files that OpenCV
-wrote (tests/torch_images/make_images.py). PNG is held
+wrote (tests/torch_images/make_images.py); and the forms neither writes
+(ROADMAP item 18: YCCK, arithmetic coding, lossless), on committed files
+of make_images.py's own encoder, with the forms PIL refuses refused. PNG is held
 at every colour type and bit depth, plain and Adam7, with tRNS; the test
 writes the PNG bytes itself (zlib and filter bytes). The committed JPEG
 textures of chip_smoke.py's JPEG glTF phase are checked against their
@@ -335,8 +337,13 @@ def _digests():
         return json.load(f)
 
 
-@pytest.mark.parametrize("name", sorted(
-    k for k, v in _digests().items() if isinstance(v, dict)))
+def _textures():
+    """digests.json's entries of the 8 colonnade textures."""
+    return {k: v for k, v in _digests().items()
+            if isinstance(v, dict) and "texture" in v}
+
+
+@pytest.mark.parametrize("name", sorted(_textures()))
 def test_committed_digests(name):
     """digests.json holds PIL's convert("RGBA") of each committed JPEG, at
     chip_smoke.py's texture sizes; chip_smoke.py's JPEG glTF phase holds
@@ -356,7 +363,7 @@ def test_committed_digests(name):
 def test_committed_set_mixes_the_forms():
     """The eight files cover the forms the card phase needs and stay
     under 2 MB."""
-    digests = {k: v for k, v in _digests().items() if isinstance(v, dict)}
+    digests = _textures()
     forms = " | ".join(v["form"] for v in digests.values())
     for form in ("baseline 4:2:0", "progressive 4:2:2", "4:4:4, optimised",
                  "restart", "greyscale", "CMYK"):
@@ -364,6 +371,68 @@ def test_committed_set_mixes_the_forms():
     assert sorted(v["texture"] for v in digests.values()) == list(range(8))
     assert sum(os.path.getsize(os.path.join(IMAGES, k))
                for k in digests) < 2_000_000
+
+
+# ------------------------------------------------ the item-18 JPEG forms
+
+def _item18(pil):
+    return sorted(k for k, v in _digests().items()
+                  if k.startswith("item18_") and v["pil"] == pil)
+
+
+def _committed(name):
+    with open(os.path.join(IMAGES, name), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", _item18("decodes"))
+def test_item18_forms_match_pil(name):
+    """The JPEG forms PIL decodes and writes none of (make_images.py's own
+    encoder wrote them: YCCK, arithmetic sequential and progressive with
+    restarts and DAC, lossless at every predictor, point transform,
+    restarts, RGB, 4:2:0 and CMYK), bit-equal to PIL and to the digest
+    of PIL's bytes in digests.json."""
+    from vkr_tpu_torch.scene.jpeg import decode_jpeg
+
+    data = _committed(name)
+    want = _pil_rgba(data)
+    got = decode_jpeg(data)
+    assert got.dtype == np.uint8 and list(got.shape) == _digests()[name][
+        "shape"]
+    np.testing.assert_array_equal(got, want)
+    assert (hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+            == _digests()[name]["rgba_sha256"])
+
+
+@pytest.mark.parametrize("name", _item18("refuses"))
+def test_item18_forms_pil_refuses(name):
+    """Where PIL refuses a form (lossless YCbCr and YCCK, arithmetic
+    lossless, 12-bit, hierarchical, a DNL height), the port raises
+    NotImplementedError naming ROADMAP's item 18."""
+    from vkr_tpu_torch.scene.jpeg import decode_jpeg
+
+    data = _committed(name)
+    with pytest.raises(OSError):
+        _pil_rgba(data)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        decode_jpeg(data)
+
+
+def test_item18_set_covers_the_forms():
+    """Every form of the item, in both outcomes, and the two 256x256
+    files the Sponza stand-in takes."""
+    d = _digests()
+    forms = " | ".join(d[k]["form"] for k in _item18("decodes"))
+    for form in ("YCCK", "SOF9", "SOF10", "restart", "DAC",
+                 *(f"predictor {p}" for p in range(1, 8)),
+                 "point transform 2", "RGB", "4:2:0", "CMYK", "256x256"):
+        assert form in forms, form
+    refused = " | ".join(d[k]["form"] for k in _item18("refuses"))
+    for form in ("SOF11", "12-bit", "hierarchical", "DNL", "JFIF",
+                 "YCCK"):
+        assert form in refused, form
+    markers = {k: _markers(_committed(k)) for k in _item18("decodes")}
+    assert {0xC9, 0xCA, 0xC3} <= set().union(*markers.values())
 
 
 # ------------------------------------------------ a glTF with JPEG textures

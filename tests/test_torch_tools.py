@@ -104,17 +104,46 @@ def test_parity_report(capsys):
         assert abs(db - pinned[key]) <= 0.5, (key, db, pinned[key])
 
 
-def test_profile_prints_the_ten_passes(capsys):
+def test_profile_prints_the_ten_passes(capsys, monkeypatch, tmp_path):
+    """The ten passes on the colonnade; --scene sponza fails naming
+    VKR_ASSETS when it is unset, and with it set to
+    chip_smoke.write_sponza_standin's stand-in profiles
+    sponza_colonnade_scene as vkr_tpu's profile asks for it (24 columns,
+    tessellation 80, --tex-size). On the CPU the call is answered with
+    the stand-in hall at 4 columns and tessellation 8: the plain
+    G-buffer of the 314,988 triangles takes over a minute here."""
+    from vkr_tpu_torch.scene import procedural
     from vkr_tpu_torch.tools import profile
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.delenv("VKR_ASSETS", raising=False)
+    with pytest.raises(FileNotFoundError, match="VKR_ASSETS"):
         profile.main(["--scene", "sponza"])
-    times = profile.main(["--width", "64", "--height", "64", "--reps", "1",
-                          "--columns", "4", "--tessellation", "8", *SMALL])
+    capsys.readouterr()
+    small = ["--width", "64", "--height", "64", "--reps", "1", *SMALL]
+    times = profile.main([*small, "--columns", "4", "--tessellation", "8"])
     out = capsys.readouterr().out
     names = [ln.split()[0] for ln in out.splitlines()[1:]]
     assert tuple(names) == PASSES == tuple(times)
     assert all(t > 0 for t in times.values())
+
+    chip_smoke.write_sponza_standin(str(tmp_path), seed=0, size_scale=1 / 32)
+    monkeypatch.setenv("VKR_ASSETS", str(tmp_path))
+    asked, built = [], []
+    full = procedural.sponza_colonnade_scene
+
+    def smaller(columns, tessellation, tex_size):
+        asked.append((columns, tessellation, tex_size))
+        built.append(full(columns=4, tessellation=8, tex_size=tex_size))
+        return built[-1]
+
+    monkeypatch.setattr(procedural, "sponza_colonnade_scene", smaller)
+    times = profile.main(["--scene", "sponza", *small])
+    out = capsys.readouterr().out
+    names = [ln.split()[0] for ln in out.splitlines()[1:]]
+    assert tuple(names) == PASSES == tuple(times)
+    assert all(t > 0 for t in times.values())
+    assert asked == [(24, 80, 32)]
+    assert built[0].tex_mips[0].shape == (69, 32, 32, 4)
 
 
 def _free_port():

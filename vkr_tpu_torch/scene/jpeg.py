@@ -1,6 +1,5 @@
-"""Huffman-coded JPEG -> RGBA8, as PIL's Image.open(...).convert("RGBA")
-gives it over libjpeg-turbo, in numpy alone (the card's machine has no
-PIL).
+"""JPEG -> RGBA8, as PIL's Image.open(...).convert("RGBA") gives it over
+libjpeg-turbo, in numpy alone (the card's machine has no PIL).
 
 vkr_tpu decodes glTF images with PIL (vkr_tpu/scene/gltf.py:117-122), and
 PIL decodes JPEG with libjpeg-turbo's defaults. Where libjpeg-turbo and
@@ -22,12 +21,31 @@ the JPEG specification leave room, this module follows libjpeg-turbo:
     while coefficients are missing (jdcoefct.c:smoothing_ok), and PIL
     reads the whole file before it outputs a row;
   * CMYK with PIL's reading of it: the samples inverted (rawmode
-    "CMYK;I") and converted with Pillow's cmyk2rgb.
+    "CMYK;I") and converted with Pillow's cmyk2rgb; YCCK (Adobe transform
+    other than 0) first through jdcolor.c's ycck_cmyk_convert (the YCbCr
+    tables, K passed through);
+  * arithmetic coding (SOF9 sequential, SOF10 progressive) as jdarith.c
+    decodes it: the QM decoder of T.81 Annex D, DC and AC statistics per
+    table with DAC's conditioning (defaults L=0, U=1, Kx=5), reset at
+    every scan and restart, zero bits fed once the segment's data ends;
+  * lossless (SOF3, Huffman) at 8 bits as jdlhuff.c, jdlossls.c and
+    jddiffct.c decode it: predictors 1-7, the first row (and the first
+    row after each restart) predicted from the left starting at
+    1 << (P - Pt - 1), the first column from above, differences modulo
+    2**16, samples shifted left by the point transform; libjpeg-turbo
+    upsamples them by replication and converts no colour: three
+    components are RGB unless a JFIF or an Adobe marker says YCbCr, which
+    it refuses, as it refuses lossless YCCK.
 
-The entropy decoder is the one serial part: a Python loop over a bit
-window with a 16-bit lookup per Huffman code. Byte unstuffing and the
-split at restart markers are done up front with numpy; dequantisation,
-IDCT, upsampling and colour conversion work on whole arrays.
+PIL refuses 12-bit samples, hierarchical files (DHP, SOF5-7, SOF13-15),
+arithmetic-coded lossless files (SOF11) and a height given only in a DNL
+marker; this module raises NotImplementedError on them.
+
+The entropy decoders are the serial part: Python loops over a bit
+window with a 16-bit lookup per Huffman code, or over the QM decoder's
+registers. Byte unstuffing and the split at restart markers are done up
+front with numpy; dequantisation, IDCT, upsampling and colour conversion
+work on whole arrays.
 """
 
 from __future__ import annotations
@@ -37,7 +55,7 @@ from typing import Dict, List
 
 import numpy as np
 
-_UNPORTED = "ROADMAP queue 1 item 18"
+_REFUSED = "PIL refuses it too; ROADMAP queue 1 item 18"
 
 # jpeg_natural_order: zigzag index -> natural (row-major) index, with
 # libjpeg's 16 extra entries of 63 for runs past the end of a block
@@ -48,11 +66,12 @@ _NATURAL = [
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ] + [63] * 16
 
+# the frames PIL refuses (libjpeg-turbo reads no hierarchical frame and
+# no arithmetic-coded lossless one)
 _SOF_OTHER = {
-    0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
+    0xC5: "hierarchical (SOF5)",
     0xC6: "hierarchical progressive (SOF6)",
     0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "arithmetic-coded hierarchical (SOF13)",
     0xCE: "arithmetic-coded hierarchical (SOF14)",
@@ -72,28 +91,31 @@ class _Component:
 class _Frame:
     """A frame header's geometry and the flat coefficient list of all its
     components (component after component, blocks row-major, 64 natural-
-    order coefficients each)."""
+    order coefficients each; lossless: one difference per sample)."""
 
     def __init__(self, payload, marker):
         if marker in _SOF_OTHER:
             raise NotImplementedError(
-                f"{_SOF_OTHER[marker]} JPEG is not ported ({_UNPORTED})")
+                f"{_SOF_OTHER[marker]} JPEG is not decoded ({_REFUSED})")
         precision, self.h, self.w, n = struct.unpack(">BHHB", payload[:6])
         if precision != 8:
             raise NotImplementedError(
-                f"{precision}-bit JPEG is not ported ({_UNPORTED})")
+                f"{precision}-bit JPEG is not decoded ({_REFUSED})")
         if self.h == 0:
             raise NotImplementedError(
-                f"JPEG with its height in a DNL marker is not ported "
-                f"({_UNPORTED})")
-        self.progressive = marker == 0xC2
+                f"JPEG with its height in a DNL marker is not decoded "
+                f"({_REFUSED})")
+        self.progressive = marker in (0xC2, 0xCA)
+        self.arithmetic = marker in (0xC9, 0xCA)
+        self.lossless = marker == 0xC3
+        self.unit = 1 if self.lossless else 8  # samples across a block
         self.comps = [_Component(payload[6 + 3 * i], payload[7 + 3 * i] >> 4,
                                  payload[7 + 3 * i] & 15, payload[8 + 3 * i])
                       for i in range(n)]
         self.hmax = max(c.h for c in self.comps)
         self.vmax = max(c.v for c in self.comps)
-        self.mcux = -(-self.w // (8 * self.hmax))
-        self.mcuy = -(-self.h // (8 * self.vmax))
+        self.mcux = -(-self.w // (self.unit * self.hmax))
+        self.mcuy = -(-self.h // (self.unit * self.vmax))
         total = 0
         for c in self.comps:
             if self.hmax % c.h or self.vmax % c.v:
@@ -102,7 +124,7 @@ class _Frame:
             c.dw = -(-self.w * c.h // self.hmax)
             c.dh = -(-self.h * c.v // self.vmax)
             c.offset = total
-            total += c.bw * c.bh * 64
+            total += c.bw * c.bh * self.unit ** 2
         self.coef = [0] * total
 
 
@@ -133,11 +155,13 @@ def _entropy_end(buf: np.ndarray, start: int) -> int:
     return int(ends[0]) if len(ends) else len(buf)
 
 
-def _segments(buf: np.ndarray, start: int, end: int) -> List[List[int]]:
+def _segments(buf: np.ndarray, start: int, end: int,
+              windows: bool = True) -> list:
     """The entropy-coded data between start and end, split at its RST
     markers and unstuffed (0xFF 0x00 -> 0xFF), each segment as its list
     of 32-bit big-endian windows: window i holds bytes i..i+3, zeros past
-    the end (libjpeg feeds zero bits past a marker)."""
+    the end (libjpeg feeds zero bits past a marker); or, with windows
+    False, as its bytes."""
     data = buf[start:end]
     ff = np.flatnonzero(data[:-1] == 0xFF)
     nxt = data[ff + 1]
@@ -149,6 +173,9 @@ def _segments(buf: np.ndarray, start: int, end: int) -> List[List[int]]:
     bounds = [0, *(rst + 2).tolist(), len(data)]
     out = []
     for a, b in zip(bounds[:-1], bounds[1:]):
+        if not windows:
+            out.append(data[a:b][keep[a:b]].tobytes())
+            continue
         seg = data[a:b][keep[a:b]].astype(np.int64)
         seg = np.concatenate([seg, np.zeros(8, np.int64)])
         out.append(((seg[:-3] << 24) | (seg[1:-2] << 16) | (seg[2:-1] << 8)
@@ -312,6 +339,253 @@ def _ac_refine(win, blocks, coef, ss, se, al, _n):
                     p += 1
                 k += 1
             eobrun -= 1
+
+
+def _lossless(win, blocks, coef, _ss, _se, _al, _n):
+    """jdlhuff.c: one difference per sample, its category coded as a DC
+    category (16: the difference 32768, no further bits)."""
+    p = 0
+    for base, _, dct, _ in blocks:
+        e = dct[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        p += e & 31
+        s = e >> 5
+        v = 0
+        if s == 16:
+            v = 32768
+        elif s:
+            v = (win[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+            p += s
+            if v < (1 << (s - 1)):
+                v -= (1 << s) - 1
+        coef[base] = v
+
+
+# ---------------------------------------------------- arithmetic decoding
+
+# T.81 Table D.2: (Qe, Next_Index_MPS, Next_Index_LPS with Switch_MPS in
+# bit 7), and libjpeg's entry 113, the fixed probability 0.5 of the sign
+# and refinement bits (jaricom.c)
+_QE = [(qe, nmps, (switch << 7) | nlps) for qe, nmps, nlps, switch in (
+    (0x5a1d, 1, 1, 1), (0x2586, 2, 14, 0), (0x1114, 3, 16, 0),
+    (0x080b, 4, 18, 0), (0x03d8, 5, 20, 0), (0x01da, 6, 23, 0),
+    (0x00e5, 7, 25, 0), (0x006f, 8, 28, 0), (0x0036, 9, 30, 0),
+    (0x001a, 10, 33, 0), (0x000d, 11, 35, 0), (0x0006, 12, 9, 0),
+    (0x0003, 13, 10, 0), (0x0001, 13, 12, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 16, 36, 0), (0x2cf2, 17, 38, 0), (0x207c, 18, 39, 0),
+    (0x17b9, 19, 40, 0), (0x1182, 20, 42, 0), (0x0cef, 21, 43, 0),
+    (0x09a1, 22, 45, 0), (0x072f, 23, 46, 0), (0x055c, 24, 48, 0),
+    (0x0406, 25, 49, 0), (0x0303, 26, 51, 0), (0x0240, 27, 52, 0),
+    (0x01b1, 28, 54, 0), (0x0144, 29, 56, 0), (0x00f5, 30, 57, 0),
+    (0x00b7, 31, 59, 0), (0x008a, 32, 60, 0), (0x0068, 33, 62, 0),
+    (0x004e, 34, 63, 0), (0x003b, 35, 32, 0), (0x002c, 9, 33, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 38, 64, 0), (0x3a0d, 39, 65, 0),
+    (0x2ef1, 40, 67, 0), (0x261f, 41, 68, 0), (0x1f33, 42, 69, 0),
+    (0x19a8, 43, 70, 0), (0x1518, 44, 72, 0), (0x1177, 45, 73, 0),
+    (0x0e74, 46, 74, 0), (0x0bfb, 47, 75, 0), (0x09f8, 48, 77, 0),
+    (0x0861, 49, 78, 0), (0x0706, 50, 79, 0), (0x05cd, 51, 48, 0),
+    (0x04de, 52, 50, 0), (0x040f, 53, 50, 0), (0x0363, 54, 51, 0),
+    (0x02d4, 55, 52, 0), (0x025c, 56, 53, 0), (0x01f8, 57, 54, 0),
+    (0x01a4, 58, 55, 0), (0x0160, 59, 56, 0), (0x0125, 60, 57, 0),
+    (0x00f6, 61, 58, 0), (0x00cb, 62, 59, 0), (0x00ab, 63, 61, 0),
+    (0x008f, 32, 61, 0), (0x5b12, 65, 65, 1), (0x4d04, 66, 80, 0),
+    (0x412c, 67, 81, 0), (0x37d8, 68, 82, 0), (0x2fe8, 69, 83, 0),
+    (0x293c, 70, 84, 0), (0x2379, 71, 86, 0), (0x1edf, 72, 87, 0),
+    (0x1aa9, 73, 87, 0), (0x174e, 74, 72, 0), (0x1424, 75, 72, 0),
+    (0x119c, 76, 74, 0), (0x0f6b, 77, 74, 0), (0x0d51, 78, 75, 0),
+    (0x0bb6, 79, 77, 0), (0x0a40, 48, 77, 0), (0x5832, 81, 80, 1),
+    (0x4d1c, 82, 88, 0), (0x438e, 83, 89, 0), (0x3bdd, 84, 90, 0),
+    (0x34ee, 85, 91, 0), (0x2eae, 86, 92, 0), (0x299a, 87, 93, 0),
+    (0x2516, 71, 86, 0), (0x5570, 89, 88, 1), (0x4ca9, 90, 95, 0),
+    (0x44d9, 91, 96, 0), (0x3e22, 92, 97, 0), (0x3824, 93, 99, 0),
+    (0x32b4, 94, 99, 0), (0x2e17, 86, 93, 0), (0x56a8, 96, 95, 1),
+    (0x4f46, 97, 101, 0), (0x47e5, 98, 102, 0), (0x41cf, 99, 103, 0),
+    (0x3c3d, 100, 104, 0), (0x375e, 93, 99, 0), (0x5231, 102, 105, 0),
+    (0x4c0f, 103, 106, 0), (0x4639, 104, 107, 0), (0x415e, 99, 103, 0),
+    (0x5627, 106, 105, 1), (0x50e7, 107, 108, 0), (0x4b85, 103, 109, 0),
+    (0x5597, 109, 110, 0), (0x504f, 107, 111, 0), (0x5a10, 111, 110, 1),
+    (0x5522, 109, 112, 0), (0x59eb, 111, 112, 1), (0x5a1d, 113, 113, 0))]
+
+
+def _qm_decoder(data):
+    """jdarith.c's arith_decode over one restart segment's unstuffed
+    bytes, zeros past their end: decode(stats, i) -> the bit, updating
+    the bin stats[i] ((MPS << 7) | state)."""
+    qe_table = _QE
+    n = len(data)
+    pos = a = c = 0
+    ct = -16
+
+    def decode(st, i):
+        nonlocal pos, a, c, ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                byte = data[pos] if pos < n else 0
+                pos += 1
+                c = (c << 8) | byte
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe, nm, nl = qe_table[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+    return decode
+
+
+class _Corrupt(Exception):
+    """A magnitude or spectral overflow: jdarith.c warns and leaves the
+    rest of the restart segment undecoded."""
+
+
+def _arith_magnitude(decode, st, i, k_bins):
+    """F.23-F.24 after the sign: the magnitude category from bin i (the
+    X bins from k_bins, or for DC from 20 straight after the first), then
+    its bits 14 bins on. Returns (|v|, the category bound m)."""
+    m = decode(st, i)
+    if m:
+        if k_bins is None:
+            i = 20
+            while decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise _Corrupt
+                i += 1
+        elif decode(st, i):
+            m <<= 1
+            i = k_bins
+            while decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise _Corrupt
+                i += 1
+    v = bound = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if decode(st, i):
+            v |= m
+    return v + 1, bound
+
+
+def _arith_dc(decode, dc, s, lu):
+    """One DC difference from context s (jdarith.c decode_mcu_DC_first):
+    returns (difference, the next context)."""
+    if not decode(dc, s):
+        return 0, 0
+    sign = decode(dc, s + 1)
+    i = s + 2 + sign
+    v, m = _arith_magnitude(decode, dc, i, None)
+    low, up = lu
+    if m < (1 << low) >> 1:
+        ctx = 0
+    elif m > (1 << up) >> 1:
+        ctx = 12 + 4 * sign
+    else:
+        ctx = 4 + 4 * sign
+    return (-v if sign else v), ctx
+
+
+def _arith_ac(decode, ac, fixed, coef, base, ss, se, kx, al):
+    """jdarith.c's AC loop (decode_mcu, decode_mcu_AC_first)."""
+    nat = _NATURAL
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if decode(ac, i):
+            break
+        while not decode(ac, i + 1):
+            i += 3
+            k += 1
+            if k > se:
+                raise _Corrupt
+        sign = decode(fixed, 0)
+        v, _ = _arith_magnitude(decode, ac, i + 2,
+                                189 if k <= kx else 217)
+        coef[base + nat[k]] = (-v if sign else v) << al
+        k += 1
+
+
+def _arith_scan(segs, coef, ss, se, ah, al, n_slots, frame):
+    """One arithmetic-coded scan, segs its (unstuffed bytes, blocks) per
+    restart segment: each segment starts the decoder,
+    the statistics and the DC predictions anew (jdarith.c
+    process_restart)."""
+    nat = _NATURAL
+    p1, m1 = 1 << al, -1 << al
+    lu, kx = frame.dac_lu, frame.dac_k
+    for data, seg_blocks in segs:
+        decode = _qm_decoder(data)
+        dc_stats, ac_stats = {}, {}
+        fixed = [113]
+        last = [0] * n_slots
+        ctx = [0] * n_slots
+        try:
+            for base, slot, td, ta in seg_blocks:
+                if not frame.progressive or (ss == 0 and ah == 0):
+                    dc = dc_stats.setdefault(td, bytearray(64))
+                    diff, ctx[slot] = _arith_dc(decode, dc, ctx[slot],
+                                                lu.get(td, (0, 1)))
+                    last[slot] = (last[slot] + diff) & 0xFFFF
+                    coef[base] = last[slot] << al
+                    if not frame.progressive:
+                        ac = ac_stats.setdefault(ta, bytearray(256))
+                        _arith_ac(decode, ac, fixed, coef, base, 1, 63,
+                                  kx.get(ta, 5), 0)
+                elif ss == 0:
+                    if decode(fixed, 0):
+                        coef[base] |= p1
+                elif ah == 0:
+                    ac = ac_stats.setdefault(ta, bytearray(256))
+                    _arith_ac(decode, ac, fixed, coef, base, ss, se,
+                              kx.get(ta, 5), al)
+                else:
+                    ac = ac_stats.setdefault(ta, bytearray(256))
+                    kex = se
+                    while kex > 0 and not coef[base + nat[kex]]:
+                        kex -= 1
+                    k = ss
+                    while k <= se:
+                        i = 3 * (k - 1)
+                        if k > kex and decode(ac, i):
+                            break
+                        while True:
+                            j = base + nat[k]
+                            cv = coef[j]
+                            if cv:
+                                if decode(ac, i + 2):
+                                    coef[j] = cv + (m1 if cv < 0 else p1)
+                                break
+                            if decode(ac, i + 1):
+                                coef[j] = m1 if decode(fixed, 0) else p1
+                                break
+                            i += 3
+                            k += 1
+                            if k > se:
+                                raise _Corrupt
+                        k += 1
+        except _Corrupt:
+            continue
 
 
 # ------------------------------------------------------------------ IDCT
@@ -482,6 +756,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     jfif = False
     adobe = None
     frame = None
+    dac_lu: Dict[int, tuple] = {}   # DC table -> (L, U)
+    dac_k: Dict[int, int] = {}      # AC table -> Kx
     pos = 2
     while pos < len(buf):
         if buf[pos] != 0xFF:
@@ -521,6 +797,17 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 i += 17 + sum(counts)
         elif marker == 0xDD:
             restart = struct.unpack(">H", payload[:2])[0]
+        elif marker == 0xCC:
+            for i in range(0, len(payload) - 1, 2):
+                tc, tb, cs = payload[i] >> 4, payload[i] & 15, payload[i + 1]
+                if tc:
+                    dac_k[tb] = cs
+                else:
+                    dac_lu[tb] = (cs & 15, cs >> 4)
+        elif marker in (0xDE, 0xDF):
+            raise NotImplementedError(
+                f"hierarchical JPEG ({'DHP' if marker == 0xDE else 'EXP'} "
+                f"marker) is not decoded ({_REFUSED})")
         elif marker == 0xE0 and payload[:5] == b"JFIF\0":
             jfif = True
         elif marker == 0xEE and payload[:5] == b"Adobe":
@@ -529,48 +816,56 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if frame is not None:
                 raise ValueError("JPEG with two frames")
             frame = _Frame(payload, marker)
+            frame.dac_lu, frame.dac_k = dac_lu, dac_k
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             end = _entropy_end(buf, pos)
-            _scan(frame, payload, _segments(buf, pos, end), restart,
-                  qtables, dc_tabs, ac_tabs)
+            _scan(frame, payload, buf, pos, end, restart, qtables, dc_tabs,
+                  ac_tabs)
             pos = end
     if frame is None:
         raise ValueError("JPEG without a frame header")
     return _output(frame, jfif, adobe)
 
 
-def _scan(frame, payload, segs, restart, qtables, dc_tabs, ac_tabs):
-    """Decode one scan (its SOS payload and restart segments) into the
-    frame's coefficients."""
+def _scan(frame, payload, buf, pos, end, restart, qtables, dc_tabs,
+          ac_tabs):
+    """Decode one scan (its SOS payload and the entropy-coded data in
+    buf[pos:end]) into the frame's coefficients (lossless: differences)."""
     comps = frame.comps
     n = payload[0]
     scomps = []
     for i in range(n):
         cid, tables = payload[1 + 2 * i], payload[2 + 2 * i]
         comp = next((c for c in comps if c.cid == cid), None)
-        if comp is None or (comp.qt is None and comp.tq not in qtables):
+        if comp is None or (not frame.lossless and comp.qt is None
+                            and comp.tq not in qtables):
             raise ValueError(f"JPEG scan of component {cid}: no such "
                              "component or no quantisation table")
         if comp.qt is None:  # latched at the component's first scan
-            comp.qt = qtables[comp.tq]
+            comp.qt = qtables[comp.tq] if not frame.lossless else ()
         scomps.append((comp, tables >> 4, tables & 15))
     ss, se, ahal = payload[1 + 2 * n:4 + 2 * n]
     ah, al = ahal >> 4, ahal & 15
-    if not frame.progressive:
+    if frame.lossless:
+        decode = _lossless
+    elif not frame.progressive:
         decode, ss, se, al = _sequential, 0, 63, 0
     elif ss == 0:
         decode = _dc_refine if ah else _dc_first
     else:
         decode = _ac_refine if ah else _ac_first
 
-    # blocks in scan order: (MCUs, blocks per MCU) coefficient bases
+    # blocks (lossless: samples) in scan order: (MCUs, units per MCU)
+    # coefficient bases
+    u = frame.unit
     if n == 1:
         comp = scomps[0][0]
-        by, bx = np.mgrid[0:-(-comp.dh // 8), 0:-(-comp.dw // 8)]
-        bases = comp.offset + (by * comp.bw + bx).reshape(-1, 1) * 64
+        by, bx = np.mgrid[0:-(-comp.dh // u), 0:-(-comp.dw // u)]
+        bases = comp.offset + (by * comp.bw + bx).reshape(-1, 1) * u * u
         slots = [0]
+        per_row = by.shape[1]
     else:
         my, mx = np.mgrid[0:frame.mcuy, 0:frame.mcux]
         my, mx = my.reshape(-1, 1), mx.reshape(-1, 1)
@@ -579,14 +874,30 @@ def _scan(frame, payload, segs, restart, qtables, dc_tabs, ac_tabs):
             v, hh = np.mgrid[0:comp.v, 0:comp.h]
             blk = ((my * comp.v + v.reshape(1, -1)) * comp.bw
                    + mx * comp.h + hh.reshape(1, -1))
-            cols.append(comp.offset + blk * 64)
+            cols.append(comp.offset + blk * u * u)
             slots += [slot] * (comp.v * comp.h)
         bases = np.concatenate(cols, 1)
+        per_row = frame.mcux
+    if frame.lossless:
+        # jddiffct.c: restarts fall on MCU rows, each starts the
+        # predictor's first row anew
+        if restart % per_row:
+            raise ValueError(f"lossless JPEG with a restart interval of "
+                             f"{restart} MCUs, {per_row} to a row")
+        for comp, _, _ in scomps:
+            comp.psv, comp.pt = ss, al
+            comp.rst_rows = (restart // per_row * (comp.v if n > 1 else 1)
+                             if restart else None)
     per_mcu = len(slots)
     tables = []
     for _, td, ta in scomps:
-        dc = dc_tabs.get(td) if decode in (_sequential, _dc_first) else []
-        ac = ac_tabs.get(ta) if decode not in (_dc_first, _dc_refine) else []
+        if frame.arithmetic:
+            tables.append((td, ta))
+            continue
+        dc = (dc_tabs.get(td)
+              if decode in (_sequential, _dc_first, _lossless) else [])
+        ac = (ac_tabs.get(ta)
+              if decode not in (_dc_first, _dc_refine, _lossless) else [])
         if dc is None or ac is None:
             raise ValueError("JPEG scan names an undefined Huffman table")
         tables.append((dc, ac))
@@ -595,13 +906,58 @@ def _scan(frame, payload, segs, restart, qtables, dc_tabs, ac_tabs):
 
     mcus = len(blocks) // per_mcu
     step = restart if restart else mcus
-    for win, m0 in zip(segs, range(0, mcus, step)):
-        decode(win, blocks[m0 * per_mcu:(m0 + step) * per_mcu], frame.coef,
-               ss, se, al, len(scomps))
+    segs = _segments(buf, pos, end, windows=not frame.arithmetic)
+    parts = [blocks[m0 * per_mcu:(m0 + step) * per_mcu]
+             for m0 in range(0, mcus, step)]
+    if frame.arithmetic:
+        _arith_scan(list(zip(segs, parts)), frame.coef, ss, se, ah, al,
+                    len(scomps), frame)
+        return
+    for win, part in zip(segs, parts):
+        decode(win, part, frame.coef, ss, se, al, len(scomps))
+
+
+def _undifference(diff: np.ndarray, psv: int, pt: int, rst_rows) -> np.ndarray:
+    """jdlossls.c on a component's (rows, cols) differences: samples
+    modulo 2**16. A first row (of the scan or after a restart) predicts
+    from the left, its first sample from 1 << (8 - pt - 1); the other
+    rows take the predictor psv, and their first sample the one above."""
+    rows, cols = diff.shape
+    x = np.zeros((rows, cols), np.int64)
+    d = diff.astype(np.int64)
+    for r in range(rows):
+        if r == 0 or (rst_rows and r % rst_rows == 0):
+            x[r] = (np.cumsum(d[r]) + (1 << (8 - pt - 1))) & 0xFFFF
+            continue
+        rb = x[r - 1]
+        rc = np.concatenate([rb[:1], rb[:-1]])  # rc[0] is unused
+        x0 = (d[r, 0] + rb[0]) & 0xFFFF
+        if psv in (2, 3):
+            x[r] = (d[r] + (rb if psv == 2 else rc)) & 0xFFFF
+        elif psv in (1, 4, 5):
+            # Ra's recurrence is linear: a running sum from the first
+            # sample
+            step = d[r, 1:] + {1: 0, 4: rb[1:] - rc[1:],
+                               5: (rb[1:] - rc[1:]) >> 1}[psv]
+            x[r] = (x0 + np.concatenate([[0], np.cumsum(step)])) & 0xFFFF
+        else:
+            row = [int(x0)]
+            ra = int(x0)
+            for di, rbi, rci in zip(d[r, 1:].tolist(), rb[1:].tolist(),
+                                    rc[1:].tolist()):
+                if psv == 6:
+                    ra = (di + rbi + ((ra - rci) >> 1)) & 0xFFFF
+                else:
+                    ra = (di + ((ra + rbi) >> 1)) & 0xFFFF
+                row.append(ra)
+            x[r] = row
+        x[r, 0] = x0
+    return x
 
 
 def _output(frame, jfif, adobe) -> np.ndarray:
-    """IDCT, upsampling and colour conversion of the decoded frame."""
+    """IDCT (lossless: undifferencing), upsampling and colour conversion
+    of the decoded frame."""
     h, w = frame.h, frame.w
     comps = frame.comps
     flat = np.array(frame.coef, np.int64).astype(np.int16)
@@ -609,13 +965,20 @@ def _output(frame, jfif, adobe) -> np.ndarray:
     for c in comps:
         if c.qt is None:
             raise ValueError(f"JPEG component {c.cid} has no scan")
+        fh, fv = frame.hmax // c.h, frame.vmax // c.v
         n = c.bw * c.bh
-        blocks = idct_islow(flat[c.offset:c.offset + n * 64].reshape(n, 64),
-                            c.qt)
-        plane = blocks.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
-        plane = plane.reshape(c.bh * 8, c.bw * 8)
-        full = upsample(plane, c.dw, c.dh, frame.hmax // c.h,
-                        frame.vmax // c.v)
+        if frame.lossless:
+            x = _undifference(flat[c.offset:c.offset + n].reshape(
+                c.bh, c.bw), c.psv, c.pt, c.rst_rows)
+            plane = ((x << c.pt) & 0xFF).astype(np.uint8)[:c.dh, :c.dw]
+            # jdsample.c replicates: no fancy upsampling of 1x1 "blocks"
+            full = np.repeat(np.repeat(plane, fv, 0), fh, 1)
+        else:
+            blocks = idct_islow(
+                flat[c.offset:c.offset + n * 64].reshape(n, 64), c.qt)
+            plane = blocks.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
+            plane = plane.reshape(c.bh * 8, c.bw * 8)
+            full = upsample(plane, c.dw, c.dh, fh, fv)
         planes.append(full[:h, :w])
     out = np.empty((h, w, 4), np.uint8)
     out[..., 3] = 255
@@ -623,15 +986,31 @@ def _output(frame, jfif, adobe) -> np.ndarray:
         out[..., :3] = planes[0][..., None]
     elif len(comps) == 3:
         ids = tuple(c.cid for c in comps)
-        rgb = (not jfif and ((adobe is not None and adobe == 0)
-                             or (adobe is None and ids == (82, 71, 66))))
+        if frame.lossless:
+            # jdapimin.c: without a JFIF or Adobe marker a lossless file
+            # is RGB, whatever its component ids
+            rgb = not jfif and (adobe is None or adobe == 0)
+            if not rgb:
+                raise NotImplementedError(
+                    "lossless YCbCr JPEG is not decoded: libjpeg-turbo "
+                    f"converts no colour in lossless mode ({_REFUSED})")
+        else:
+            rgb = (not jfif and ((adobe is not None and adobe == 0)
+                                 or (adobe is None and ids == (82, 71, 66))))
         out[..., :3] = (np.stack(planes, -1) if rgb
                         else ycc_to_rgb(*planes))
     elif len(comps) == 4:
         if adobe is not None and adobe != 0:
-            raise NotImplementedError(
-                f"YCCK JPEG is not ported ({_UNPORTED})")
-        out[..., :3] = cmyk_to_rgb(255 - np.stack(planes, -1))
+            if frame.lossless:
+                raise NotImplementedError(
+                    f"lossless YCCK JPEG is not decoded ({_REFUSED})")
+            # jdcolor.c's ycck_cmyk_convert gives C, M, Y = 255 - R, G, B
+            # of the YCbCr planes and K as it is; PIL inverts all four
+            cmyk_inverted = np.concatenate(
+                [ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], -1)
+        else:
+            cmyk_inverted = 255 - np.stack(planes, -1)
+        out[..., :3] = cmyk_to_rgb(cmyk_inverted)
     else:
         raise ValueError(f"JPEG with {len(comps)} components")
     return out

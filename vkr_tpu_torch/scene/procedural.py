@@ -1,11 +1,13 @@
-"""Procedural benchmark scene: the colonnade hall.
+"""Procedural benchmark scenes: the colonnade hall.
 
-The same scene as vkr_tpu.scene.procedural (array-for-array, same seed):
+The same scenes as vkr_tpu.scene.procedural (array-for-array, same seed):
 a Sponza-like hall of comparable workload — configurable up to Sponza
 scale (colonnade_scene(columns=24, tessellation=80, tex_size=1024) has
 314,988 triangles, 96 of them alpha-MASK foliage) — so the port renders
-the raster/shading load the reference benches on. Also vkr_tpu's
-two-masked-quads scene, where the second alpha-MASK layer changes pixels.
+the raster/shading load the reference benches on; the same hall textured
+with Sponza's own material and texture set (sponza_colonnade_scene,
+bench.py's default workload); and vkr_tpu's two-masked-quads scene, where
+the second alpha-MASK layer changes pixels.
 """
 
 from __future__ import annotations
@@ -111,10 +113,12 @@ def build_colonnade(
     columns: int = 6,
     tessellation: int = 24,
     tex_size: int = 256,
+    foliage: bool = True,
+    seed: int = 0,
 ) -> GltfScene:
     """A Sponza-like colonnade hall: stone floor, two rows of columns,
-    sphere 'capitals', MASK-alpha foliage planes."""
-    rng = np.random.default_rng(0)
+    sphere 'capitals', optional MASK-alpha foliage planes."""
+    rng = np.random.default_rng(seed)
 
     geoms = []  # (pos, nrm, uv, idx, material, transform)
     quad = _quad()
@@ -170,25 +174,26 @@ def build_colonnade(
             place(cyl, 3, (0.4, 5.0, 0.4), (x, 0, z), uv_scale=2.0)
             place(sph, 4, (0.6, 0.45, 0.6), (x, 5.2, z))
 
-    for i in range(columns * 2):
-        x = rng.uniform(-hall_l * 0.8, hall_l * 0.8)
-        z = rng.uniform(-5, 5)
-        geoms.append(
-            (
-                np.array([[-0.8, 0, 0], [0.8, 0, 0],
-                          [0.8, 1.6, 0], [-0.8, 1.6, 0]], np.float32),
-                np.tile(np.array([[0, 0, 1]], np.float32), (4, 1)),
-                np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
-                np.array([0, 1, 2, 0, 2, 3], np.uint32),
-                5,
-                np.array(
-                    [[np.cos(i), 0, -np.sin(i), x],
-                     [0, 1, 0, rng.uniform(1.0, 4.0)],
-                     [np.sin(i), 0, np.cos(i), z],
-                     [0, 0, 0, 1]], np.float32,
-                ),
+    if foliage:
+        for i in range(columns * 2):
+            x = rng.uniform(-hall_l * 0.8, hall_l * 0.8)
+            z = rng.uniform(-5, 5)
+            geoms.append(
+                (
+                    np.array([[-0.8, 0, 0], [0.8, 0, 0],
+                              [0.8, 1.6, 0], [-0.8, 1.6, 0]], np.float32),
+                    np.tile(np.array([[0, 0, 1]], np.float32), (4, 1)),
+                    np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
+                    np.array([0, 1, 2, 0, 2, 3], np.uint32),
+                    5,
+                    np.array(
+                        [[np.cos(i), 0, -np.sin(i), x],
+                         [0, 1, 0, rng.uniform(1.0, 4.0)],
+                         [np.sin(i), 0, np.cos(i), z],
+                         [0, 0, 0, 1]], np.float32,
+                    ),
+                )
             )
-        )
 
     # Assemble a GltfScene with one mesh per geom and one draw call each.
     positions, normals, uvs, indices = [], [], [], []
@@ -242,9 +247,10 @@ def build_colonnade(
 
 def colonnade_scene(
     columns: int = 6, tessellation: int = 24, tex_size: int = 256,
+    foliage: bool = True, seed: int = 0,
 ) -> CompiledScene:
     return compile_scene(
-        build_colonnade(columns, tessellation, tex_size),
+        build_colonnade(columns, tessellation, tex_size, foliage, seed),
         tex_size=tex_size,
     )
 
@@ -324,3 +330,86 @@ def build_two_masked_quads(tex_size: int = 64) -> GltfScene:
 def two_masked_quads_scene(tex_size: int = 64) -> CompiledScene:
     return compile_scene(build_two_masked_quads(tex_size),
                          tex_size=tex_size)
+
+
+# vkr_tpu reads Sponza from the reference renderer's assets
+# (vkr_tpu/scene/procedural.py:331); the port resolves the same file under
+# $VKR_ASSETS (scene/assets.py)
+SPONZA_ASSET = "Sponza/glTF/Sponza.gltf"
+
+
+def sponza_texture_set(tex_size: int = 512):
+    """Sponza's 25-material / 69-texture set from the reference's glTF
+    (its geometry blob is stripped; the helper reads only the material
+    table and the image files), as vkr_tpu's sponza_texture_set reads it:
+    images in `images` order through the port's own decoders (PIL's
+    convert("RGBA") bytes), each resized with Pillow's BILINEAR
+    (scene/resample.py) to tex_size² unless it is that size already;
+    texture -> image from `textures[*].source`; materials from
+    pbrMetallicRoughness with MASK alpha and alphaCutoff (default 0.5);
+    every sampler REPEAT. Returns (materials, images, texture_image,
+    texture_wrap) for build_colonnade."""
+    import json
+    import os
+
+    from vkr_tpu_torch.scene import gltf as _gltf
+    from vkr_tpu_torch.scene import resample
+    from vkr_tpu_torch.scene.assets import asset_path
+    from vkr_tpu_torch.scene.gltf import WRAP_REPEAT
+
+    path = asset_path(SPONZA_ASSET, "sponza")
+    with open(path) as f:
+        doc = json.load(f)
+    base = os.path.dirname(path)
+    images = []
+    for img in doc.get("images", []):
+        with open(os.path.join(base, img["uri"]), "rb") as f:
+            rgba = _gltf._decode_image(f.read())
+        images.append(resample.pil_bilinear_resize(rgba, tex_size,
+                                                   tex_size))
+    texture_image = [t["source"] for t in doc.get("textures", [])]
+    materials = []
+    for m in doc.get("materials", []):
+        pbr = m.get("pbrMetallicRoughness", {})
+        materials.append(Material(
+            albedo_tex=pbr.get("baseColorTexture", {}).get("index", -1),
+            mr_tex=pbr.get("metallicRoughnessTexture", {}).get("index",
+                                                               -1),
+            clip_alpha=m.get("alphaMode") == "MASK",
+            alpha_cutoff=m.get("alphaCutoff", 0.5),
+        ))
+    return materials, images, texture_image, [WRAP_REPEAT] * len(images)
+
+
+def sponza_colonnade_scene(
+    columns: int = 24, tessellation: int = 80, tex_size: int = 512,
+    foliage: bool = True, seed: int = 0,
+) -> CompiledScene:
+    """bench.py's default workload: colonnade geometry at Sponza-like
+    triangle counts (314,988 at the defaults) textured with Sponza's
+    25-material / 69-texture set. The colonnade's 6 material slots map
+    onto Sponza's materials as vkr_tpu maps them: the 5 solid slots onto
+    the first solid materials with an albedo texture, in turn, and the
+    foliage onto the first MASK material."""
+    scene = build_colonnade(columns, tessellation, tex_size, foliage, seed)
+    materials, images, texture_image, wrap = sponza_texture_set(tex_size)
+    mask_ids = [i for i, m in enumerate(materials) if m.clip_alpha]
+    solid_ids = [i for i, m in enumerate(materials)
+                 if not m.clip_alpha and m.albedo_tex >= 0]
+    remap = [solid_ids[i % len(solid_ids)] for i in range(5)]
+    remap.append(mask_ids[0] if mask_ids else solid_ids[0])
+    meshes = [
+        [Primitive(vertex_offset=p.vertex_offset,
+                   index_offset=p.index_offset,
+                   index_count=p.index_count,
+                   material=remap[p.material])
+         for p in prims]
+        for prims in scene.meshes
+    ]
+    scene = GltfScene(
+        positions=scene.positions, normals=scene.normals, uvs=scene.uvs,
+        indices=scene.indices, meshes=meshes, materials=materials,
+        images=images, texture_image=texture_image, texture_wrap=wrap,
+        draw_calls=scene.draw_calls, nodes=scene.nodes,
+    )
+    return compile_scene(scene, tex_size=tex_size)

@@ -2,8 +2,13 @@
 §5.1), as vkr_tpu/tools/profile.py times its passes: each of the frame's
 ten passes is timed standalone on one G-buffer of the colonnade, its
 first call and then --reps calls bracketed by torch.cuda.synchronize().
+--scene sponza profiles bench.py's default workload instead
+(sponza_colonnade_scene(columns=24, tessellation=80), Sponza's textures
+read from $VKR_ASSETS).
 
     python -m vkr_tpu_torch.tools.profile --width 1920 --height 1080
+    VKR_ASSETS=<assets/gltf> python -m vkr_tpu_torch.tools.profile \
+        --scene sponza --tex-size 512
 """
 
 from __future__ import annotations
@@ -29,12 +34,6 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=8)
     args = parser.parse_args(argv)
 
-    if args.scene == "sponza":
-        raise NotImplementedError(
-            "--scene sponza: sponza_colonnade_scene is not ported; it reads "
-            "the reference renderer's Sponza textures (ROADMAP queue 1, the "
-            "optional Sponza item after item 16)")
-
     from vkr_tpu_torch.core.platform import ensure_platform
 
     device = ensure_platform()
@@ -51,13 +50,18 @@ def main(argv=None):
     from vkr_tpu_torch.passes.gbuffer import render_gbuffer, upload_scene
     from vkr_tpu_torch.passes.shading import ShadingParams, deferred_shading
     from vkr_tpu_torch.scene import colonnade_scene
+    from vkr_tpu_torch.scene.procedural import sponza_colonnade_scene
     from vkr_tpu_torch.tools.render import synchronize
 
     W, H = args.width, args.height
     cfg = RenderConfig(width=W, height=H)
-    scene_cpu = colonnade_scene(columns=args.columns,
-                                tessellation=args.tessellation,
-                                tex_size=args.tex_size)
+    if args.scene == "sponza":
+        scene_cpu = sponza_colonnade_scene(columns=24, tessellation=80,
+                                           tex_size=args.tex_size)
+    else:
+        scene_cpu = colonnade_scene(columns=args.columns,
+                                    tessellation=args.tessellation,
+                                    tex_size=args.tex_size)
     scene = upload_scene(scene_cpu, device)
     res = build_ssr_resources(args.lut_size, device=device)
     view = look_at((-18, 2.2, -2), (4, 1.8, 0.5), (0, -1, 0))

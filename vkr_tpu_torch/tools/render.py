@@ -16,15 +16,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import os
 import time
 
 import numpy as np
 
-# The reference renderer's glTF assets are not part of this repository:
-# the Suzanne and Fox presets read them from the directory that VKR_ASSETS
-# names (the reference's assets/gltf), resolved when a preset is loaded.
-ASSETS_ENV = "VKR_ASSETS"
+# The Suzanne and Fox presets read the reference renderer's glTF assets
+# from the directory that VKR_ASSETS names (scene/assets.py).
+from vkr_tpu_torch.scene.assets import ASSETS_ENV, asset_path  # noqa: F401
 
 SCENE_PRESETS = {
     "suzanne": {
@@ -62,25 +60,6 @@ def load_preset(name: str, tex_size: int, columns: int = 8,
         return scene, preset
     return load_scene(preset["path"], tex_size=tex_size,
                       native_sizes=native_sizes), preset
-
-
-def asset_path(asset: str, name: str) -> str:
-    """The path of a reference asset under $VKR_ASSETS; raises
-    FileNotFoundError naming VKR_ASSETS when it is unset, or naming the
-    path when the file is not there."""
-    root = os.environ.get(ASSETS_ENV)
-    if not root:
-        raise FileNotFoundError(
-            f"scene {name!r} reads {asset} from the reference renderer's "
-            f"glTF assets: set {ASSETS_ENV} to its assets/gltf directory, "
-            "or render --scene colonnade")
-    path = os.path.join(root, asset)
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"scene {name!r} reads {path}, which is not there; set "
-            f"{ASSETS_ENV} to the reference renderer's assets/gltf "
-            "directory, or render --scene colonnade")
-    return path
 
 
 def orbit_view(preset, i: int, orbit: float):
