@@ -123,7 +123,21 @@
    phase's checks, and fails unless K1 x3, the march, K4, K5 x3 and K6
    launched in each frame; frame 2 runs under torch.profiler (device ms,
    kernels and copies). Prints the phase's seconds.
-12. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
+12. Bench phase: vkr_tpu_torch/tools/bench.py, bench.py's program, run as
+   a user runs it (`python -m vkr_tpu_torch.tools.bench`, a subprocess
+   each) at its defaults, 1920x1080 and 16 frames, with BENCH_BREAKDOWN=1:
+   BENCH_SCENE=sponza_tex on the Sponza phase's stand-in (VKR_ASSETS),
+   BENCH_SCENE=colonnade with frames in flight and with BENCH_PIPELINE=0
+   in turns (in flight, serial, serial, in flight), and BENCH_FRAMES=1. Fails unless the first three exit 0 with bench.py's
+   four keys on the last stdout line (vs_baseline = round(value / 16, 3)),
+   the stats line (coverage >= 0.98, 15 frames) and the three breakdown
+   lines on stderr, no 'breakdown failed', and K1 x3, the march, K4, K5 x3
+   and K6 launched in each timed frame (the tool's launch line); and
+   unless BENCH_FRAMES=1 exits 1 with bench.py's range error and no scene
+   built. Prints each run's headline, stats line, breakdown, scene+LUTs
+   and compile+first seconds and wall seconds, and the colonnade's
+   medians in flight against serial.
+13. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
    calls them. render --scene colonnade at 1920x1080, 8 frames, --orbit
    0.01 through the kernels (K1, the march, K4, K5 and K6 must launch,
    coverage >= 0.98, the PNG decodes to 1080x1920) and with --no-kernels
@@ -140,7 +154,7 @@
    the next frame) with its ms per frame printed; the showcase into a
    temporary directory (a GIF89a of 32 frames at a third of the size and
    the 1080p still).
-13. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
+14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
    with 2 ranks on this card (it prints what NCCL says; it refuses ranks
    that share a card). Then 4 ranks, processes on this one card in a gloo
    group,
@@ -156,7 +170,7 @@
    1e-6 of that view's one-device frame. Prints the ms per band frame of 4
    ranks sharing one card (no speed-up figure), the gather ms, each rank's
    launches and peak memory.
-14. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
+15. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    and K1's opaque and masked calls on the first probe face, captured with
    their inputs, are run again through the kernel and through its plain
    PyTorch version on the card; each pair must agree within the stated
@@ -172,14 +186,14 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-15. Renders the main phase's 8 frames, the probe phase's 3, the RT
+16. Renders the main phase's 8 frames, the probe phase's 3, the RT
    phase's 3, the glTF phase's 3 trilinear frames, the JPEG glTF
    phase's 3 and the Sponza phase's 3 with the plain versions
    substituted for the kernels, prints each phase's worst dB, and
    requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
    reflections composed in the probe frames), the AO and the final colour
    of every frame.
-16. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
+17. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
    on the probe faces (times per face, launches per start-up) and a
    "(band)" row for each kernel of the band frame (rank 1's calls; its
    launches summed over the 4 ranks' 3 frames), and, last, the line
@@ -190,11 +204,13 @@ Any failed check exits non-zero before the last line is printed.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1649,6 +1665,107 @@ def sponza_phase(res, cfg, device, root):
     return scene, outs
 
 
+# (label, BENCH_* settings, VKR_ASSETS at the stand-in); the colonnade
+# runs with frames in flight and serial in turns: 1, 0, 0, 1
+BENCH_PIPELINED = {"BENCH_SCENE": "colonnade"}
+BENCH_SERIAL = {"BENCH_SCENE": "colonnade", "BENCH_PIPELINE": "0"}
+BENCH_RUNS = (
+    ("sponza_tex (stand-in)", {"BENCH_SCENE": "sponza_tex"}, True),
+    ("colonnade", BENCH_PIPELINED, False),
+    ("colonnade, serial", BENCH_SERIAL, False),
+    ("colonnade, serial, 2nd", BENCH_SERIAL, False),
+    ("colonnade, 2nd", BENCH_PIPELINED, False),
+    ("BENCH_FRAMES=1", {"BENCH_FRAMES": "1"}, False),
+)
+BENCH_TIMED = 15  # completion intervals of the default 16 frames
+BENCH_TIMEOUT_S = 300
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_STATS = re.compile(r"^coverage: (\d\.\d{3})  frames: (\d+)  "
+                         r"min/median/max ms: [\d./]+  p10/p90: [\d./]+  "
+                         r"trimmed25: [\d.]+  merged double-flush pairs: "
+                         r"\d+$", re.M)
+BENCH_SEGMENTS = ("gbuffer(raster+tex)", "mid(hiz+ssr+gtao)",
+                  "tail(shading+taa)")
+BENCH_RANGE_ERROR = ("ERROR: BENCH_FRAMES=1 out of range [2, 18] (>18 exits "
+                     "the hall enclosure; <2 has no timed frame)")
+
+
+def bench_phase(sponza_root):
+    """vkr_tpu_torch/tools/bench.py as a user runs it: `python -m
+    vkr_tpu_torch.tools.bench` in a subprocess for each of BENCH_RUNS, at
+    its defaults (1920x1080, 16 frames) with BENCH_BREAKDOWN=1. Fails
+    unless every run but the last exits 0 with exactly bench.py's four
+    keys on its last stdout line (vs_baseline = round(value / 16, 3)),
+    its stats line (coverage >= 0.98 over 15 frames), the three breakdown
+    lines and no 'breakdown failed' on stderr, and every kernel of the
+    frame launched in each timed frame (the tool's launch line); and
+    unless BENCH_FRAMES=1 exits 1 with bench.py's range error before any
+    scene is built. Returns {label: headline value in ms}."""
+    medians = {}
+    for label, settings, assets in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_")
+               and k not in ("VKR_PLATFORM", "VKR_ASSETS")}
+        env.update(settings, BENCH_BREAKDOWN="1")
+        if assets:
+            env["VKR_ASSETS"] = sponza_root
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "vkr_tpu_torch.tools.bench"], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        err = run.stderr
+        if label == "BENCH_FRAMES=1":
+            check(run.returncode == 1 and BENCH_RANGE_ERROR in err
+                  and "scene+LUTs" not in err and not run.stdout,
+                  f"bench {label}: exit code {run.returncode}, stderr "
+                  f"{err[-2000:]!r}")
+            print(f"bench ({label}): exit code 1, bench.py's range error, "
+                  f"no scene built, {wall_s:.1f} s")
+            continue
+        check(run.returncode == 0, f"bench {label}: exit code "
+              f"{run.returncode}, stderr {err[-4000:]!r}")
+        check(bool(run.stdout.strip()), f"bench {label}: no stdout")
+        last = run.stdout.strip().splitlines()[-1]
+        head = json.loads(last)
+        check(set(head) == BENCH_KEYS
+              and head["metric"] == "1080p_full_pipeline_frame_time"
+              and head["unit"] == "ms" and 0 < head["value"] < math.inf
+              and head["vs_baseline"] == round(head["value"] / 16, 3),
+              f"bench {label}: last line {last!r}")
+        stats = BENCH_STATS.search(err)
+        check(stats is not None and float(stats.group(1)) >= MIN_COVERAGE
+              and int(stats.group(2)) == BENCH_TIMED,
+              f"bench {label}: stats line {stats and stats.group(0)!r}")
+        lines = err.splitlines()
+        segments = [ln for ln in lines if ln.startswith("breakdown ")]
+        check("breakdown failed" not in err and all(
+            any(ln.startswith(f"breakdown {s}: ") for ln in segments)
+            for s in BENCH_SEGMENTS), f"bench {label}: breakdown {segments}")
+        check("backend: cuda" in lines, f"bench {label}: not on the card")
+        counted = [ln for ln in lines if ln.startswith(
+            f"kernel launches in the {BENCH_TIMED} timed frames: ")]
+        check(len(counted) == 1, f"bench {label}: no launch line")
+        launches = ast.literal_eval(counted[0].split(": ", 1)[1])
+        for name, per_frame in MIN_LAUNCHES_PER_FRAME.items():
+            check(launches.get(name, 0) >= per_frame * BENCH_TIMED,
+                  f"bench {label}: {name} launched {launches.get(name, 0)} "
+                  f"times in {BENCH_TIMED} frames")
+        start = [ln for ln in lines
+                 if ln.startswith(("scene+LUTs", "compile+first"))]
+        print(f"bench ({label}; {CARD}): {last}; {stats.group(0)}; "
+              f"{'; '.join(segments)}; {'; '.join(start)}; launches "
+              f"{launches}; {wall_s:.1f} s wall")
+        medians[label] = head["value"]
+    pipelined = [medians["colonnade"], medians["colonnade, 2nd"]]
+    serial = [medians["colonnade, serial"], medians["colonnade, serial, 2nd"]]
+    print(f"bench: colonnade medians, frames in flight {pipelined} ms, "
+          f"serial {serial} ms, in turns; ratio of the sums "
+          f"{sum(pipelined) / sum(serial):.4f}")
+    return medians
+
+
 TOOLS_FRAMES = 8
 TOOLS_ORBIT = 0.01  # rad/frame: render --orbit
 TOOLS_TEX = 512     # render of the glTF scene: --tex-size, uniform mode
@@ -2976,6 +3093,10 @@ def main() -> int:
     # ---- Sponza phase: bench.py's default workload on the stand-in
     sponza_root = os.path.join(scratch.name, "assets")
     sponza_scene, sponza_outs = sponza_phase(res, cfg, device, sponza_root)
+
+    # ---- bench phase: tools/bench.py as a user runs it, on the stand-in
+    # and on the colonnade
+    bench_phase(sponza_root)
 
     # ---- tools phase: the user entry points at full width
     tools_phase(gltf_path, scratch.name, device, sponza_root)

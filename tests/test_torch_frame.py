@@ -197,7 +197,8 @@ def test_port_imports_no_jax():
                  "convert", "scene.gltf", "raster.resolve", "raster.kernel",
                  "scene.camera", "core.platform", "native", "tools.render",
                  "tools.parity", "tools.profile", "tools.scene_info",
-                 "tools.viewer", "tools.showcase", "scene.jpeg", "core.aot"):
+                 "tools.viewer", "tools.showcase", "scene.jpeg", "core.aot",
+                 "tools.bench"):
         assert "vkr_tpu_torch." + name in imported, name
 
 

@@ -2,5 +2,6 @@
 `python -m vkr_tpu_torch.tools.<name>` on the card (VKR_PLATFORM=cpu for
 the CPU): render (the headless app), parity (the kernel frame against the
 oracle frame, PSNR per channel), profile (per-pass times), scene_info
-(the glTF loader's log), viewer (the live fly-through in a browser) and
-showcase (the dolly capture). Importing a tool runs nothing."""
+(the glTF loader's log), viewer (the live fly-through in a browser),
+showcase (the dolly capture) and bench (bench.py's timed 1080p orbit).
+Importing a tool runs nothing."""
