@@ -24,6 +24,25 @@
    PassGraph (every pass is built through the registry under add_task):
    fails unless its records name vkr_tpu's default chain in order, and
    prints the dump's first lines.
+3b. Traced phase: the frame as vkr_tpu runs it, traced once and
+   replayed: core/aot.py:cached_jit captures render_frame into CUDA
+   graphs (the FrameState donated). On this colonnade, bench.py's
+   16-column colonnade (columns=16, tessellation=64, tex_size=512) and,
+   after its phase, the Sponza stand-in: 8 frames of the bench orbit
+   eagerly and through cached_jit; fails unless every traced frame's
+   colour, FrameState fields and aux tensors equal the eager frame's bit
+   for bit, overflow is 0 on every replay, frame 2's eager body at the
+   captured bin-pair capacities runs under
+   torch.cuda.set_sync_debug_mode("error"), and one profiled replay runs
+   K1's walk x3, the march, K4, K5 x3 and K6 by their CUDA symbol names.
+   The same on 3 frames of the SSR-off frame (after its phase), the probe
+   frame (after its phase) and the glTF phase's trilinear frame. Prints,
+   beside the card's name and limit, capture seconds, graph nodes per
+   frame, a replay's device ms, host dispatch ms per replay, the serial
+   wall medians of eager, traced, traced and eager blocks of 6 frames, and
+   the graph pools' bytes. The RT phase fails unless cached_jit returns
+   the ray-traced frame uncaptured (its rule) and prints that it ran
+   eagerly.
 4. SSR-off phase: 3 frames of the same orbit with enable_ssr=False (the
    single-strategy GTAO pass), with its own counters and checks.
 5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
@@ -232,6 +251,8 @@ WINDOW_EXACT_MAX, WINDOW_EXACT_MEAN = 1e-3, 5e-5
 WARMUP_FRAMES = 2
 CAPTURE_FRAME = 1
 SCENE = dict(columns=24, tessellation=80, tex_size=1024)
+# bench.py's other scene (BENCH_SCENE=colonnade)
+BENCH_COLONNADE = dict(columns=16, tessellation=64, tex_size=512)
 SCENE_TRIANGLES, SCENE_MASKED = 314_988, 96
 SHADOW_SIZE = 1024
 MIN_COVERAGE = 0.98
@@ -1278,6 +1299,207 @@ def aot_check(scene, res, cfg, device):
     return aot_s, len(via)
 
 
+# The traced frame's kernels by CUDA symbol, per profiled replay: K1's walk
+# (merged raster and resolve), the march, K4, K5 and K6.
+TRACED_SYMBOLS = {"gbuf_tiles": "walk_kernel<true>",
+                  "hierarchical_march": "ssr_march_kernel",
+                  "window_gather_bilinear_multi": "window_gather_multi_kernel",
+                  "window_gather_bilinear": "window_gather_k5",
+                  "taa_history_gather": "taa_history_gather_kernel"}
+TRACED_FRAMES = 8
+TRACED_OTHER_FRAMES = 3  # the SSR-off, trilinear and probe frames
+TRACED_TIMED = 6  # serial frames per block of the interleaved timing
+SYNC_FRAME = 2
+
+
+def _frame_tensors(color, state, aux):
+    """Every tensor a frame returns (the colour, each FrameState field,
+    aux's tensors and G-buffer), cloned."""
+    import torch
+
+    ts = [color] + [getattr(state, f) for f in state.FIELDS]
+    for k in sorted(aux):
+        v = aux[k]
+        ts += (list(v) if isinstance(v, tuple) else [v])
+    return [t.clone() for t in ts if isinstance(t, torch.Tensor)]
+
+
+def graph_nodes(frame):
+    """Nodes of a graph of the captured frame: its first graph's body
+    captured once more into a torch.cuda.CUDAGraph(keep_graph=True), the
+    only kind whose cudaGraph_t PyTorch keeps, and counted with
+    cudaGraphGetNodes (the libcudart this process loaded, else the
+    toolkit's). None where this PyTorch has no keep_graph."""
+    import ctypes
+    import glob
+
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph):
+        frame._body(0)
+    with open("/proc/self/maps") as f:
+        libs = sorted({ln.split()[-1] for ln in f if "libcudart" in ln})
+    libs += glob.glob("/usr/local/cuda/lib64/libcudart.so*")
+    rt = ctypes.CDLL(libs[0])
+    n = ctypes.c_size_t(0)
+    err = rt.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                               None, ctypes.byref(n))
+    check(err == 0, f"cudaGraphGetNodes: CUDA error {err}")
+    return n.value
+
+
+def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
+                 probe_grid=None, timing=False):
+    """The frame through core/aot.py:cached_jit (captured, replayed, the
+    FrameState donated) against the eager frame: n_frames of the bench
+    orbit, every output tensor bit-equal per frame, overflow 0 on every
+    replay; frame SYNC_FRAME's eager body at the captured capacities under
+    set_sync_debug_mode("error"); one replay under torch.profiler, whose
+    kernels must hold each of `symbols` (wrapper -> launches) by its CUDA
+    name. timing: host dispatch ms per replay and the interleaved wall
+    medians (eager, traced, traced, eager), TRACED_TIMED serial frames
+    each. Returns a dict of what it measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vkr_tpu_torch.core.aot import CapturedFrame, cached_jit
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import camera_frame, render_frame
+    from vkr_tpu_torch.raster import setup
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+
+    def fn(s, st, c):
+        return render_frame(s, st, c, res, cfg, probe_grid=probe_grid)
+
+    def cam(i):
+        return camera_frame(cfg, bench_orbit_view(i),
+                            bench_orbit_view(max(i - 1, 0)), i, device)
+
+    t_phase = time.perf_counter()
+    state, eager, counts = FrameState.initial(HEIGHT, WIDTH, device), [], []
+    for i in range(n_frames):
+        plan = setup.PairPlan()
+        with setup.pair_plan(plan):
+            out = fn(scene, state, cam(i))
+        state = out[1]
+        eager.append(_frame_tensors(*out))
+        counts.append(plan.counts)
+        if i == SYNC_FRAME - 1:
+            # the traced body of frame SYNC_FRAME must not synchronise
+            caps = setup.static_capacities(counts[0])
+            c2 = cam(SYNC_FRAME)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with setup.pair_plan(setup.PairPlan(caps)):
+                    fn(scene, state, c2)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    cam0 = cam(0)
+    frame = cached_jit(f"traced {label}", fn, (scene, state, cam0),
+                       donate_argnums=(1,))
+    check(isinstance(frame, CapturedFrame),
+          f"traced {label}: cached_jit did not capture the frame")
+    for i in range(n_frames):
+        color, state, aux = frame(scene, state, cam0 if i == 0 else cam(i))
+        torch.cuda.synchronize()
+        got = _frame_tensors(color, state, aux)
+        same = len(got) == len(eager[i]) and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, eager[i]))
+        check(same, f"traced {label} frame {i}: differs from the eager frame")
+        check(int(aux["overflow"]) == 0, f"traced {label} frame {i}: "
+              f"{int(aux['overflow'])} bin pairs dropped")
+    torch.cuda.empty_cache()  # the graphs' pools stay while they live
+    pool_bytes = torch.cuda.memory_reserved() - reserved
+    del eager
+
+    result = {}
+    if timing:
+        dispatch, blocks = [], []
+        for mode in ("eager", "traced", "traced", "eager"):
+            walls = []
+            for i in range(TRACED_TIMED):
+                c = cam(n_frames + i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "traced":
+                    color, state, aux = frame(scene, state, c)
+                    dispatch.append(time.perf_counter() - t0)
+                else:
+                    fn(scene, FrameState.initial(HEIGHT, WIDTH, device), c)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            blocks.append((mode, statistics.median(walls) * 1e3))
+        # a call's host time split: the argument copies (CapturedFrame
+        # ._load) and graph.replay(), the rest of a call around them
+        load, replay = [], []
+        for i in range(TRACED_TIMED):
+            c = cam(n_frames + TRACED_TIMED + i)
+            torch.cuda.synchronize()
+            g = 1 - frame._last
+            t0 = time.perf_counter()
+            frame._load((scene, state, c), g)
+            t1 = time.perf_counter()
+            frame._slots[g][0].replay()
+            load.append(t1 - t0)
+            replay.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            frame._last, state = g, frame._sets[1 - g]
+            frame._returned = state
+        result.update(dispatch_ms=statistics.median(dispatch) * 1e3,
+                      load_ms=statistics.median(load) * 1e3,
+                      replay_ms=statistics.median(replay) * 1e3,
+                      blocks=blocks)
+    # a torch.profiler run leaves the host's launches slower: it comes last
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c = cam(n_frames + 2 * TRACED_TIMED)
+        color, state, aux = frame(scene, state, c)
+        torch.cuda.synchronize()
+    device_ms, n_ops = device_time(prof)
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    seen = {w: sum(n for k, n in names if sym in k)
+            for w, sym in TRACED_SYMBOLS.items()}
+    for wrapper, want in symbols.items():
+        check(seen[wrapper] >= want, f"traced {label}: a profiled replay ran "
+              f"{TRACED_SYMBOLS[wrapper]} {seen[wrapper]} times, not {want}")
+    nodes = graph_nodes(frame)
+    result.update(capture_s=frame.capture_seconds, nodes=nodes,
+                  device_ms=device_ms, ops=n_ops, pool_bytes=pool_bytes,
+                  capacities=frame.capacities, counts=counts[0],
+                  symbols=seen)
+    check(int(aux["overflow"]) == 0, f"traced {label}: overflow in the "
+          "timed and profiled replays")
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"traced {label}: {n_frames} frames through cached_jit equal the "
+          f"eager frames bit for bit (colour, FrameState, aux), overflow 0; "
+          f"frame {SYNC_FRAME}'s body clean under set_sync_debug_mode"
+          f"('error'); capture {result['capture_s']:.3f} s (warm-up and two "
+          f"graphs), graph nodes per frame {nodes}, a replay's device "
+          f"{device_ms:.3f} ms in {n_ops} kernels and copies, kernels by "
+          f"symbol {seen}, graph pools and buffers {pool_bytes} bytes, "
+          f"bin-pair capacities {frame.capacities} for the capture frame's "
+          f"{counts[0]}" + (
+              f"; host ms per call {result['dispatch_ms']:.3f} (argument "
+              f"copies {result['load_ms']:.3f}, graph.replay() "
+              f"{result['replay_ms']:.3f}), "
+              f"serial wall medians (eager, traced, traced, eager) "
+              f"{[round(ms, 3) for _, ms in result['blocks']]} ms"
+              if timing else "") + f"; {result['phase_s']:.1f} s")
+    return result
+
+
 def jpeg_gltf_phase(cfg, res, device, tmp):
     """The glTF phase's colonnade with the committed JPEG textures: every
     decoded texture held to PIL's digest, JPEG_FRAMES default frames with
@@ -1747,7 +1969,9 @@ def bench_phase(sponza_root):
         counted = [ln for ln in lines if ln.startswith(
             f"kernel launches in the {BENCH_TIMED} timed frames: ")]
         check(len(counted) == 1, f"bench {label}: no launch line")
-        launches = ast.literal_eval(counted[0].split(": ", 1)[1])
+        # "{...} (the capture's {...} per frame times 15 replays)"
+        launches = ast.literal_eval(
+            counted[0].split(": ", 1)[1].split(" (", 1)[0])
         for name, per_frame in MIN_LAUNCHES_PER_FRAME.items():
             check(launches.get(name, 0) >= per_frame * BENCH_TIMED,
                   f"bench {label}: {name} launched {launches.get(name, 0)} "
@@ -1907,17 +2131,24 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
               f"render {label}: PNG shape {img.shape}")
         check(got["coverage"] >= MIN_COVERAGE,
               f"render {label}: coverage {got['coverage']}")
+        # the frames are captured: a replay counts no launch, the capture
+        # records each frame's (render.main's launches_per_frame)
+        recorded = got["launches_per_frame"]
+        check(recorded is not None, f"render {label}: the frame was not "
+              "captured")
         if label == "kernels":
             for name, per_frame in MIN_LAUNCHES_PER_FRAME.items():
-                check(launches.get(name, 0) >= per_frame * TOOLS_FRAMES,
-                      f"render: {name} launched {launches.get(name, 0)} "
-                      f"times in {TOOLS_FRAMES} frames")
+                check(recorded.get(name, 0) >= per_frame,
+                      f"render: the captured frame launches {name} "
+                      f"{recorded.get(name, 0)} times")
         else:
-            check(not launches, f"render --no-kernels launched {launches}")
+            check(not launches and not recorded,
+                  f"render --no-kernels launched {launches}")
         print(f"tools render ({label}): {TOOLS_FRAMES} frames at "
               f"{WIDTH}x{HEIGHT}, orbit {TOOLS_ORBIT}, steady frame "
-              f"{got['steady_ms']:.3f} ms, coverage {got['coverage']:.4f}, "
-              f"launches {launches}")
+              f"{got['steady_ms']:.3f} ms (replays), coverage "
+              f"{got['coverage']:.4f}, launches per captured frame "
+              f"{recorded}")
     db = psnr(torch.from_numpy(outs["kernels"]).double() / 255.0,
               torch.from_numpy(outs["oracle"]).double() / 255.0)
     print(f"tools render: colour PNG, kernels vs --no-kernels (the oracle "
@@ -1952,8 +2183,9 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
     got = render.main(["--scene", gltf_path, "--tex-size", str(TOOLS_TEX),
                        *size, "--frames", "2", "--out", out])
     check(decode(out).shape == (HEIGHT, WIDTH, 3)
-          and kernels.LAUNCHES.get("gbuf_tiles", 0) >= 6,
-          f"render of the glTF scene: launches {dict(kernels.LAUNCHES)}")
+          and (got["launches_per_frame"] or {}).get("gbuf_tiles", 0) >= 3,
+          f"render of the glTF scene: launches per captured frame "
+          f"{got['launches_per_frame']}")
     print(f"tools render (glTF, uniform {TOOLS_TEX}): steady frame "
           f"{got['steady_ms']:.3f} ms, coverage {got['coverage']:.4f}")
 
@@ -2498,7 +2730,7 @@ def view_rank(rank, n, port, tmp, backend):
     out = {"secs": time.perf_counter() - t0,
            "launches": dict(kernels.LAUNCHES),
            "peak_bytes": torch.cuda.max_memory_allocated(device),
-           "frame_index": new_states.frame_index}
+           "frame_index": new_states.frame_index.tolist()}
     if rank == 0:
         torch.save(colors.cpu(), os.path.join(tmp, "views.pt"))
     dist.barrier()
@@ -2646,7 +2878,7 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
         view_diff.append(float((views[v] - color).abs().max()))
     check(max(view_diff) <= BAND_COLOR_ATOL, f"views: max |diff| to the "
           f"one-device frames {view_diff}")
-    check(all(r["frame_index"] == (1,) * n_ranks for r in view_ranks),
+    check(all(r["frame_index"] == [1] * n_ranks for r in view_ranks),
           "views: the batched frame_index after one frame from fresh "
           "states")
 
@@ -2867,6 +3099,19 @@ def main() -> int:
           f"{launches}")
     print_medians("main", secs)
 
+    # ---- traced phase: the frame as vkr_tpu runs it, captured and
+    # replayed (core/aot.py:cached_jit), against the eager frame, on
+    # bench.py's two scenes and this colonnade (the Sponza stand-in after
+    # its phase; the SSR-off, probe and trilinear frames after theirs)
+    traced = {"colonnade": traced_phase(
+        "colonnade", scene, res, cfg, device, TRACED_FRAMES,
+        MIN_LAUNCHES_PER_FRAME, timing=True)}
+    scene16 = upload_scene(colonnade_scene(**BENCH_COLONNADE), device)
+    traced["16-column colonnade"] = traced_phase(
+        "16-column colonnade", scene16, res, cfg, device, TRACED_FRAMES,
+        MIN_LAUNCHES_PER_FRAME, timing=True)
+    del scene16
+
     # ---- SSR-off phase: the first slice's frame ----
     cfg_off = dataclasses.replace(cfg, enable_ssr=False)
     kernels.LAUNCHES.clear()
@@ -2878,6 +3123,9 @@ def main() -> int:
           "ssr-off: the march launched with SSR off")
     print(f"ssr-off: {SSR_OFF_FRAMES} frames, launches {off_launches}")
     print_medians("ssr-off", off_secs)
+    traced["SSR off"] = traced_phase(
+        "SSR off", scene, res, cfg_off, device, TRACED_OTHER_FRAMES,
+        SSR_OFF_MIN_LAUNCHES_PER_FRAME)
     del off_outs
 
     # ---- shadow phase: K7 ----
@@ -2943,6 +3191,9 @@ def main() -> int:
           f"{probe_launches}; share of SSR-empty pixels filled by a probe "
           f"hit per frame {[round(f, 4) for f in filled]}")
     print_medians("probe", probe_secs)
+    traced["probe"] = traced_phase(
+        "probe", scene, res, cfg_probe, device, TRACED_OTHER_FRAMES,
+        MIN_LAUNCHES_PER_FRAME, probe_grid=grid)
 
     # ---- RT phase: ray-traced GTAO over the scene grid
     from vkr_tpu_torch.frame import build_scene_tri_grid
@@ -2995,6 +3246,16 @@ def main() -> int:
           f"device memory {peak_bytes} bytes ({base_bytes} allocated before "
           f"the frames)")
     print_medians("rt", rt_secs)
+    from vkr_tpu_torch.core.aot import cached_jit
+    from vkr_tpu_torch.frame import render_frame
+
+    def rt_frame(s, st, c):
+        return render_frame(s, st, c, res, cfg_rt, tri_grid=tri_grid)
+    check(cached_jit("rt", rt_frame, (scene, None, None)) is rt_frame,
+          "rt: cached_jit captured the ray-traced GTAO frame")
+    print("rt: the ray-traced GTAO frame ran eagerly: cached_jit returns it "
+          "uncaptured by its rule (core/aot.py: the any-hit walk compacts "
+          "the live rays with a data-dependent size)")
 
     # ---- variants phase: the other GTAO passes and SSAO at 1080p
     from vkr_tpu_torch.frame import _inv4, _normal_mat4, camera_frame
@@ -3079,6 +3340,9 @@ def main() -> int:
     os.makedirs(gltf_dir)
     gltf_scene, cfg_gltf, gltf_outs, gltf_path = gltf_phase(
         cfg, res, device, gltf_dir)
+    traced["glTF trilinear"] = traced_phase(
+        "glTF trilinear", gltf_scene, res, cfg_gltf, device,
+        TRACED_OTHER_FRAMES, MIN_LAUNCHES_PER_FRAME)
 
     # ---- JPEG glTF phase: the committed JPEG textures through the port's
     # decoder, the default frame on them; the AOT analog on the main frame
@@ -3093,6 +3357,11 @@ def main() -> int:
     # ---- Sponza phase: bench.py's default workload on the stand-in
     sponza_root = os.path.join(scratch.name, "assets")
     sponza_scene, sponza_outs = sponza_phase(res, cfg, device, sponza_root)
+    traced["Sponza stand-in"] = traced_phase(
+        "Sponza stand-in", sponza_scene, res, cfg, device, TRACED_FRAMES,
+        MIN_LAUNCHES_PER_FRAME, timing=True)
+    print(f"traced phase: {sum(t['phase_s'] for t in traced.values()):.1f} "
+          f"s over {list(traced)} on {CARD}")
 
     # ---- bench phase: tools/bench.py as a user runs it, on the stand-in
     # and on the colonnade

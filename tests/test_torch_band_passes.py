@@ -267,7 +267,7 @@ def _gtao_params(hall, mod, conv):
     return mod.GTAOParams(normal_mat=conv(hall["nm"]), **hall["p"])
 
 
-BASE_ANGLE = tgtao.frame_base_angle(1)
+BASE_ANGLE = float(tgtao.frame_base_angle(1))  # a host float: both packages
 
 
 def test_gtao_main_mis_band(hall):

@@ -59,7 +59,7 @@ def small(monkeypatch):
     calls = []
 
     def counted(scene, state, cam, *a, **kw):
-        calls.append(state.frame_index)
+        calls.append(int(state.frame_index))
         return render_frame(scene, state, cam, *a, **kw)
 
     monkeypatch.setattr(procedural, "colonnade_scene", lambda **kw: colonnade(
@@ -146,8 +146,9 @@ def test_bench_end_to_end(env, small, monkeypatch, capsys):
     """main() at 128x64, 3 frames: exit code 0, the headline's four keys
     last on stdout, the coverage line over the 2 timed frames, the three
     breakdown lines and their sum on stderr (BENCH_BREAKDOWN=auto runs
-    it after a start-up under 900 s), and the start-up split where
-    BENCH_STARTUP_PROFILE asks for it."""
+    it after a start-up under 900 s), and the start-up split (build,
+    warm-up plus capture, first replay) where BENCH_STARTUP_PROFILE asks
+    for it."""
     from vkr_tpu_torch.tools import bench
 
     monkeypatch.setenv("BENCH_FRAMES", "3")
@@ -168,7 +169,8 @@ def test_bench_end_to_end(env, small, monkeypatch, capsys):
     assert re.search(r"^scene\+LUTs: [\d.]+s \(1260 tris\)$", err, re.M)
     profiled = "BENCH_STARTUP_PROFILE" in env
     assert ("startup: kernels+native build/load" in err) == profiled
-    assert ("startup: first-exec" in err) == profiled
+    assert ("startup: warm-up+capture" in err) == profiled
+    assert ("startup: first-replay" in err) == profiled
 
 
 @pytest.mark.parametrize("fault", ["overflow", "coverage", "breakdown"])
@@ -238,7 +240,7 @@ def test_frames_in_flight_wait_on_the_previous_frame(small, monkeypatch,
             log.append(f"wait {self.i}")
 
     def logged(scene, state, *a, **kw):
-        log.append(f"dispatch {state.frame_index}")
+        log.append(f"dispatch {int(state.frame_index)}")
         return render_frame(scene, state, *a, **kw)
 
     monkeypatch.setattr(frame, "render_frame", logged)

@@ -243,8 +243,9 @@ def test_cached_jit_equals_the_frame(small_frame, monkeypatch):
 
 def test_cached_jit_builds_for_cuda_arguments(monkeypatch, capsys):
     """Arguments on the card: the kernel libraries and the native library
-    are built and loaded before the function is returned (verbose says
-    so on stderr); VKR_AOT=0 skips that."""
+    are built and loaded before the captured frame is returned (verbose
+    says so on stderr); VKR_AOT=0 skips that, and the frame is captured
+    all the same (a CapturedFrame, not fn)."""
     from vkr_tpu_torch import kernels, native
     from vkr_tpu_torch.core import aot
 
@@ -258,10 +259,12 @@ def test_cached_jit_builds_for_cuda_arguments(monkeypatch, capsys):
     def fn(x):
         return x + 1
     monkeypatch.setenv("VKR_AOT", "0")
-    assert aot.cached_jit("f", fn, (None,), verbose=True) is fn
+    frame = aot.cached_jit("f", fn, (None,), verbose=True)
+    assert isinstance(frame, aot.CapturedFrame) and frame.fn is fn
     assert calls == []
     monkeypatch.setenv("VKR_AOT", "1")
-    assert aot.cached_jit("f", fn, (None,), verbose=True) is fn
+    frame = aot.cached_jit("f", fn, (None,), verbose=True)
+    assert isinstance(frame, aot.CapturedFrame) and frame.fn is fn
     assert calls == ["build", *kernels.SOURCES, "native"]
     assert "aot: f: CUDA kernels" in capsys.readouterr().err
 
@@ -295,8 +298,8 @@ def test_track_jit_hot_reload(tmp_path):
         sys.path.remove(str(tmp_path))
         sys.modules.pop("hot_jit_pass_mod", None)
         registry._REGISTRY.pop("hot_jit_test_pass", None)
-        if frame in registry._TRACKED_CACHES:
-            registry._TRACKED_CACHES.remove(frame)
+        if frame is not None:
+            registry._TRACKED_JITS.discard(frame)
 
 
 def test_clear_jit_caches_empties_tracked_caches():
@@ -315,7 +318,7 @@ def test_clear_jit_caches_empties_tracked_caches():
         registry.clear_jit_caches()
         assert table.cache_info().currsize == 0
     finally:
-        registry._TRACKED_CACHES.remove(table)
+        registry._TRACKED_JITS.discard(table)
 
 
 # ----------------------------------------------------------------- the PDF LUT

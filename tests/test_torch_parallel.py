@@ -164,7 +164,7 @@ def _session(rank, n, kind, views):
             camera_frame_from_numpy(cams, "cpu"), res, cfg, mesh)
         out["views"] = dict(colors=colors.numpy(),
                             prev_depth=states.prev_depth.numpy(),
-                            frame_index=states.frame_index)
+                            frame_index=states.frame_index.numpy())
     dist.barrier()
     return out
 
@@ -340,7 +340,9 @@ def test_views_sharded_match_render_frame(small):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     states = framestate_from_numpy(small[2][1], "cpu")
     ours = batch_states(lambda: FrameState.initial(64, 64, "cpu"), 4)
-    assert states.frame_index == ours.frame_index == (0, 0, 0, 0)
+    assert states.frame_index.dtype == ours.frame_index.dtype == torch.int32
+    assert (states.frame_index.tolist() == ours.frame_index.tolist()
+            == [0, 0, 0, 0])
     for name in FrameState.FIELDS[:-1]:
         assert torch.equal(getattr(states, name), getattr(ours, name)), name
     scene = upload_scene(scene_np, "cpu")
@@ -350,7 +352,8 @@ def test_views_sharded_match_render_frame(small):
     for out in small[0]:
         v = out["views"]
         assert v["colors"].shape == (4, 64, 64, 3)
-        assert v["frame_index"] == (1, 1, 1, 1)
+        assert v["frame_index"].dtype == np.int32
+        assert v["frame_index"].tolist() == [1, 1, 1, 1]
         for i, (color, state, _) in enumerate(want):
             np.testing.assert_array_equal(v["colors"][i], color.numpy())
             np.testing.assert_array_equal(v["prev_depth"][i],
@@ -370,9 +373,11 @@ def test_batch_and_unbatch():
     cfg, _, _ = _small()
     states = batch_states(lambda: FrameState.initial(8, 6, "cpu"), 3)
     assert states.taa_history.shape == (3, 8, 6, 3)
-    assert states.frame_index == (0, 0, 0)
+    assert states.frame_index.dtype == torch.int32
+    assert states.frame_index.tolist() == [0, 0, 0]
     one = unbatch_state(states, 2)
-    assert one.frame_index == 0 and one.prev_depth.shape == (8, 6)
+    assert one.frame_index.shape == () and int(one.frame_index) == 0
+    assert one.prev_depth.shape == (8, 6)
     cams = _view_cams(cfg, 3)
     b = batch_cams(cams)
     assert b.mvp.shape == (3, 4, 4) and b.jitter.shape == (3, 2)

@@ -167,7 +167,8 @@ def test_checkpoint_vkr_tpu_to_port(tmp_path):
     jstate = JState(frame_index=jnp.asarray(7, jnp.int32), **arrays)
     path = jckpt.save_state(jstate, str(tmp_path / "j.npz"))
     state = tckpt.load_state(path, "cpu")
-    assert state.frame_index == 7 and isinstance(state.frame_index, int)
+    assert state.frame_index.dtype == torch.int32
+    assert state.frame_index.shape == () and int(state.frame_index) == 7
     for name in arrays:
         got = getattr(state, name)
         assert got.dtype == torch.float32 and got.device.type == "cpu"
@@ -179,7 +180,8 @@ def test_checkpoint_port_to_vkr_tpu(tmp_path):
 
     arrays = {k: torch.from_numpy(v.astype(np.float32))
               for k, v in _state_arrays(3).items()}
-    state = FrameState(frame_index=11, **arrays)
+    state = FrameState(frame_index=torch.tensor(11, dtype=torch.int32),
+                       **arrays)
     path = tckpt.save_state(state, str(tmp_path / "dir" / "t.npz"))
     with np.load(path) as data:
         assert data["frame_index"].dtype == np.int32

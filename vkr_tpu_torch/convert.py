@@ -74,28 +74,25 @@ def framestate_from_numpy(state_arrays, device) -> FrameState:
     arrays (vkr_tpu's FrameState, or framestate_to_numpy's dict). A batch
     of views (vkr_tpu's parallel.sharding.batch_states: every field with a
     leading view axis, frame_index (V,)) becomes the port's batched
-    FrameState (parallel.sharding.batch_states), frame_index a tuple."""
+    FrameState (parallel.sharding.batch_states). frame_index is int32,
+    the other fields float32."""
     def get(name):
         if isinstance(state_arrays, dict):
             return state_arrays[name]
         return getattr(state_arrays, name)
 
-    tensors = {
-        name: torch.as_tensor(np.array(get(name), np.float32), device=device)
-        for name in FrameState.FIELDS if name != "frame_index"
-    }
-    index = np.asarray(get("frame_index"))
-    return FrameState(frame_index=(tuple(int(i) for i in index) if index.ndim
-                                   else int(index)), **tensors)
+    return FrameState(**{
+        name: torch.as_tensor(
+            np.array(get(name), np.int32 if name == "frame_index"
+                     else np.float32), device=device)
+        for name in FrameState.FIELDS})
 
 
 def framestate_to_numpy(state: FrameState) -> dict:
-    """FrameState -> dict of numpy arrays (frame_index as int32, 0-d, or
-    (V,) for a batched FrameState)."""
-    out = {name: getattr(state, name).detach().cpu().numpy()
-           for name in FrameState.FIELDS if name != "frame_index"}
-    out["frame_index"] = np.asarray(state.frame_index, np.int32)
-    return out
+    """FrameState -> dict of numpy arrays (frame_index int32, 0-d, or (V,)
+    for a batched FrameState)."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in FrameState.FIELDS}
 
 
 def camera_frame_from_numpy(cam, device):

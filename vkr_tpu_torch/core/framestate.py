@@ -25,7 +25,11 @@ class FrameState:
       gtao_prev       (H/2, W/2)   previous accumulated AO
       ssr_history     (H/2, W/2, 3) blurred SSR history
       prev_mvp        (4, 4)       previous view-projection
-      frame_index     int          host-side frame counter (jitter, noise)
+      frame_index     ()           int32 frame counter (noise, history
+                                   clears), on the state's device as in
+                                   vkr_tpu, so a captured frame
+                                   (core/aot.py) advances it with no host
+                                   read; a batch of views holds (V,)
     """
 
     prev_depth: torch.Tensor
@@ -35,7 +39,7 @@ class FrameState:
     gtao_prev: torch.Tensor
     ssr_history: torch.Tensor
     prev_mvp: torch.Tensor
-    frame_index: int
+    frame_index: torch.Tensor
 
     FIELDS = ("prev_depth", "prev_depth_half", "taa_history", "gtao_accum",
               "gtao_prev", "ssr_history", "prev_mvp", "frame_index")
@@ -54,7 +58,7 @@ class FrameState:
             gtao_prev=torch.zeros((hh, hw), **f32),
             ssr_history=torch.zeros((hh, hw, 3), **f32),
             prev_mvp=torch.eye(4, **f32),
-            frame_index=0,
+            frame_index=torch.zeros((), dtype=torch.int32, device=device),
         )
 
     def replace(self, **kwargs) -> "FrameState":

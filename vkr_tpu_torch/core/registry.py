@@ -12,24 +12,30 @@ place of a kernel wrapper, a timer around a pass), the next frame calls
 the new code. The frame (frame.py) builds every pass through `get()`.
 
 Hot reload = `reload()`: re-import the registered pass modules, then drop
-what the port keeps across frames (`clear_caches`). The port has no jit
-cache. It caches small host-made tables with functools (tracked with
-`track_cache`) and the loaded CUDA libraries (kernels._loaded); emptying
-the latter makes the next launch load the library of the source as it is
-now, which kernels.library_path names by the source's hash, so an edited
-csrc/*.cu is rebuilt there.
+what the port keeps across frames (`clear_caches`): the captured frames'
+CUDA graphs (core/aot.py, tracked with `track_jit`), the small tables it
+caches with functools (tracked with `track_cache`) and the loaded CUDA
+libraries (kernels._loaded). Emptying the latter makes the next launch
+load the library of the source as it is now, which kernels.library_path
+names by the source's hash, so an edited csrc/*.cu is rebuilt there; a
+dropped graph is captured anew at its next call, from the code as it is
+now.
 """
 
 from __future__ import annotations
 
 import importlib
 import sys
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 # program name -> (module name, qualified attribute name)
 _REGISTRY: Dict[str, Tuple[str, str]] = {}
 # functools-cached callables that reload() must empty
 _TRACKED_CACHES: List[Callable] = []
+# frame-level callables whose captures reload() must drop, held weakly: a
+# frame its caller dropped takes its graphs and their memory with it
+_TRACKED_JITS: "weakref.WeakSet[Callable]" = weakref.WeakSet()
 
 
 def register(name: str) -> Callable[[Callable], Callable]:
@@ -75,7 +81,7 @@ def clear_caches() -> None:
     the current sources, at their next launch)."""
     from vkr_tpu_torch import kernels
 
-    for fn in _TRACKED_CACHES:
+    for fn in [*_TRACKED_CACHES, *_TRACKED_JITS]:
         clear = getattr(fn, "cache_clear", None)
         if clear is not None:
             clear()
@@ -87,12 +93,16 @@ def clear_caches() -> None:
 
 
 def track_jit(fn: Callable) -> Callable:
-    """vkr_tpu's name for track_cache. vkr_tpu tracks its frame-level jits
-    so reload() can drop their traces; the port traces nothing, and a
-    callable tracked here is emptied by clear_caches() if it has a
-    functools cache. A plain callable (a frame built on registry.get)
-    needs nothing emptied: it resolves each pass anew at every call."""
-    return track_cache(fn)
+    """Track a frame-level callable so reload()/clear_jit_caches() drop
+    what it keeps: vkr_tpu tracks its frame jits to drop their traces; the
+    port's counterpart is a captured frame (core/aot.py:CapturedFrame,
+    which cached_jit tracks itself), whose cache_clear() drops its CUDA
+    graphs, so the next call captures anew. A callable with a functools
+    cache is emptied; a plain callable (a frame built on registry.get)
+    needs nothing: it resolves each pass anew at every call. Held by a
+    weak reference."""
+    _TRACKED_JITS.add(fn)
+    return fn
 
 
 def clear_jit_caches() -> None:

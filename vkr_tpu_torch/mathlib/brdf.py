@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.constants import constant
+
 PI = 3.1415926535897932384626433832795
 
 
@@ -85,7 +87,7 @@ def sample_ggx_vndf(ve, alpha_x, alpha_y, u1, u2):
 
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
+    x_axis = constant([1.0, 0.0, 0.0], vh.device, vh.dtype)
     t1 = torch.where(
         (lensq > 0.0)[..., None],
         torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
@@ -94,8 +96,9 @@ def sample_ggx_vndf(ve, alpha_x, alpha_y, u1, u2):
     )
     t2 = torch.linalg.cross(vh, t1, dim=-1)
 
-    u1 = torch.as_tensor(u1, dtype=vh.dtype, device=vh.device)
-    u2 = torch.as_tensor(u2, dtype=vh.dtype, device=vh.device)
+    u1, u2 = (u.to(vh.device, vh.dtype) if isinstance(u, torch.Tensor)
+              else torch.full((), u, dtype=vh.dtype, device=vh.device)
+              for u in (u1, u2))
     r = torch.sqrt(u1)
     phi = (2.0 * PI * u2).double()
     p1 = r * torch.cos(phi).float()

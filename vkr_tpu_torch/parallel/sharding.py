@@ -79,28 +79,24 @@ def render_views_sharded(scene, states, cams, ssr_res, cfg,
     gather = RowGather(mesh.group, mesh.device)
     fields = {name: gather(getattr(new_state, name)[None])
               for name in new_state.FIELDS if name != "frame_index"}
-    new_states = new_state.replace(
-        frame_index=tuple(i + 1 for i in states.frame_index), **fields)
+    new_states = new_state.replace(frame_index=states.frame_index + 1,
+                                   **fields)
     return gather(color[None]), new_states
 
 
 def batch_states(make_state, n: int):
-    """n fresh FrameStates stacked on a new leading axis; frame_index
-    becomes the tuple of the n counters."""
+    """n fresh FrameStates stacked on a new leading axis (frame_index
+    (n,) int32, as vkr_tpu's batch axis gives it)."""
     states = [make_state() for _ in range(n)]
-    first = states[0]
-    return first.replace(
-        frame_index=tuple(int(s.frame_index) for s in states),
+    return states[0].replace(
         **{name: torch.stack([getattr(s, name) for s in states])
-           for name in first.FIELDS if name != "frame_index"})
+           for name in states[0].FIELDS})
 
 
 def unbatch_state(states, v: int):
     """View v of a batched FrameState."""
-    return states.replace(
-        frame_index=int(states.frame_index[v]),
-        **{name: getattr(states, name)[v]
-           for name in states.FIELDS if name != "frame_index"})
+    return states.replace(**{name: getattr(states, name)[v]
+                             for name in states.FIELDS})
 
 
 def batch_cams(cams):

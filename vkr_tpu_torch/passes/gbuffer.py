@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.core.formats import (
     linear_to_srgb,
     quantize_f16,
@@ -204,8 +205,7 @@ def _material_texture(tex, mat_tex_idx, uv, lod, default):
     sampling when its set packs no albedo+MR pairs."""
     color = sample_texture_array(tex, mat_tex_idx.clamp(min=0), uv, lod)
     return torch.where((mat_tex_idx >= 0)[..., None], color,
-                       torch.tensor(default, dtype=torch.float32,
-                                    device=uv.device))
+                       constant(default, uv.device))
 
 
 def _select(keep, new, old):
@@ -337,9 +337,9 @@ def render_gbuffer(
         alb_s, mr_s = sample_material_pair(scene.tex, mat_id, uv, lod,
                                            trilinear=trilinear)
         albedo = torch.where((aidx >= 0)[..., None], alb_s,
-                             torch.tensor(DEFAULT_ALBEDO, **f32))
+                             constant(DEFAULT_ALBEDO, dev))
         material = torch.where((midx >= 0)[..., None], mr_s,
-                               torch.tensor(DEFAULT_MATERIAL, **f32))
+                               constant(DEFAULT_MATERIAL, dev))
     else:
         albedo = _material_texture(scene.tex, aidx, uv, lod, DEFAULT_ALBEDO)
         material = _material_texture(scene.tex, midx, uv, lod,

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.octahedral import decode_normal
 from vkr_tpu_torch.mathlib.projection import (
@@ -54,15 +55,29 @@ ANGLE_OFFSETS = np.asarray(
     [60.0, 300.0, 180.0, 240.0, 120.0, 0.0,
      300.0, 60.0, 180.0, 120.0, 240.0, 0.0], np.float32
 ) / np.float32(360.0)
+_HASH_MUL = 2654435761
+_HASH_ADD = 1013904223
 
 
-def frame_base_angle(frame_index: int) -> float:
-    """base_angle = table[frame % 12] + (hash-random in [-0.5, 0.5)), in
-    float32. The hash is uint32 arithmetic: wrap to 32 bits explicitly."""
-    offset = ANGLE_OFFSETS[frame_index % 12]
-    h = (frame_index * 2654435761 + 1013904223) & 0xFFFFFFFF
-    rnd = np.float32(h >> 8) / np.float32(1 << 24) - np.float32(0.5)
-    return float(np.float32(offset + rnd))
+def frame_base_angle(frame_index) -> torch.Tensor:
+    """base_angle = table[frame % 12] + (hash-random in [-0.5, 0.5)), a 0-d
+    float32 tensor on frame_index's device, computed as vkr_tpu computes
+    it (gtao.py:52-58): the hash in uint32 arithmetic, wrapped to 32 bits,
+    (h >> 8) in float32, / 2^24 - 0.5, plus the table entry. frame_index:
+    a 0-d int32 tensor (FrameState.frame_index) or an int. The product of
+    the 32-bit index and the multiplier is taken in 16-bit halves, so no
+    int64 intermediate overflows."""
+    if not isinstance(frame_index, torch.Tensor):
+        frame_index = torch.tensor(frame_index, dtype=torch.int32)
+    dev = frame_index.device
+    u = frame_index.long() & 0xFFFFFFFF                     # astype(uint32)
+    lo = (u & 0xFFFF) * _HASH_MUL
+    hi = (((u >> 16) * _HASH_MUL) & 0xFFFF) << 16
+    h = (lo + hi + _HASH_ADD) & 0xFFFFFFFF
+    rnd = (h >> 8).float() / float(1 << 24) - 0.5
+    offset = torch.take(constant(ANGLE_OFFSETS.tolist(), dev),
+                        frame_index.long() % 12)
+    return offset + rnd
 
 
 def gtao_direction_pattern(height: int, width: int, device, row0: int = 0):
@@ -139,7 +154,7 @@ def _common(depth_half, normal_half, params, row0=None, band_h=None):
 
 @register("gtao_main")
 def gtao_main_window(depth_half, normal_half, params: GTAOParams,
-                     base_angle: float, dirs_count: int = 1,
+                     base_angle, dirs_count: int = 1,
                      row0: "int | None" = None, band_h: "int | None" = None):
     """GTAO main pass with the reference's exact sampling: 16 bilinear
     depth taps at fractions 1/16..16/16 of the per-pixel radius
@@ -152,7 +167,7 @@ def gtao_main_window(depth_half, normal_half, params: GTAOParams,
 
 @register("gtao_compute_main")
 def gtao_main_exact(depth_half, normal_half, params: GTAOParams,
-                    base_angle: float, dirs_count: int = 1,
+                    base_angle, dirs_count: int = 1,
                     row0: "int | None" = None, band_h: "int | None" = None):
     """gtao_main_window with each of the 16 taps taken by bilinear_sample
     (vkr_tpu's gtao_main_exact, registered as gtao_compute_main: the main
@@ -170,8 +185,7 @@ def _camera_space(depth_half, normal_half, params, base_angle, dirs_count,
     h = depth_c.shape[0]
     cls = gtao_direction_pattern(h, W, depth_half.device,
                                  row0 or 0).float() / 16.0
-    size = torch.tensor([W, H], dtype=torch.float32,
-                        device=depth_half.device)
+    size = constant([W, H], depth_half.device)
 
     total = torch.zeros_like(depth_c)
     for d in range(dirs_count):
@@ -223,7 +237,7 @@ def _horizon_cos(depth_half, uv, camera_pos, w0, dir_uv, params,
 
 @register("gtao_main_dense")
 def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
-                    base_angle: float, dirs_count: int = 1,
+                    base_angle, dirs_count: int = 1,
                     row0: "int | None" = None, band_h: "int | None" = None):
     """vkr_tpu's gtao_main_dense: per dither class, march 16 integer-pixel
     offsets round(j * (cos, sin)) of the class's direction as shifts of
@@ -239,7 +253,7 @@ def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
     h = depth_c.shape[0]
     r0 = row0 or 0
     cls_img = gtao_direction_pattern(h, W, dev, r0)
-    size = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    size = constant([W, H], dev)
     pad = N_STEPS
     dep_pad = torch.nn.functional.pad(depth_half[None, None],
                                       (pad, pad, pad, pad),
@@ -247,13 +261,14 @@ def gtao_main_dense(depth_half, normal_half, params: GTAOParams,
     dep_pad = dep_pad[r0:r0 + h + 2 * pad]
 
     f32 = np.float32
+    base = f32(float(base_angle))  # a host read: the offsets are host ints
     total = torch.zeros_like(depth_c)
     for d in range(dirs_count):
         ao_d = torch.zeros_like(depth_c)
         for c in range(N_CLASSES):
             # the class's angle in float32, on the host: its integer
             # offsets index the padded image
-            angle = f32(2.0 * PI) * (f32(c) / f32(16.0) + f32(base_angle)
+            angle = f32(2.0 * PI) * (f32(c) / f32(16.0) + base
                                      + f32(d / dirs_count))
             ca, sa = np.cos(angle), np.sin(angle)
             dir_uv = radius_px[..., None] * torch.stack(
@@ -310,7 +325,7 @@ def ao_ray_directions(count: int = 64, seed: int = 7):
 @register("gtao_rt")
 @register("gtao_rt_main")  # manifest name (config.json: gtao/rt_main_frag)
 def gtao_rt(depth_half, normal_half, tri_grid, camera_to_world, fovy, aspect,
-            znear, zfar, rotation: float, directions, rt_radius: float = 0.2,
+            znear, zfar, rotation, directions, rt_radius: float = 0.2,
             max_steps: int = 12, dir_chunk: int = 8,
             row0: "int | None" = None, band_h: "int | None" = None):
     """Ray-traced GTAO (shaders/gtao/rt_main.frag): per half-res pixel,
@@ -381,7 +396,7 @@ def _tangent(n):
 
 @register("gtao_normal_space")
 def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
-                      base_angle: float, dirs_count: int = 1):
+                      base_angle, dirs_count: int = 1):
     """main.comp gtao_normal_space (148-193): the horizon march against the
     surface normal with the cosine-free (1 - h^2) integration, a radius of
     min(200/|p|, 32) px and 20 steps. Returns (H/2, W/2) AO, 1 on the
@@ -399,7 +414,7 @@ def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
     tangent = _accel.cross(bitangent, cam_n)
 
     cls = gtao_direction_pattern(h, w, dev).float() / 16.0
-    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    size = constant([w, h], dev)
     radius_px = torch.clamp(200.0 / _norm(camera_pos).clamp(min=1e-20),
                             max=32.0)
 
@@ -434,7 +449,7 @@ def gtao_normal_space(depth_half, normal_half, params: GTAOParams,
 
 @register("gtao_main_mis")
 def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
-                  params: GTAOParams, base_angle: float,
+                  params: GTAOParams, base_angle,
                   weight_ratio: float = 1.0, reflections_only: bool = False,
                   use_kernel: bool = True, row0: "int | None" = None,
                   band_h: "int | None" = None):
@@ -460,8 +475,7 @@ def gtao_main_mis(depth_half, normal_half, material, pdf_lut, ssr_occlusion,
     h = depth_c.shape[0]
     cls = gtao_direction_pattern(h, W, depth_half.device,
                                  row0 or 0).float() / 16.0
-    size = torch.tensor([W, H], dtype=torch.float32,
-                        device=depth_half.device)
+    size = constant([W, H], depth_half.device)
     angle = 2.0 * PI * (cls + base_angle)
     dir_uv = radius_px[..., None] * torch.stack(
         [torch.cos(angle), torch.sin(angle)], -1) / size
@@ -522,8 +536,7 @@ def gtao_reproject(current_depth, prev_depth, current_ao, prev_ao,
     dev = current_depth.device
     new_ao = current_ao
     # reproject.comp:30 uses uv = pixel/size (no half-texel centre)
-    uv = screen_uv_grid(h, w, dev) - 0.5 / torch.tensor(
-        [w, h], dtype=torch.float32, device=dev)
+    uv = screen_uv_grid(h, w, dev) - 0.5 / constant([w, h], dev)
     cur_view = reconstruct_view_vec(uv, current_depth, fovy, aspect, znear,
                                     zfar)
     if matrix_mode:
@@ -573,7 +586,7 @@ def interleave_layers(layers, pattern_step: int = 2):
 
 @register("main_deinterleaved")
 def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
-                            base_angle: float, pattern_step: int = 2):
+                            base_angle, pattern_step: int = 2):
     """gtao_opt/main_deinterleaved.comp: gtao_main_exact on each dither
     layer (the layer's pixels share a direction class), with base angle
     base_angle + l / layers, then re-interleaved. The reference constructs
@@ -583,9 +596,9 @@ def gtao_main_deinterleaved(depth_half, normal_half, params: GTAOParams,
     n_layers = torch.stack([deinterleave_depth(normal_half[..., k],
                                                pattern_step)
                             for k in range(2)], -1)
+    base_angle = torch.as_tensor(base_angle, dtype=torch.float32)
     outs = [gtao_main_exact(d_layers[l], n_layers[l], params,
-                            float(np.float32(base_angle)
-                                  + np.float32(l / float(layers))))
+                            base_angle + float(np.float32(l / float(layers))))
             for l in range(layers)]
     return interleave_layers(torch.stack(outs), pattern_step)
 
@@ -634,7 +647,7 @@ class GTAOAccumParams(NamedTuple):
 
 @register("gtao_accumulate")
 def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
-                    history, params: GTAOAccumParams, clear_history: bool,
+                    history, params: GTAOAccumParams, clear_history,
                     use_kernel_gather: bool = True,
                     row0: "int | None" = None, band_h: "int | None" = None):
     """Temporal accumulation (accum.comp): velocity reprojection validated
@@ -643,6 +656,9 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     use_kernel_gather=False.
 
     history: (h, w, 2) = (ao, samples/255). Returns the same shape.
+    clear_history: a bool, or the frame's 0-d bool tensor (frame_index ==
+    0), which drops the history through torch.where as in vkr_tpu
+    (gtao.py:895), with no host read.
     row0/band_h (band mode, vkr_tpu gtao.py:821): the rows [row0, row0 +
     band_h) from whole-frame inputs. The velocity's pixel length scales by
     the frame's height; vkr_tpu's band form takes the band's height there
@@ -651,7 +667,7 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     h = H if row0 is None else band_h
     r0 = row0 or 0
     uv = screen_uv_grid(h, w, depth_half.device, row0=r0, full_height=H)
-    ts = torch.tensor([w, H], dtype=torch.float32, device=depth_half.device)
+    ts = constant([w, H], depth_half.device)
     depth_c = band_slice(depth_half, row0, h)
     velocity = band_slice(velocity_half, row0, h)
     prev_uv = uv + velocity
@@ -683,7 +699,9 @@ def gtao_accumulate(depth_half, prev_depth_half, filtered_ao, velocity_half,
     reprojected = (in_bounds
                    & (torch.maximum(delta[..., 0], delta[..., 1]) <= 2.0)
                    & (depth_err < 0.2))
-    if clear_history:
+    if isinstance(clear_history, torch.Tensor):  # the frame's predicate
+        reprojected = torch.where(clear_history, False, reprojected)
+    elif clear_history:
         reprojected = torch.zeros_like(reprojected)
 
     accumulated = reproject_bilinear(history, velocity,

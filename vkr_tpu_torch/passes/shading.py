@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.brdf import (
     PI,
@@ -135,16 +136,14 @@ def deferred_shading(gbuffer, params: ShadingParams, occlusion, reflections,
 
     f0 = f0_approximation(albedo, metallic)
 
-    light_pos = torch.tensor(LIGHT_POS, dtype=torch.float32,
-                             device=depth.device)
+    light_pos = constant(LIGHT_POS, depth.device)
     to_light = light_pos - world_pos
     light_dist = _norm(to_light)
     l = to_light / light_dist[..., None].clamp(min=1e-20)
     hvec = v + l
     hvec = hvec / _norm(hvec, True).clamp(min=1e-20)
 
-    radiance = torch.tensor(LIGHT_RADIANCE, dtype=torch.float32,
-                            device=depth.device) * (
+    radiance = constant(LIGHT_RADIANCE, depth.device) * (
         torch.clamp(100.0 / (light_dist * light_dist), max=100.0)[..., None]
     )
 

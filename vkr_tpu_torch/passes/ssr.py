@@ -27,6 +27,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.brdf import (
     brdf_g1,
@@ -200,7 +201,7 @@ def pack_pyramid(mips) -> FlatPyramid:
 def _get_tangent(n):
     """main.comp get_tangent."""
     max_xy = torch.maximum(n[..., 0].abs(), n[..., 1].abs())
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    x_axis = constant([1.0, 0.0, 0.0], n.device, n.dtype)
     t = torch.where((max_xy < 1e-5)[..., None], x_axis.expand(n.shape),
                     torch.stack([n[..., 1], -n[..., 0],
                                  torch.zeros_like(max_xy)], -1))
@@ -225,11 +226,12 @@ def _shader_rand(uv):
     return s - torch.floor(s)
 
 
-def _halton_index(uv, frame_random: int):
+def _halton_index(uv, frame_random):
     """Per-pixel halton row: (uint(rand(uv) * 128) + frame_random) & 127.
-    rand * 128 lies in [0, 128), so truncation to int64 is the uint cast."""
+    rand * 128 lies in [0, 128), so truncation to int64 is the uint cast.
+    frame_random: an int, or the frame's 0-d int32 tensor on the device."""
     base = (_shader_rand(uv) * HALTON_SEQ_SIZE).to(torch.int64)
-    return (base + int(frame_random)) & (HALTON_SEQ_SIZE - 1)
+    return (base + frame_random) & (HALTON_SEQ_SIZE - 1)
 
 
 def _reflection_ray_setup(uv, pixel_depth, normal_half, roughness, params,
@@ -273,7 +275,7 @@ def _reflection_ray_setup(uv, pixel_depth, normal_half, roughness, params,
 
 @register("sssr_trace")
 def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
-              params: SSRParams, frame_random: int, halton,
+              params: SSRParams, frame_random, halton,
               max_iterations: int = 80, use_kernel: bool = True,
               row0: "int | None" = None, band_h: "int | None" = None):
     """trace.comp main(): returns (ray_info (h, w, 4) = hit uvz + src depth
@@ -296,7 +298,7 @@ def ssr_trace(hiz: FlatPyramid, normal_half, material_full, pdf_lut,
     bh = h if row0 is None else band_h
     dev = hiz.flat.device
     uv = screen_uv_grid(bh, w, dev, row0=row0 or 0, full_height=h)
-    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    size = constant([w, h], dev)
     depth_full = hiz.flat[: h * w].reshape(h, w)
     pixel_depth = band_slice(depth_full, row0, bh)
 
@@ -438,7 +440,7 @@ def ssr_filter(rays, depth_half, albedo_full, normal_half, material_full,
         cols = slice(pad + dx, pad + dx + w)
         tr = rays_p[rows, cols]
         p_depth = depth_p[rows, cols]
-        p_uv = uv + torch.tensor([dx / w, dy / H], **f32)
+        p_uv = uv + constant([dx / w, dy / H], dev)
         view_vec = reconstruct_view_vec(p_uv, p_depth, params.fovy,
                                         params.aspect, params.znear,
                                         params.zfar)

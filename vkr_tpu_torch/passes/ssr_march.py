@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from vkr_tpu_torch import kernels
+from vkr_tpu_torch.core.constants import constant
 
 MAX_T = 3.402823466e38
 MAX_LEVELS = 16       # level table size of the CUDA kernel
@@ -168,11 +169,11 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
     n_levels = len(pyr.offsets)
     w, h = pyr.widths[0], pyr.heights[0]
     flat = pyr.flat
-    lvl = torch.tensor([pyr.offsets, pyr.widths, pyr.heights],
-                       dtype=torch.int64, device=dev)
+    lvl = constant([pyr.offsets, pyr.widths, pyr.heights], dev,
+                   torch.int64)
     if find_hor:
         tg, aspect, k_nf, k_fn, zfar = _constants(params)
-    screen = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    screen = constant([w, h], dev)
     top = int(most_detailed_mip)
 
     ox, oy, oz = origin.unbind(-1)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from vkr_tpu_torch import kernels
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.raster.pair_rows import (
     N_CHANNELS,
     RESOLVE_BASE,
@@ -220,7 +221,7 @@ def gbuf_tiles_reference(pair_rows, seg_starts, seg_counts, peel_depth=None,
     has = win >= 0
     wrow = rows[win.clamp(min=0)] if rows.shape[0] else torch.zeros(
         (win.shape[0], ROW_WIDTH), dtype=torch.float32, device=dev)
-    background = torch.tensor(_BACKGROUND, dtype=torch.float32, device=dev)
+    background = constant(_BACKGROUND, dev)
     coef = torch.where(has[:, None], wrow[:, RESOLVE_BASE:_MATERIAL + 1],
                        background)
     tid = torch.where(has, wrow[:, _TRI_ID], -1.0).to(torch.int32)

@@ -21,9 +21,12 @@ from __future__ import annotations
 
 import torch
 
+from vkr_tpu_torch.core.constants import constant
 from vkr_tpu_torch.raster.setup import _sum3
 
 ROW_WIDTH = 64
+# a dead pair's row: c = -1 edges (never cover), triangle and material -1
+_DEAD_FIELDS = (6, 7, 8, 12, 46)
 RESOLVE_BASE = 16
 N_CHANNELS = 9
 
@@ -89,8 +92,6 @@ def expand_pair_rows(tri_rows, pair_tri_sorted):
     Dead pairs (id -1) get c = -1 edges (never cover) and id -1."""
     live = (pair_tri_sorted >= 0)[:, None]
     rows = tri_rows[pair_tri_sorted.clamp(min=0).long()]
-    dead = torch.zeros(ROW_WIDTH, dtype=torch.float32, device=rows.device)
-    dead[6:9] = -1.0
-    dead[12] = -1.0
-    dead[46] = -1.0
+    dead = constant([-1.0 if k in _DEAD_FIELDS else 0.0
+                     for k in range(ROW_WIDTH)], rows.device)
     return torch.where(live, rows, dead)

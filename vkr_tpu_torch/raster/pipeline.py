@@ -94,7 +94,10 @@ def rasterize(
     their count per call), so overflow is 0: vkr_tpu's static capacity
     max(1.5 T, 4 n_tiles, 4096), a fixed shape for XLA, drops the pairs of
     low-poly scenes at 1080p (the tools' 8-column colonnade: 28,843 of
-    43,837 at orbit frame 0).
+    43,837 at orbit frame 0). Inside setup.pair_plan (the captured frame,
+    core/aot.py) the list has the plan's static capacity instead, with no
+    host read, and overflow counts the pairs beyond it on the device, as
+    vkr_tpu's does.
     peel_depth: optional (H, W) f32 — only fragments strictly BEHIND it
     survive (depth peeling).
     keep_prepared: keep the pair rows + segment table on the result.

@@ -26,11 +26,22 @@ Corner tables are (k, 3T) with corner-major columns [c*T, (c+1)*T).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from typing import NamedTuple
 
 import torch
 
 _FILL_EPS = 1.0 / 4096.0  # sub-pixel bias excluding non-top-left edges
+
+# The captured frame's bin-pair capacity (core/aot.py): the pairs the
+# capture frame binned, times PAIR_HEADROOM, and at least PAIR_FLOOR.
+# 2.0 covers the bench orbit's frame-to-frame change of the pair count
+# with room to spare; a frame beyond it counts its dropped pairs as
+# overflow, which the captured frame reports.
+PAIR_HEADROOM = 2.0
+PAIR_FLOOR = 4096
 
 
 class TriangleSetupT(NamedTuple):
@@ -309,6 +320,49 @@ def triangle_setup(corners, valid, width: int, height: int, jitter=None,
                                       full_height, y_offset))
 
 
+class PairPlan:
+    """The bin-pair capacities of one frame's binning calls, in call order.
+    capacities None records each call's exact pair count (one host read,
+    as the eager frame reads it); a list gives each call its capacity with
+    no host read."""
+
+    def __init__(self, capacities=None):
+        self.capacities = None if capacities is None else list(capacities)
+        self.counts = []
+
+    def capacity(self, total) -> int:
+        if self.capacities is None:
+            self.counts.append(int(total))
+            return max(self.counts[-1], 1)
+        i = len(self.counts)
+        if i >= len(self.capacities):
+            raise RuntimeError(f"bin_triangles_t: binning call {i + 1} of a "
+                               f"frame planned for {len(self.capacities)}")
+        self.counts.append(None)
+        return self.capacities[i]
+
+
+_PLAN: contextvars.ContextVar = contextvars.ContextVar("pair_plan",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def pair_plan(plan: PairPlan):
+    """Within: every bin_triangles_t call without a pair_capacity takes its
+    capacity from `plan` (the captured frame's binning)."""
+    token = _PLAN.set(plan)
+    try:
+        yield plan
+    finally:
+        _PLAN.reset(token)
+
+
+def static_capacities(counts) -> list:
+    """The captured frame's capacities for the exact pair counts of its
+    capture frame: count * PAIR_HEADROOM, at least PAIR_FLOOR."""
+    return [max(math.ceil(n * PAIR_HEADROOM), PAIR_FLOOR) for n in counts]
+
+
 def bin_triangles(setup: TriangleSetup, width: int, height: int,
                   tile_h: int, tile_w: int, pair_capacity: "int | None"):
     """bin_triangles_t on the row-major setup (vkr_tpu's bin_triangles)."""
@@ -325,8 +379,9 @@ def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
     pair per tile its bbox touches; pairs beyond pair_capacity are dropped
     and counted (vkr_tpu's jnp.repeat(..., total_repeat_length=cap)
     truncation). pair_capacity None sizes the list to the pairs there are
-    (one host read of their count), so none is dropped. In-tile order is
-    ascending triangle id, which decides LESS_OR_EQUAL depth ties.
+    (one host read of their count), so none is dropped, or inside
+    pair_plan() takes the plan's capacity. In-tile order is ascending
+    triangle id, which decides LESS_OR_EQUAL depth ties.
 
     Returns (pair_tri (CAP,) int32 sorted segment layout (-1 = padding),
     seg_starts (n_tiles,) int32, seg_counts (n_tiles,) int32,
@@ -353,7 +408,12 @@ def bin_triangles_t(bbox, valid, width: int, height: int, tile_h: int,
     counts = wspan * hspan  # (T,)
     ends = torch.cumsum(counts, 0)
     total = ends[-1]
-    cap = max(int(total), 1) if pair_capacity is None else pair_capacity
+    if pair_capacity is not None:
+        cap = pair_capacity
+    elif _PLAN.get() is not None:
+        cap = _PLAN.get().capacity(total)
+    else:
+        cap = max(int(total), 1)
 
     # slot -> emitting triangle: the repeat of triangle ids by counts,
     # truncated to the capacity (a search, so no host sync)

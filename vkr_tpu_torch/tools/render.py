@@ -4,7 +4,10 @@ vkr_tpu/tools/render.py has it.
 Renders a scene through the full pass chain (G-buffer, hi-Z, SSR, GTAO,
 shading, TAA) on the card, through the hand-written kernels, and writes a
 PNG. --no-kernels renders vkr_tpu's use_pallas=False oracle frame instead
-(frame.py's use_kernels=False). Examples:
+(frame.py's use_kernels=False). As vkr_tpu's render.py:138 jits the
+frame with the state donated, the frames run through core/aot.py's
+cached_jit: captured as a CUDA graph at the first frame, replayed after
+(on the CPU, the frame itself). Examples:
 
     python -m vkr_tpu_torch.tools.render --scene colonnade --width 1920 \
         --height 1080 --frames 8 --out captures/frame.png
@@ -15,7 +18,6 @@ PNG. --no-kernels renders vkr_tpu's use_pallas=False oracle frame instead
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
 
 import numpy as np
@@ -121,8 +123,8 @@ def main(argv=None):
     print("backend:", device)
     import dataclasses
 
-    from vkr_tpu_torch import kernels
     from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.aot import cached_jit
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.graph import PassGraph
     from vkr_tpu_torch.core.readback import save_png, to_host
@@ -155,28 +157,32 @@ def main(argv=None):
     graph = PassGraph()
     view = prev_view = view_at(0)
 
+    def frame_fn(s, st, c):
+        return render_frame(s, st, c, ssr_res, cfg, use_kernels=use_kernels)
+
     synchronize(device)
-    t0 = time.perf_counter()
-    if use_kernels and device.type == "cuda":
-        kernels.build()
     cam = camera_frame(cfg, view, prev_view, 0, device)
-    with graph.recording() if args.dump_dag else (
-            contextlib.nullcontext()):
-        color, state, aux = render_frame(scene, state, cam, ssr_res, cfg,
-                                         use_kernels=use_kernels)
+    if args.dump_dag:
+        # vkr_tpu traces frame_fn under jax.eval_shape for the dump: here
+        # one frame runs on a state of its own while the graph records
+        with graph.recording():
+            frame_fn(scene, FrameState.initial(cfg.height, cfg.width,
+                                               device), cam)
+        print(graph.dump())
+    t0 = time.perf_counter()
+    jitted = cached_jit("render_frame", frame_fn, (scene, state, cam),
+                        donate_argnums=(1,))
+    color, state, aux = jitted(scene, state, cam)
     synchronize(device)
     print(f"compile+first: {(time.perf_counter() - t0) * 1e3:.1f} ms "
-          "(kernel build + first frame)")
-    if args.dump_dag:
-        print(graph.dump())
+          "(kernel build, capture, first frame)")
 
     times = []
     for i in range(1, args.frames):
         prev_view, view = view, view_at(i)
         cam = camera_frame(cfg, view, prev_view, i, device)
         t0 = time.perf_counter()
-        color, state, aux = render_frame(scene, state, cam, ssr_res, cfg,
-                                         use_kernels=use_kernels)
+        color, state, aux = jitted(scene, state, cam)
         synchronize(device)
         times.append(time.perf_counter() - t0)
     if times:
@@ -199,8 +205,10 @@ def main(argv=None):
     save_png(img, args.out,
              srgb_encode=args.show in ("color", "albedo", "ssr"))
     print("saved", args.out)
+    # a replay counts no launch: the capture's, per frame (None: eager)
     return {"coverage": coverage, "out": args.out,
-            "steady_ms": float(np.median(times) * 1e3) if times else None}
+            "steady_ms": float(np.median(times) * 1e3) if times else None,
+            "launches_per_frame": getattr(jitted, "launches", None)}
 
 
 if __name__ == "__main__":
