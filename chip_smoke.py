@@ -36,13 +36,13 @@
    torch.cuda.set_sync_debug_mode("error"), and one profiled replay runs
    K1's walk x3, the march, K4, K5 x3 and K6 by their CUDA symbol names.
    The same on 3 frames of the SSR-off frame (after its phase), the probe
-   frame (after its phase) and the glTF phase's trilinear frame. Prints,
+   frame (after its phase), the ray-traced GTAO frame (after its phase;
+   a replay must also run R1 x8 by symbol, and its timing is printed too)
+   and the glTF phase's trilinear frame. Prints,
    beside the card's name and limit, capture seconds, graph nodes per
    frame, a replay's device ms, host dispatch ms per replay, the serial
    wall medians of eager, traced, traced and eager blocks of 6 frames, and
-   the graph pools' bytes. The RT phase fails unless cached_jit returns
-   the ray-traced frame uncaptured (its rule) and prints that it ran
-   eagerly.
+   the graph pools' bytes.
 4. SSR-off phase: 3 frames of the same orbit with enable_ssr=False (the
    single-strategy GTAO pass), with its own counters and checks.
 5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
@@ -61,9 +61,11 @@
    device bytes. Renders 3 frames of RenderConfig() with
    gtao.use_ray_query (SSR on) over the grid, frame 2 measured, with the
    main phase's checks (K4 must not launch: gtao_rt replaces the MIS
-   pass), and fails unless each frame's AO differs from the main phase's
-   MIS AO of the same frame. Prints the peak device memory of the RT
-   frames and the gtao_rt pass's stream ms in frame 2.
+   pass; R1, csrc/ray_any_hit.cu, must launch 8 times a frame), and
+   fails unless each frame's AO differs from the main phase's MIS AO of
+   the same frame. Prints the peak device memory of the RT frames and the
+   gtao_rt pass's stream ms in frame 2, and keeps R1's 8 calls of frame 1
+   for the kernel phase. Then the RT frame's traced phase (3b).
 8. Variants phase: on main frame 1's half-res depth and normals (full-res
    depth for SSAO) at 1080p, times gtao_main_exact, gtao_main_dense,
    gtao_normal_space, gtao_main_deinterleaved, both modes of
@@ -172,7 +174,13 @@
    --max-frames 6, driven over HTTP (a slider, 2, j, r: each must reach
    the next frame) with its ms per frame printed; the showcase into a
    temporary directory (a GIF89a of 32 frames at a third of the size and
-   the 1080p still).
+   the 1080p still). The viewer, showcase and parity run their frames
+   through cached_jit (captured) and again eagerly (cached_jit handing fn
+   back): the viewer's PNG bytes, showcase's GIF and still and parity's
+   reports must be equal, the viewer must capture at frames 0, 2 and 4
+   only (a new toggle combination, after the reload; the slider and j
+   take none); each tool's ms or seconds print beside the eager run's,
+   with the bytes each viewer capture adds to the allocator's reserve.
 14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
    with 2 ranks on this card (it prints what NCCL says; it refuses ranks
    that share a card). Then 4 ranks, processes on this one card in a gloo
@@ -190,10 +198,13 @@
    ranks sharing one card (no speed-up figure), the gather ms, each rank's
    launches and peak memory.
 15. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
-   and K1's opaque and masked calls on the first probe face, captured with
-   their inputs, are run again through the kernel and through its plain
-   PyTorch version on the card; each pair must agree within the stated
-   tolerance. Prints both times (CUDA events), the time of one PyTorch
+   K1's opaque and masked calls on the first probe face, and R1's 8 calls
+   of RT frame 1, captured with their inputs, are run again through the
+   kernel and through its plain PyTorch version on the card; each pair
+   must agree within the stated tolerance (R1: equal hits; a ray whose hit
+   differs is printed by index and must give the kernel's hit when the
+   plain walk is run again with fma_exact, a once-rounded fma, in place
+   of _fma: a float32 tie of _fma's float64 sum). Prints both times (CUDA events), the time of one PyTorch
    library call computing the same function where there is one, and the
    roofline bound from this run's inputs (K1 and K7: the pair rows' raster
    fields, the winning rows' resolve fields, the kept pixels' outputs and
@@ -265,10 +276,11 @@ MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
                           "window_gather_bilinear_multi": 1,
                           "window_gather_bilinear": 3,
                           "taa_history_gather": 1}
-# gtao_rt takes the MIS pass's place, so K4 does not launch
+# gtao_rt takes the MIS pass's place, so K4 does not launch; it runs R1
+# once per chunk of 8 of its 64 directions
 RT_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
                              "window_gather_bilinear": 3,
-                             "taa_history_gather": 1}
+                             "taa_history_gather": 1, "ray_any_hit": 8}
 SSR_OFF_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3,
                                   "window_gather_bilinear_multi": 1,
                                   "window_gather_bilinear": 2,
@@ -283,6 +295,10 @@ PEAK_F32_FLOPS = 67e12
 # vector 12, its length 6, the cosine 8, the running max 1
 MARCH_FLOPS_PER_ITERATION = 55
 PLANE_FLOPS = 4  # fma(a, px, b*py) + c
+# float32 operations of one Moller-Trumbore slot test (csrc/ray_any_hit.cu,
+# an fma counted as 2): the edges 6, p = cross(d, e2) 9, det 5, 1 / det 1,
+# s 3, u 6, q = cross(s, e1) 9, v 6, t 6, u + v 1
+MT_FLOPS = 52
 # K1/K7 stress calls on one tile: (tile width, pairs, K1 with a peel floor).
 # 8x128: one cell, 160 chunks; 8x512: four cells of 16 chunks each.
 STRESS = ((128, 20_480, False), (512, 2_048, True))
@@ -301,6 +317,9 @@ KERNELS = {
                            "vkr_tpu/raster/gather_kernel.py:333"),
     "rasterize_tiles": ("vkr_tpu_torch/csrc/gbuf_tiles.cu",
                         "vkr_tpu/raster/kernel.py:67"),
+    # R1: vkr_tpu computes ray_any_hit in jnp (no pallas_call)
+    "ray_any_hit": ("vkr_tpu_torch/csrc/ray_any_hit.cu",
+                    "vkr_tpu/scene/accel.py:140"),
 }
 # K1 on the probe grid's cubemap faces at start-up: a row of its own
 PROBE_FACE_ROW = "gbuf_tiles (probe faces)"
@@ -360,6 +379,7 @@ def plain_versions():
     """kernel wrapper name -> (module, its plain PyTorch version)."""
     from vkr_tpu_torch.passes import ssr_march
     from vkr_tpu_torch.raster import gather_kernel, gbuf_kernel, kernel
+    from vkr_tpu_torch.scene import accel
 
     return {
         "gbuf_tiles": (gbuf_kernel, gbuf_kernel.gbuf_tiles_reference),
@@ -372,6 +392,7 @@ def plain_versions():
         "taa_history_gather": (gather_kernel,
                                gather_kernel.taa_history_gather_reference),
         "rasterize_tiles": (kernel, kernel.rasterize_tiles_reference),
+        "ray_any_hit": (accel, accel.ray_any_hit_reference),
     }
 
 
@@ -394,14 +415,16 @@ class Substitute:
             setattr(mod, name, fn)
 
 
-def recording(log, limit=None):
+def recording(log, limit=None, only=None):
     """Substitute factory: call the kernel, keeping a copy of its inputs
-    (of the first `limit` calls only, where a limit is given)."""
+    (of the first `limit` calls only, where a limit is given; of the
+    wrappers named in `only`, where it is given)."""
     import torch
 
     def make(name, wrapper, plain):
         def rec(*args, **kw):
-            if limit is None or len(log) < limit:
+            if ((limit is None or len(log) < limit)
+                    and (only is None or name in only)):
                 kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                              for a in args)
                 log.append((name, kept, dict(kw)))
@@ -537,9 +560,9 @@ def time_ms(fn, args, kw, budget_s=0.5):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, want, args):
+def compare(name, got, want, args, kw=None):
     """(max abs error, within tolerance, note) of a kernel's outputs against
-    its plain version's.
+    its plain version's (args, kw: the call's).
 
     K1: depth and triangle id equal (the same fma-form plane evaluation
     and the same d <= z walk), attributes within 1e-6 + 1e-6 |x| (a
@@ -548,7 +571,8 @@ def compare(name, got, want, args):
     clamp/floor/lerp sequence in float32 without contraction, atol 1e-6.
     The march: the same operations in the same order, so bit-equal
     rays are expected; required are validity agreement >= 0.9999 and
-    |position| and |hor| within 1e-5 over rays valid in both."""
+    |position| and |hor| within 1e-5 over rays valid in both. R1: equal
+    hits, or every ray that differs a double-rounding case (rt_compare)."""
     import torch
 
     if name == "gbuf_tiles":
@@ -563,6 +587,8 @@ def compare(name, got, want, args):
         (z, tid), (z0, tid0) = got, want
         return (float((z - z0).abs().max()),
                 torch.equal(z, z0) and torch.equal(tid, tid0), "")
+    if name == "ray_any_hit":
+        return rt_compare(got, want, args, kw or {})
     if name == "hierarchical_march":
         (pos, hor, it), (pos0, hor0, it0) = got, want[:3]
         max_it = args[6]
@@ -591,6 +617,10 @@ def shape_of(name, args, kw):
     if name == "rasterize_tiles":
         return (f"{kw['width']}x{kw['height']}, {int(args[2].sum())} pairs"
                 + band)
+    if name == "ray_any_hit":
+        return (f"{tuple(args[1].shape[:-1])} rays, max_steps "
+                f"{kw.get('max_steps')}, grid {args[0].dims} cap "
+                f"{args[0].cap}")
     if name == "hierarchical_march":
         return (f"{tuple(args[1].shape[:-1])} rays, "
                 f"{len(args[0].offsets)} levels, max {args[6]} iterations")
@@ -728,6 +758,16 @@ def work_of(name, args, kw, plain):
             in_bytes = n_pairs * 12 * 4 + wins * 4  # and the winners' ids
             ops = pair_px * 4 * PLANE_FLOPS
         return in_bytes + nbytes(starts, counts) + out_bytes, ops
+    if name == "ray_any_hit":
+        grid, origin, direction, t_max = args[:4]
+        n_rays = origin.numel() // 3
+        # each ray's origin and direction (and t_max) once, its hit; the
+        # grid's tables once
+        return (n_rays * (2 * 3 * 4 + 1) + nbytes(t_max, grid.tri_verts,
+                                                  grid.cell_tris,
+                                                  grid.grid_min,
+                                                  grid.cell_size),
+                rt_slot_tests(*args[:4], kw.get("max_steps")) * MT_FLOPS)
     if name == "hierarchical_march":
         pyr, rays = args[0], args[1:5]
         steps = plain[3]
@@ -756,6 +796,97 @@ def simt_efficiency(steps, patch_w, patch_h):
     peak = s.reshape(h // patch_h, patch_h, w // patch_w, patch_w).amax(
         dim=(1, 3))
     return float(s.sum() / (peak.sum() * patch_w * patch_h))
+
+
+def fma_exact(a, b, c):
+    """a * b + c of float32 tensors rounded once to float32, as fmaf and
+    XLA's fma round it. The product is exact in float64; the sum is
+    rounded to odd there (the exact sum's error from TwoSum decides), and
+    a sum rounded to odd in 53 bits rounds to float32 as the exact sum
+    does. mathlib/brdf.py:_fma rounds the float64 sum to nearest instead,
+    and so rounds twice."""
+    import torch
+
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    inexact = torch.isfinite(s) & torch.isfinite(err) & (err != 0.0)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0.0, math.inf, -math.inf).to(s)
+    return torch.where(inexact & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def rt_slot_tests(grid, origin, direction, t_max, max_steps):
+    """Moller-Trumbore tests the walk needs on these rays: in each cell it
+    visits, the slots that hold a triangle, up to the first that hits (as
+    csrc/ray_any_hit.cu tests them). Counted on the plain version's walk,
+    its empty slots pointed at a NaN triangle, which no ray hits."""
+    import torch
+
+    from vkr_tpu_torch.scene import accel
+
+    n_tri = grid.tri_verts.shape[0]
+    nan_tri = torch.full((1, 3, 3), math.nan, device=grid.tri_verts.device)
+    marked = dataclasses.replace(
+        grid, tri_verts=torch.cat([grid.tri_verts, nan_tri]),
+        cell_tris=torch.where(grid.cell_tris < 0, n_tri, grid.cell_tris))
+    count = []
+    slot_mask = accel._tri_hit_mask
+
+    def counting(orig, dirs, v0, e1, e2, tm, eps=1e-12):
+        m = slot_mask(orig, dirs, v0, e1, e2, tm, eps)
+        cap = m.shape[-1]
+        first = torch.where(m.any(-1), m.int().argmax(-1) + 1, cap)
+        upto = torch.arange(cap, device=m.device) < first[:, None]
+        count.append((upto & ~torch.isnan(v0[..., 0])).sum())
+        return m
+    accel._tri_hit_mask = counting
+    try:
+        accel.ray_any_hit_reference(marked, origin, direction, t_max,
+                                    max_steps=max_steps)
+    finally:
+        accel._tri_hit_mask = slot_mask
+    return int(sum(count))
+
+
+def rt_compare(got, want, args, kw):
+    """R1 against its plain version: (max abs error of the hits, ok, note).
+    Every ray whose hit differs is reported by count and index, and is
+    walked again by the plain version with fma_exact in place of _fma:
+    each must then give the kernel's hit, and so be a case where _fma's
+    float64 sum fell on a float32 tie (fmaf rounds once)."""
+    import torch
+
+    from vkr_tpu_torch.scene import accel
+
+    grid, origin, direction, t_max = args[:4]
+    diff = torch.nonzero((got != want).reshape(-1)).flatten()
+    n = int(diff.numel())
+    if n == 0:
+        return 0.0, True, f"hits equal on all {got.numel()} rays"
+    rays = [t.reshape(-1, 3)[diff] for t in (origin, direction)]
+    walks = {}
+    saved = accel._fma
+    for label, fma in (("_fma", saved), ("fma_exact", fma_exact)):
+        accel._fma = fma
+        try:
+            walks[label] = accel.ray_any_hit_reference(grid, *rays, t_max,
+                                                       **kw)
+        finally:
+            accel._fma = saved
+    kernel_hits = got.reshape(-1)[diff]
+    ties = bool(torch.equal(walks["fma_exact"], kernel_hits)
+                and torch.equal(walks["_fma"], want.reshape(-1)[diff]))
+    shown = diff.tolist()
+    return (1.0, ties,
+            f"{n} of {got.numel()} rays differ, indices "
+            f"{shown[:64]}{' ...' if n > 64 else ''}; the plain walk with "
+            f"fma_exact gives the kernel's hit on "
+            f"{int((walks['fma_exact'] == kernel_hits).sum())} of them"
+            + (" (double-rounding cases of _fma)" if ties else ""))
 
 
 def stress_rows(device, n_pairs, w, seed):
@@ -1300,12 +1431,13 @@ def aot_check(scene, res, cfg, device):
 
 
 # The traced frame's kernels by CUDA symbol, per profiled replay: K1's walk
-# (merged raster and resolve), the march, K4, K5 and K6.
+# (merged raster and resolve), the march, K4, K5, K6 and R1.
 TRACED_SYMBOLS = {"gbuf_tiles": "walk_kernel<true>",
                   "hierarchical_march": "ssr_march_kernel",
                   "window_gather_bilinear_multi": "window_gather_multi_kernel",
                   "window_gather_bilinear": "window_gather_k5",
-                  "taa_history_gather": "taa_history_gather_kernel"}
+                  "taa_history_gather": "taa_history_gather_kernel",
+                  "ray_any_hit": "ray_any_hit_kernel"}
 TRACED_FRAMES = 8
 TRACED_OTHER_FRAMES = 3  # the SSR-off, trilinear and probe frames
 TRACED_TIMED = 6  # serial frames per block of the interleaved timing
@@ -1353,7 +1485,7 @@ def graph_nodes(frame):
 
 
 def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
-                 probe_grid=None, timing=False):
+                 probe_grid=None, tri_grid=None, timing=False):
     """The frame through core/aot.py:cached_jit (captured, replayed, the
     FrameState donated) against the eager frame: n_frames of the bench
     orbit, every output tensor bit-equal per frame, overflow 0 on every
@@ -1373,7 +1505,8 @@ def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
 
     def fn(s, st, c):
-        return render_frame(s, st, c, res, cfg, probe_grid=probe_grid)
+        return render_frame(s, st, c, res, cfg, probe_grid=probe_grid,
+                            tri_grid=tri_grid)
 
     def cam(i):
         return camera_frame(cfg, bench_orbit_view(i),
@@ -2011,26 +2144,48 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _drive_viewer(port, device):
+@contextlib.contextmanager
+def eager_tools():
+    """The tools' frames eager while the block runs: core/aot.py's
+    cached_jit hands each fn back uncaptured."""
+    from vkr_tpu_torch.core import aot
+
+    saved = aot.cached_jit
+    aot.cached_jit = lambda name, fn, example_args, **kw: fn
+    try:
+        yield
+    finally:
+        aot.cached_jit = saved
+
+
+def _drive_viewer(port, device, eager=False):
     """viewer.main on this (the main) thread with --max-frames
     VIEWER_FRAMES at its default 960x544, and a client thread that sends
     VIEWER_INPUT over HTTP. Frame k, once it has read its input, waits at
     its camera_frame call (before the viewer's timer starts) until the
     client has sent step k, so step k reaches frame k + 1; then the client
-    reads frame k's PNG. Returns (per-frame ms, what each frame saw, the
-    client's log, the frames at which a reload ran)."""
+    reads frame k's PNG. eager: the frames uncaptured (eager_tools).
+    Returns a dict: per-frame ms, what each frame saw (its config, jitter
+    and the Tuning tensors it was called with), the client's log, the
+    frames at which a reload ran, the frames at which a capture ran with
+    the bytes it added to the allocator's reserve, and each frame's PNG
+    bytes."""
     import threading
     import urllib.request
 
+    import torch
+
     from vkr_tpu_torch import frame as F
-    from vkr_tpu_torch.core import registry
+    from vkr_tpu_torch.core import aot, readback, registry
     from vkr_tpu_torch.tools import viewer
 
     base = f"http://127.0.0.1:{port}"
     arrived = [threading.Event() for _ in VIEWER_INPUT]
     sent = [threading.Event() for _ in VIEWER_INPUT]
     seen, client_log, reloads, errors = [], [], [], []
-    saved = F.camera_frame, F.render_frame, registry.reload
+    captures, pngs = [], []
+    saved = (F.camera_frame, aot.cached_jit, registry.reload,
+             readback.png_bytes, aot.CapturedFrame._capture)
 
     def camera_frame(cfg, view, prev, i, dev, use_jitter=True):
         seen.append({"ssr": cfg.enable_ssr, "use_jitter": use_jitter})
@@ -2040,13 +2195,31 @@ def _drive_viewer(port, device):
                 errors.append(f"frame {i}: the client sent nothing")
         return saved[0](cfg, view, prev, i, dev, use_jitter=use_jitter)
 
-    def render_frame(*args, **kw):
-        seen[-1]["tuning"] = kw.get("tuning")
-        return saved[1](*args, **kw)
+    def cached_jit(name, fn, example_args, **kw):
+        frame = fn if eager else saved[1](name, fn, example_args, **kw)
+
+        def call(*args):
+            seen[-1]["tuning"] = [t.clone() for t in args[3]]
+            return frame(*args)
+        return call
+
+    def capture(self, args):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        out = saved[4](self, args)
+        torch.cuda.synchronize()
+        captures.append((len(seen) - 1,
+                         torch.cuda.memory_reserved() - before))
+        return out
 
     def reload(*args, **kw):
         reloads.append(len(seen))
         return saved[2](*args, **kw)
+
+    def png_bytes(*args, **kw):
+        pngs.append(saved[3](*args, **kw))
+        return pngs[-1]
 
     def client():
         try:
@@ -2078,20 +2251,25 @@ def _drive_viewer(port, device):
             for ev in sent:
                 ev.set()
 
-    F.camera_frame, F.render_frame, registry.reload = (camera_frame,
-                                                       render_frame, reload)
+    (F.camera_frame, aot.cached_jit, registry.reload, readback.png_bytes,
+     aot.CapturedFrame._capture) = (camera_frame, cached_jit, reload,
+                                    png_bytes, capture)
     th = threading.Thread(target=client, daemon=True)
     th.start()
     try:
         ms = viewer.main(["--port", str(port), "--max-frames",
                           str(VIEWER_FRAMES)])
     finally:
-        F.camera_frame, F.render_frame, registry.reload = saved
+        (F.camera_frame, aot.cached_jit, registry.reload,
+         readback.png_bytes, aot.CapturedFrame._capture) = saved
         for ev in sent + arrived:
             ev.set()
     th.join(60)
     check(not errors and not th.is_alive(), f"viewer: {errors}")
-    return ms, seen, client_log, reloads
+    for f in seen:
+        f["tuning"] = [t.item() for t in f["tuning"]]
+    return {"ms": ms, "seen": seen, "client": client_log,
+            "reloads": reloads, "captures": captures, "pngs": pngs}
 
 
 def tools_phase(gltf_path, tmp, device, sponza_root):
@@ -2189,9 +2367,20 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
     print(f"tools render (glTF, uniform {TOOLS_TEX}): steady frame "
           f"{got['steady_ms']:.3f} ms, coverage {got['coverage']:.4f}")
 
-    # parity: each figure finite, at most PARITY_MAX_DROP_DB below the CPU
+    # parity: each figure finite, at most PARITY_MAX_DROP_DB below the CPU;
+    # the captured frames' report equal to the eager frames'
     for n in (64, 256):
-        report = parity.main(["--scene", "colonnade", "--size", str(n)])
+        argv = ["--scene", "colonnade", "--size", str(n)]
+        t0 = time.perf_counter()
+        report = parity.main(argv)
+        t1 = time.perf_counter()
+        with eager_tools():
+            eager = parity.main(argv)
+        t2 = time.perf_counter()
+        check(eager == report, f"parity --size {n}: the captured frames' "
+              f"report {report} is not the eager frames' {eager}")
+        print(f"tools parity --size {n}: captured frames (cached_jit) "
+              f"{t1 - t0:.3f} s, eager {t2 - t1:.3f} s, reports equal")
         check(all(math.isfinite(v) for v in report.values()),
               f"parity --size {n}: {report}")
         if n == 64:
@@ -2236,28 +2425,58 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
     check(f"compiled: {SCENE_TRIANGLES} triangles" in info,
           "scene_info: not the glTF phase's triangle count")
 
-    ms, seen, client_log, reloads = _drive_viewer(_free_port(), device)
-    print("tools viewer client: " + "; ".join(client_log))
+    runs = {mode: _drive_viewer(_free_port(), device, eager=eager)
+            for mode, eager in (("captured", False), ("eager", True))}
+    got = runs["captured"]
+    seen, ms = got["seen"], got["ms"]
+    print("tools viewer client: " + "; ".join(got["client"]))
     check(len(ms) == VIEWER_FRAMES, f"viewer rendered {len(ms)} frames")
     tun = [f["tuning"] for f in seen]
-    check(tun[0].weight_ratio == 1.0 and tun[1].weight_ratio == 2.5
-          and tun[1].ssr_temporal_rays == 4,
+    check(tun[0] == [1.0, 1.0, 0.0, 1.0, 16] and tun[1][0] == 2.5
+          and tun[1][4] == 4,
           f"viewer: the slider did not reach the next frame: {tun[:2]}")
     check(seen[1]["ssr"] and not seen[2]["ssr"],
           f"viewer: toggle 2 did not turn SSR off: {seen}")
     check(seen[2]["use_jitter"] and not seen[3]["use_jitter"],
           f"viewer: j did not turn the jitter off: {seen}")
-    check(reloads == [4], f"viewer: r reloaded at frames {reloads}")
-    print(f"tools viewer: {len(ms)} frames at 960x544 over HTTP, ms/frame "
-          f"{[round(m, 3) for m in ms]}, median of frames 1.. "
-          f"{statistics.median(ms[1:]):.3f} ms")
+    check(got["reloads"] == [4], f"viewer: r reloaded at frames "
+          f"{got['reloads']}")
+    # a capture for each toggle combination's first frame and after the
+    # reload; the slider (frame 1) and j (frame 3) take none
+    at = [f for f, _ in got["captures"]]
+    check(at == [0, 2, 4] and not runs["eager"]["captures"],
+          f"viewer: captures at frames {at}, eager "
+          f"{runs['eager']['captures']}")
+    check(got["pngs"] == runs["eager"]["pngs"]
+          and len(got["pngs"]) == VIEWER_FRAMES,
+          "viewer: the captured frames' PNGs differ from the eager frames'")
+    replays = [m for i, m in enumerate(ms) if i not in at]
+    eager_ms = runs["eager"]["ms"]
+    print(f"tools viewer: {len(ms)} frames at 960x544 over HTTP, PNG bytes "
+          f"equal to the eager frames'; captured ms/frame "
+          f"{[round(m, 3) for m in ms]} (captures at frames {at}, "
+          f"{[b for _, b in got['captures']]} bytes reserved by each), "
+          f"median of the replays {statistics.median(replays):.3f} ms; "
+          f"eager ms/frame {[round(m, 3) for m in eager_ms]}, median of "
+          f"frames 1.. {statistics.median(eager_ms[1:]):.3f} ms")
 
-    out_dir = os.path.join(tmp, "showcase")
-    t0 = time.perf_counter()
-    shown = showcase.main(["--out-dir", out_dir])
-    show_s = time.perf_counter() - t0
-    with open(shown["gif"], "rb") as f:
-        gif = f.read()
+    shows = {}
+    for mode in ("captured", "eager"):
+        out_dir = os.path.join(tmp, f"showcase-{mode}")
+        t0 = time.perf_counter()
+        with (eager_tools() if mode == "eager"
+              else contextlib.nullcontext()):
+            shown = showcase.main(["--out-dir", out_dir])
+        files = []
+        for path in (shown["gif"], shown["final"]):
+            with open(path, "rb") as f:
+                files.append(f.read())
+        shows[mode] = (time.perf_counter() - t0, shown["render_s"], files)
+    check(shows["captured"][2] == shows["eager"][2],
+          "showcase: the captured frames' GIF or still differs from the "
+          "eager frames'")
+    show_s = shows["captured"][0]
+    gif = shows["captured"][2][0]
     still = decode(shown["final"])
     check(gif[:6] == b"GIF89a" and gif[-1:] == b"\x3b"
           and still.shape == (HEIGHT, WIDTH, 3)
@@ -2266,7 +2485,11 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
           f"showcase: GIF {len(gif)} bytes, still {still.shape}")
     print(f"tools showcase: {len(shown['frames'])} GIF frames of "
           f"{WIDTH // 3}x{HEIGHT // 3} ({len(gif)} bytes) and the "
-          f"{WIDTH}x{HEIGHT} still, outside the repo, in {show_s:.1f} s")
+          f"{WIDTH}x{HEIGHT} still, outside the repo, equal to the eager "
+          f"frames' files; captured frames (cached_jit) {show_s:.3f} s, "
+          f"{shows['captured'][1]:.3f} s of it the 72 frames; eager "
+          f"{shows['eager'][0]:.3f} s, {shows['eager'][1]:.3f} s of it the "
+          "frames")
 
 
 
@@ -2559,7 +2782,7 @@ def measure_call(name, args, kw, wrappers, plain):
         else kw
     want = plain[name][1](*args, **pkw)
     torch.cuda.synchronize()
-    err, ok, note = compare(name, got, want, args)
+    err, ok, note = compare(name, got, want, args, kw)
     nbytes, ops = work_of(name, args, kw, want)
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
@@ -3216,16 +3439,20 @@ def main() -> int:
           f"{grid_bytes}")
     cfg_rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
         cfg.gtao, use_ray_query=True))
-    rt_pass_ms = []
+    rt_pass_ms, rt_captured = [], []
+
+    def rt_hook(i):
+        if i == CAPTURE_FRAME:  # R1's calls, for the kernel phase
+            return Substitute(recording(rt_captured, only=("ray_any_hit",)))
+        if i == WARMUP_FRAMES:
+            return StreamTimer(gtao_mod, "gtao_rt", rt_pass_ms)
+        return contextlib.nullcontext()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     kernels.LAUNCHES.clear()
-    rt_outs, rt_secs = render(
-        scene, res, cfg_rt, device, RT_FRAMES, tri_grid=tri_grid,
-        on_frame=lambda i: (StreamTimer(gtao_mod, "gtao_rt", rt_pass_ms)
-                            if i == WARMUP_FRAMES
-                            else contextlib.nullcontext()))
+    rt_outs, rt_secs = render(scene, res, cfg_rt, device, RT_FRAMES,
+                              tri_grid=tri_grid, on_frame=rt_hook)
     rt_launches = dict(kernels.LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     check_frames(rt_outs, rt_launches, RT_FRAMES, RT_MIN_LAUNCHES_PER_FRAME,
@@ -3246,16 +3473,13 @@ def main() -> int:
           f"device memory {peak_bytes} bytes ({base_bytes} allocated before "
           f"the frames)")
     print_medians("rt", rt_secs)
-    from vkr_tpu_torch.core.aot import cached_jit
-    from vkr_tpu_torch.frame import render_frame
-
-    def rt_frame(s, st, c):
-        return render_frame(s, st, c, res, cfg_rt, tri_grid=tri_grid)
-    check(cached_jit("rt", rt_frame, (scene, None, None)) is rt_frame,
-          "rt: cached_jit captured the ray-traced GTAO frame")
-    print("rt: the ray-traced GTAO frame ran eagerly: cached_jit returns it "
-          "uncaptured by its rule (core/aot.py: the any-hit walk compacts "
-          "the live rays with a data-dependent size)")
+    check(len(rt_captured) == RT_MIN_LAUNCHES_PER_FRAME["ray_any_hit"],
+          f"rt: {len(rt_captured)} ray_any_hit calls recorded in frame "
+          f"{CAPTURE_FRAME}")
+    launches["ray_any_hit"] = rt_launches["ray_any_hit"]
+    traced["RT"] = traced_phase(
+        "RT", scene, res, cfg_rt, device, TRACED_OTHER_FRAMES,
+        RT_MIN_LAUNCHES_PER_FRAME, tri_grid=tri_grid, timing=True)
 
     # ---- variants phase: the other GTAO passes and SSAO at 1080p
     from vkr_tpu_torch.frame import _inv4, _normal_mat4, camera_frame
@@ -3383,10 +3607,12 @@ def main() -> int:
     failures = []
     # (row of the kernels line, wrapper, args, kw): main frame 1's calls and
     # the shadow map's, then K1's opaque and masked calls on one probe face
+    # and R1's 8 calls of RT frame 1
     calls = [(name, name, args, kw) for name, args, kw in captured] + [
         (PROBE_FACE_ROW, name, args, kw) for name, args, kw in face_captured]
     check([c[1] for c in calls[-2:]] == ["gbuf_tiles"] * 2,
           "probe grid: K1's calls on the first face were not captured")
+    calls += [(name, name, args, kw) for name, args, kw in rt_captured]
     for row, name, args, kw in calls:
         case, ok, note, want = measure_call(name, args, kw, wrappers, plain)
         err, ms, plain_ms, library_ms = (case[k] for k in (
@@ -3450,8 +3676,9 @@ def main() -> int:
           + "; ".join(failures))
     for name in KERNELS:
         check(name in results, f"{name} was not called in main frame "
-              f"{CAPTURE_FRAME}, the shadow phase or the probe grid")
-    del captured, face_captured
+              f"{CAPTURE_FRAME}, the shadow phase, the probe grid or RT "
+              f"frame {CAPTURE_FRAME}")
+    del captured, face_captured, rt_captured
 
     # ---- the same frames through the plain versions ----
     kernels.LAUNCHES.clear()

@@ -35,6 +35,22 @@ def _cpu(monkeypatch, tmp_path):
     monkeypatch.setenv("VKR_DISK_CACHE", str(tmp_path / "cache"))
 
 
+@pytest.fixture
+def jits(monkeypatch):
+    """The cached_jit calls the tools make (name, donate_argnums); each
+    call goes on to cached_jit, which returns fn on the CPU."""
+    from vkr_tpu_torch.core import aot
+
+    made, real = [], aot.cached_jit
+
+    def spy(name, fn, example_args, **kw):
+        made.append((name, kw.get("donate_argnums")))
+        return real(name, fn, example_args, **kw)
+
+    monkeypatch.setattr(aot, "cached_jit", spy)
+    return made
+
+
 def psnr(a, b, peak=255.0):
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))
@@ -86,13 +102,15 @@ def test_scene_info_prints_vkr_tpus_lines(tmp_path, capsys):
     assert scene_info.main([]) == 1
 
 
-def test_parity_report(capsys):
+def test_parity_report(capsys, jits):
     """parity at 64x64 on the colonnade prints vkr_tpu's keys, every figure
     finite and within 0.5 dB of the figures pinned here (the CPU run's,
-    chip_smoke.PARITY_64_CPU_DB; the kernels' plain versions run here)."""
+    chip_smoke.PARITY_64_CPU_DB; the kernels' plain versions run here).
+    Both modes' frames go through cached_jit, the state donated."""
     from vkr_tpu_torch.tools import parity
 
     got = parity.main(["--scene", "colonnade", "--size", "64"])
+    assert jits == [("parity kernels", (1,)), ("parity oracle", (1,))]
     line = capsys.readouterr().out.strip().splitlines()[-1]
     report = json.loads(line)["psnr_kernels_vs_oracle_db"]
     assert report == got
@@ -154,10 +172,12 @@ def _free_port():
     return port
 
 
-def test_viewer_over_http(monkeypatch):
+def test_viewer_over_http(monkeypatch, jits):
     """The viewer on a thread: the page, a PNG frame at the viewer's size,
     the stats, and a POSTed slider, toggle and `j` reaching the next
-    frame's Tuning, RenderConfig and jitter."""
+    frame's Tuning (0-d tensors), RenderConfig and jitter. Each toggle
+    combination's frame goes through cached_jit, the state donated; the
+    reload drops them, and the next frame makes its own."""
     from vkr_tpu_torch import frame as F
     from vkr_tpu_torch.tools import viewer
 
@@ -211,13 +231,22 @@ def test_viewer_over_http(monkeypatch):
     th.join(120)
     assert not th.is_alive() and len(result["ms"]) == 3
     first, later = seen[0], seen[1]
-    assert later[0] == F.Tuning(2.5, 1.0, 0.0, 1.0, 4)
+    assert all(isinstance(v, torch.Tensor) and v.ndim == 0
+               for v in later[0])
+    assert [v.item() for v in later[0]] == [2.5, 1.0, 0.0, 1.0, 4]
+    assert [v.item() for v in first[0]] == [1.0, 1.0, 0.0, 1.0, 16]
+    tg = viewer.ViewerState().toggles
+    keys = [tuple(tg[k] and not (k == "ssr" and off)
+                  for k in viewer.CONFIG_TOGGLES) for off in (False, True)]
+    assert jits == [(f"viewer {k}", (1,)) for k in keys]
     assert first[1].enable_ssr and not later[1].enable_ssr
     assert bool(first[2].abs().sum() > 0)
     assert torch.equal(later[2], torch.zeros(2))
 
 
-def test_showcase_writes_gif_and_still(tmp_path, monkeypatch):
+def test_showcase_writes_gif_and_still(tmp_path, monkeypatch, jits):
+    """The GIF and the still at a small size, the frames through cached_jit
+    with the state donated."""
     from vkr_tpu_torch.tools import showcase
 
     # a small hall: the scene sizes are the module's constants
@@ -226,6 +255,7 @@ def test_showcase_writes_gif_and_still(tmp_path, monkeypatch):
         monkeypatch.setattr(showcase, name, value)
     res = showcase.main(["--out-dir", str(tmp_path), "--frames", "12",
                          "--width", "96", "--height", "54"])
+    assert jits == [("showcase", (1,))]
     still = np.asarray(Image.open(tmp_path / "colonnade_final.png"))
     assert still.shape == (54, 96, 3)
     gif = Image.open(tmp_path / "colonnade_orbit.gif")
@@ -242,6 +272,49 @@ def test_showcase_writes_gif_and_still(tmp_path, monkeypatch):
         err = np.abs(got - want).mean()
         print(f"gif frame {i}: mean |d| {err:.3f}")
         assert err < 6.0
+
+
+def test_viewer_tuning_tensors_equal_python_scalars():
+    """The viewer's sliders as tuning_tensors (five 0-d tensors: float32,
+    and the ray count int32) give the frames that the same values give as
+    Python scalars, bit for bit, over 3 frames of the default frame. The
+    values are ones where a step on the scalars alone rounds otherwise in
+    float64 (1 - 1 / (2 + 1), 0.9 - 0.1): the frame takes both forms in
+    float32. The sliders move the frame off the config's values."""
+    from vkr_tpu_torch import frame as F
+    from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.passes.gbuffer import upload_scene
+    from vkr_tpu_torch.scene.orbit import bench_orbit_view
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+    from vkr_tpu_torch.tools import viewer
+
+    sliders = dict(weight_ratio=2.0, ssr_max_roughness=0.37,
+                   shade_min_roughness=0.1, shade_max_roughness=0.9,
+                   ssr_temporal_rays=4)
+    tun = viewer.tuning_tensors(sliders, "cpu")
+    assert [(v.dtype, v.ndim) for v in tun] == [(torch.float32, 0)] * 4 + [
+        (torch.int32, 0)]
+    cfg = RenderConfig(width=64, height=32)
+    scene = upload_scene(colonnade_scene(columns=24, tessellation=4,
+                                         tex_size=16), "cpu")
+    res = F.build_ssr_resources(32, device="cpu")
+
+    def frames(tuning):
+        state, out = FrameState.initial(32, 64, "cpu"), []
+        for i in range(3):
+            cam = F.camera_frame(cfg, bench_orbit_view(i),
+                                 bench_orbit_view(max(i - 1, 0)), i, "cpu")
+            color, state, aux = F.render_frame(scene, state, cam, res, cfg,
+                                               tuning=tuning)
+            out.append([color, aux["ao"], aux["ssr"],
+                        *(getattr(state, f) for f in state.FIELDS)])
+        return out
+
+    got, want = frames(tun), frames(F.Tuning(**sliders))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert all(torch.equal(a, b) for a, b in zip(g, w)), i
+    assert not torch.equal(got[2][0], frames(None)[2][0])
 
 
 def test_lanczos_resize_against_pil():

@@ -244,6 +244,11 @@ def test_overflow_below_the_count_is_vkr_tpus(hall, exact):
 
 # ------------------------------------------------------ (d) no host read
 
+# what no_host_read replaced, while it is in force (allow_host_read
+# restores them for a while)
+_REFUSED = []
+
+
 @contextlib.contextmanager
 def no_host_read():
     """Make every way a frame could read a tensor on the host, or copy a
@@ -257,12 +262,28 @@ def no_host_read():
         "__int__", "__bool__", "__float__", "__index__", "item", "tolist",
         "cpu", "numpy")] + [(torch, "tensor"), (torch, "as_tensor")]
     saved = [(o, n, getattr(o, n)) for o, n in targets]
+    _REFUSED.append(saved)
     try:
         for o, n in targets:
             setattr(o, n, refuse(n))
         yield
     finally:
+        _REFUSED.pop()
         for o, n, v in saved:
+            setattr(o, n, v)
+
+
+@contextlib.contextmanager
+def allow_host_read():
+    """Inside no_host_read: lift it while the block runs."""
+    saved = _REFUSED[-1]
+    refused = [(o, n, getattr(o, n)) for o, n, _ in saved]
+    try:
+        for o, n, v in saved:
+            setattr(o, n, v)
+        yield
+    finally:
+        for o, n, v in refused:
             setattr(o, n, v)
 
 
@@ -283,6 +304,55 @@ def test_traced_body_reads_nothing_from_the_host(hall, exact):
         assert _equal(_tensors(color, state, aux), frames[i]), i
     with pytest.raises(AssertionError, match="host read"), no_host_read():
         int(torch.ones(()))
+
+
+def test_traced_rt_body_reads_nothing_from_the_host(small, monkeypatch):
+    """The ray-traced GTAO frame: frames 1-3 of its traced body (frame 0's
+    static capacities) with every host read made to raise, except inside
+    accel.ray_any_hit, swapped for its plain version run with host reads
+    allowed (on the card it is csrc/ray_any_hit.cu, which reads nothing
+    from the host), equal the exact frames: the rest of the RT frame
+    (gtao_rt's preamble, the direction table, the AO sum) reads nothing
+    from the host."""
+    import dataclasses
+
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import build_scene_tri_grid, render_frame
+    from vkr_tpu_torch.raster import setup
+    from vkr_tpu_torch.scene import accel
+    from vkr_tpu_torch.scene.procedural import colonnade_scene
+
+    scene, res, cfg, cams = small
+    rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
+        cfg.gtao, use_ray_query=True))
+    grid = build_scene_tri_grid(colonnade_scene(columns=24, tessellation=4,
+                                                tex_size=16),
+                                resolution=16, cap=8, device="cpu")
+    state, frames, counts = FrameState.initial(24, 48, "cpu"), [], []
+    for cam in cams[:4]:
+        plan = setup.PairPlan()
+        with setup.pair_plan(plan):
+            color, state, aux = render_frame(scene, state, cam, res, rt,
+                                             tri_grid=grid)
+        frames.append([t.clone() for t in _tensors(color, state, aux)])
+        counts.append(plan.counts)
+
+    calls = []
+
+    def plain(*args, **kw):
+        calls.append(kw.get("max_steps"))
+        with allow_host_read():
+            return accel.ray_any_hit_reference(*args, **kw)
+
+    monkeypatch.setattr(accel, "ray_any_hit", plain)
+    caps = setup.static_capacities(counts[0])
+    state = _state(frames[0])
+    for i in range(1, 4):
+        with setup.pair_plan(setup.PairPlan(caps)), no_host_read():
+            color, state, aux = render_frame(scene, state, cams[i], res, rt,
+                                             tri_grid=grid)
+        assert _equal(_tensors(color, state, aux), frames[i]), i
+    assert calls == [12] * 8 * 3  # gtao_rt's 8 chunks of 8 directions
 
 
 # ------------------------------------------- (e) the capture's control flow
@@ -445,14 +515,16 @@ def test_captured_frame_overflow_and_arguments():
 
 
 def test_ray_traced_frame_runs_eagerly_by_rule(small, monkeypatch):
-    """cached_jit on (what it takes for) CUDA arguments: the ray-traced GTAO
-    frame (a RenderConfig with gtao.use_ray_query and a TriGrid among the
-    objects fn closes over, or among example_args) is returned as fn; the
-    same frame without use_ray_query, or without a grid, is captured."""
+    """The rule is gone: cached_jit on (what it takes for) CUDA arguments
+    captures the ray-traced GTAO frame like any other (its any-hit walk is
+    csrc/ray_any_hit.cu on the card, a launch of fixed shape). All four
+    combinations of a RenderConfig with or without gtao.use_ray_query and
+    a TriGrid or none, closed over by fn or among example_args, come back
+    as a CapturedFrame."""
     import dataclasses
     import types
 
-    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.core import aot, registry
     from vkr_tpu_torch.frame import build_scene_tri_grid, render_frame
     from vkr_tpu_torch.scene.procedural import colonnade_scene
 
@@ -471,16 +543,17 @@ def test_ray_traced_frame_runs_eagerly_by_rule(small, monkeypatch):
                                                tri_grid=g)
 
     args = (scene, None, cams[0])
-    fn = closing(rt, grid)
-    assert aot.cached_jit("rt", fn, args) is fn
-    assert aot.cached_jit("rt", render_frame, (scene, None, cams[0], res, rt,
-                                               grid)) is render_frame
-    for c, g in ((cfg, grid), (rt, None)):
-        fn = closing(c, g)
-        assert isinstance(aot.cached_jit("mis", fn, args), aot.CapturedFrame)
+    made = []
+    for c in (rt, cfg):
+        for g in (grid, None):
+            made.append(aot.cached_jit("frame", closing(c, g), args))
+            made.append(aot.cached_jit("frame", render_frame,
+                                       (scene, None, cams[0], res, c, g)))
+    assert all(isinstance(f, aot.CapturedFrame) for f in made)
+    assert not hasattr(aot, "_ray_traced")
+    for f in made:
+        registry._TRACKED_JITS.discard(f)
 
-
-# ------------------------------------------------ (f) against vkr_tpu
 
 def test_traced_frames_against_vkr_tpu():
     """Frames 1-3 of the traced SSR-off frame (CapturedFrame with the fake

@@ -8,14 +8,11 @@ counterpart of that executable is a CUDA graph: cached_jit records fn
 once and replays the recording at every later call, so that a frame costs
 one graph launch of host time and no launch from Python.
 
-On CUDA arguments cached_jit returns a CapturedFrame (below). On CPU
-arguments it returns fn itself: the kernels' plain versions are the CPU's
-path, and the CPU has no graph. One frame that runs on the card stays
-eager by rule: the ray-traced GTAO frame (a RenderConfig with
-gtao.use_ray_query and a scene.accel.TriGrid, among example_args or the
-objects fn closes over). Its any-hit walk compacts the live rays with a
-data-dependent size at every step (scene/accel.py:ray_any_hit), which a
-graph cannot record, so cached_jit returns fn for it.
+On CUDA arguments cached_jit returns a CapturedFrame (below), for every
+frame: the ray-traced GTAO frame too, whose any-hit walk is a kernel of
+fixed shape on the card (csrc/ray_any_hit.cu). On CPU arguments it
+returns fn itself: the kernels' plain versions are the CPU's path, and
+the CPU has no graph.
 
 What a process builds before its first frame, and keeps on disk for the
 next, is the hand-written CUDA kernels (kernels.build(): nvcc into build/,
@@ -69,11 +66,6 @@ def cached_jit(name: str, fn: Callable, example_args, *, donate_argnums=(),
     if not any(getattr(leaf, "is_cuda", False)
                for leaf in _leaves(example_args)):
         return fn
-    if _ray_traced(fn, example_args):
-        if verbose:
-            print(f"aot: {name}: the ray-traced GTAO frame runs eagerly "
-                  f"(core/aot.py)", file=sys.stderr, flush=True)
-        return fn
     if os.environ.get("VKR_AOT", "1") == "1":
         from vkr_tpu_torch import kernels, native
 
@@ -90,19 +82,6 @@ def cached_jit(name: str, fn: Callable, example_args, *, donate_argnums=(),
                   file=sys.stderr, flush=True)
     return registry.track_jit(CapturedFrame(
         name, fn, donate_argnums=donate_argnums, verbose=verbose))
-
-
-def _ray_traced(fn, example_args) -> bool:
-    """The eager rule: a RenderConfig with gtao.use_ray_query and a TriGrid
-    among example_args or the objects fn closes over."""
-    from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.scene.accel import TriGrid
-
-    seen = list(example_args)
-    seen += [c.cell_contents for c in getattr(fn, "__closure__", None) or ()]
-    return (any(isinstance(o, TriGrid) for o in seen)
-            and any(isinstance(o, RenderConfig) and o.gtao.use_ray_query
-                    for o in seen))
 
 
 def _map(tree, f):

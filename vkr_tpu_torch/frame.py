@@ -118,6 +118,21 @@ class Tuning(NamedTuple):
         )
 
 
+def _tuning(cfg: RenderConfig, tuning) -> Tuning:
+    """The slider scalars as the passes read them: Tuning.of(cfg) when
+    tuning is None, each float as a float32 0-d tensor. The reference's
+    push constants are float32, and so are the viewer's 0-d device tensors
+    (tools/viewer.py); a Python float becomes a 0-d CPU tensor, which costs
+    no copy to the card, so that a step on the scalars alone (MIS's
+    1 / (weight_ratio + 1), shading's max - min) rounds in float32 in
+    either form and both give the same frame."""
+    t = Tuning.of(cfg) if tuning is None else tuning
+    return t._replace(**{
+        k: torch.scalar_tensor(float(v), dtype=torch.float32)
+        for k, v in t._asdict().items()
+        if k != "ssr_temporal_rays" and not isinstance(v, torch.Tensor)})
+
+
 class CameraFrame(NamedTuple):
     """Per-frame camera matrices (DrawTAAParams analog,
     scene_renderer.hpp:26-33), float32 tensors."""
@@ -190,9 +205,12 @@ def build_scene_tri_grid(scene_cpu, resolution: int = 48, cap: int = 24,
 
 
 @registry.track_cache
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)
 def _rt_direction_table(count: int, device) -> torch.Tensor:
-    """ao_ray_directions(count) on `device`, made once."""
+    """ao_ray_directions(count) on `device`, made once: at a captured
+    frame's warm-up, before its capture (a pageable copy cannot be
+    recorded). Not bounded, as core/constants.py's cache: an evicted table
+    would be freed under a graph still reading it."""
     return torch.as_tensor(_gtao.ao_ray_directions(count), device=device)
 
 
@@ -281,7 +299,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
     (main/filter/accumulate). Returns the dict of products the tail
     consumes. band/gather_fn: shade_frame's (vkr_tpu frame.py:242)."""
     h, w = cfg.height, cfg.width
-    t = Tuning.of(cfg) if tuning is None else tuning
+    t = _tuning(cfg, tuning)
     dev = gbuf.depth.device
     row0, band_h, g = _banding(band, gather_fn)
     # band mode's half-res rows; the one-device frame calls every pass as
@@ -440,7 +458,7 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
     """Deferred shading -> TAA -> end-of-frame history remaps
     (main.cpp:416-420). Returns (final color, new FrameState, aux).
     band/gather_fn: shade_frame's (vkr_tpu frame.py:389)."""
-    t = Tuning.of(cfg) if tuning is None else tuning
+    t = _tuning(cfg, tuning)
     row0, band_h, g = _banding(band, gather_fn)
     fb = {} if band is None else dict(row0=row0, band_h=band_h)
     inv_view = _inv4(cam.view)

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("gbuf_tiles", "window_gather", "ssr_march")
+SOURCES = ("gbuf_tiles", "window_gather", "ssr_march", "ray_any_hit")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -54,6 +54,10 @@ _SIGNATURES = {
     "ssr_march": {
         "vkr_ssr_march": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
                           _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P],
+    },
+    "ray_any_hit": {
+        "vkr_ray_any_hit": [_P, _P, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P, _P],
     },
 }
 

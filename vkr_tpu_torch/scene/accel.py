@@ -12,9 +12,11 @@ world-space triangles instead:
     its first CAP ids, in triangle order; each (triangle, cell) pair that
     did not fit is counted in TriGrid.overflowed. A dropped pair can only
     turn a hit into a miss.
-  * traversal (PyTorch on the tensors' device): a 3-D DDA walks up to
-    max_steps cells per ray and tests each cell's CAP slots with
-    Moller-Trumbore any-hit.
+  * traversal: a 3-D DDA walks up to max_steps cells per ray and tests
+    each cell's CAP slots with Moller-Trumbore any-hit. ray_any_hit runs
+    it on the card in csrc/ray_any_hit.cu (R1), one thread per ray, a
+    launch of fixed shape that a captured frame (core/aot.py) records; on
+    CPU tensors it takes the plain version, ray_any_hit_reference.
 
 vkr_tpu computes the traversal in jnp inside a lax.fori_loop, and XLA
 compiles its cross products and 3-term dot products into fmas. The port
@@ -30,6 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vkr_tpu_torch import kernels
 from vkr_tpu_torch.mathlib.brdf import _fma
 
 CUDA = torch.device("cuda")
@@ -142,7 +145,66 @@ def _tri_hit_mask(orig, dirs, v0, e1, e2, t_max, eps=1e-12):
 
 def ray_any_hit(grid: TriGrid, origin, direction, t_max,
                 max_steps: "int | None" = None, ray_chunk: int = RAY_CHUNK):
-    """rayQuery any-hit analog: True where the segment
+    """R1, the rayQuery any-hit analog: True where the segment
+    origin + t * direction, t in (0, t_max], hits scene geometry.
+
+    origin/direction: (..., 3) float32; t_max: a float (on CPU tensors
+    also a tensor of the leading shape); max_steps: cells per ray
+    (default: the whole grid). Returns a bool tensor of the leading
+    shape. On CUDA tensors csrc/ray_any_hit.cu computes it, one thread per
+    ray, with the plain version's hits (scene/accel.py:
+    ray_any_hit_reference; the kernel's fmaf rounds once where the plain
+    version's float64 _fma rounds twice); dims, cap, max_steps and t_max
+    go in as kernel arguments, and nothing is read from the host. On CPU
+    tensors the plain version, in batches of ray_chunk rays (the kernel
+    has no batches)."""
+    if origin.device.type == "cpu":
+        return ray_any_hit_reference(grid, origin, direction, t_max,
+                                     max_steps=max_steps, ray_chunk=ray_chunk)
+    lead = origin.shape[:-1]
+    o = origin.reshape(-1, 3).contiguous()
+    d = direction.reshape(-1, 3).contiguous()
+    _check_kernel_inputs(grid, o, d, t_max, direction.shape == origin.shape)
+    n = o.shape[0]
+    sx, sy, sz = grid.dims
+    steps = sum(grid.dims) if max_steps is None else int(max_steps)
+    hit = torch.empty(n, dtype=torch.bool, device=o.device)
+    err = kernels.library("ray_any_hit").vkr_ray_any_hit(
+        o.data_ptr(), d.data_ptr(), float(t_max), n,
+        grid.tri_verts.data_ptr(), grid.cell_tris.data_ptr(),
+        grid.grid_min.data_ptr(), grid.cell_size.data_ptr(), sx, sy, sz,
+        int(grid.cap), steps, hit.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    kernels.check(err, "ray_any_hit")
+    kernels.LAUNCHES["ray_any_hit"] += 1
+    return hit.reshape(lead)
+
+
+def _check_kernel_inputs(grid, o, d, t_max, same_shape):
+    """Raise on what csrc/ray_any_hit.cu does not take: float32 rays and
+    vertex tables and int32 cells, contiguous, on one CUDA device; one
+    t_max, a number; fewer than 2^31 rays."""
+    if isinstance(t_max, torch.Tensor):
+        raise ValueError("ray_any_hit: the kernel takes one t_max, a "
+                         "number, for all rays")
+    floats = (o, d, grid.tri_verts, grid.grid_min, grid.cell_size)
+    for t in floats + (grid.cell_tris,):
+        want = torch.int32 if t is grid.cell_tris else torch.float32
+        if t.device != o.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"ray_any_hit: every input must be contiguous "
+                             f"on {o.device} (cell_tris int32, the rest "
+                             f"float32), got {t.dtype} on {t.device}")
+    if not same_shape or o.shape[0] >= 2 ** 31:
+        raise ValueError("ray_any_hit: origin and direction of one shape, "
+                         "fewer than 2^31 rays")
+    if not o.is_cuda:
+        raise ValueError(f"ray_any_hit: unsupported device {o.device}")
+
+
+def ray_any_hit_reference(grid: TriGrid, origin, direction, t_max,
+                          max_steps: "int | None" = None,
+                          ray_chunk: int = RAY_CHUNK):
+    """ray_any_hit's plain version: True where the segment
     origin + t * direction, t in (0, t_max], hits scene geometry.
 
     origin/direction: (..., 3); t_max: a float or (...). A 3-D DDA walks

@@ -7,7 +7,10 @@ renders; without a Vulkan device the measurable analog is the frame
 through the hand-written kernels (use_kernels=True) against the oracle
 frame (use_kernels=False: the brute-force G-buffer and the kernels' plain
 versions). The normal channel stays below 40 dB between the two rasters
-on both packages: the oracle raster is not K1.
+on both packages: the oracle raster is not K1. As vkr_tpu jits both
+modes (vkr_tpu/tools/parity.py:67), each mode's frame goes through
+core/aot.py's cached_jit (captured as CUDA graphs on the card, the state
+donated).
 
     python -m vkr_tpu_torch.tools.parity --scene colonnade --size 256
 """
@@ -49,6 +52,7 @@ def main(argv=None):
     import dataclasses
 
     from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.aot import cached_jit
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.frame import (build_ssr_resources, camera_frame,
                                      render_frame)
@@ -67,10 +71,15 @@ def main(argv=None):
     outs = {}
     for mode, use_kernels in (("kernels", True), ("oracle", False)):
         state = FrameState.initial(cfg.height, cfg.width, device)
+        frame = cached_jit(
+            f"parity {mode}",
+            lambda s, st, c, uk=use_kernels: render_frame(
+                s, st, c, ssr_res, cfg, use_kernels=uk),
+            (scene, state, camera_frame(cfg, view, view, 0, device)),
+            donate_argnums=(1,))
         for i in range(args.frames):
             cam = camera_frame(cfg, view, view, i, device)
-            color, state, aux = render_frame(scene, state, cam, ssr_res, cfg,
-                                             use_kernels=use_kernels)
+            color, state, aux = frame(scene, state, cam)
         g = aux["gbuffer"]
         outs[mode] = dict(
             albedo=g.albedo, normal=g.normal, depth=g.depth,

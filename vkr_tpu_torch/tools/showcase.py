@@ -7,7 +7,10 @@ converged still), as vkr_tpu/tools/showcase.py writes its docs/ images.
 The dolly, the frame count (72 at 1920x1080, the first 8 skipped while
 TAA and SSR converge, every 2nd frame kept) and the GIF (a third of the
 frame size, 640x360 at the default, LANCZOS, 66 ms per frame, looping) are
-vkr_tpu's. The downscale and the GIF writer are core/readback's.
+vkr_tpu's. As vkr_tpu jits the frame with the state donated
+(vkr_tpu/tools/showcase.py:25), the frames go through core/aot.py's
+cached_jit: captured as CUDA graphs at the first frame, replayed after.
+The downscale and the GIF writer are core/readback's.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ def main(argv=None):
     device = ensure_platform()
     print("backend:", device)
     from vkr_tpu_torch.config import RenderConfig
+    from vkr_tpu_torch.core.aot import cached_jit
     from vkr_tpu_torch.core.formats import linear_to_srgb
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.readback import (gif_bytes, lanczos_resize,
@@ -73,17 +77,21 @@ def main(argv=None):
 
     state = FrameState.initial(h, w, device)
     view = view_at(0)
+    render = cached_jit(
+        "showcase", lambda s, st, c: render_frame(s, st, c, res, cfg),
+        (scene, state, camera_frame(cfg, view, view, 0, device)),
+        donate_argnums=(1,))
     frames = []
     t0 = time.perf_counter()
     for i in range(args.frames):
         prev, view = view, view_at(i)
         cam = camera_frame(cfg, view, prev, i, device)
-        color, state, _ = render_frame(scene, state, cam, res, cfg)
+        color, state, _ = render(scene, state, cam)
         if i >= SKIP:
             frames.append(np.clip(to_host(linear_to_srgb(color)) * 255, 0,
                                   255).astype(np.uint8))
-    print(f"{args.frames} frames in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    render_s = time.perf_counter() - t0
+    print(f"{args.frames} frames in {render_s:.1f}s", flush=True)
     if not frames:
         raise ValueError(f"--frames {args.frames}: the first {SKIP} frames "
                          "are not captured")
@@ -96,7 +104,8 @@ def main(argv=None):
     with open(gif, "wb") as f:
         f.write(gif_bytes(np.stack(small), DURATION_MS, loop=0))
     print(f"saved {gif} + {len(small)} frames, {final}", flush=True)
-    return {"gif": gif, "final": final, "frames": small}
+    return {"gif": gif, "final": final, "frames": small,
+            "render_s": render_s}
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ like the reference's push-constant update; checkboxes change RenderConfig
 and take another frame function, cached per combination, like the
 reference's specialization constants.
 
+As vkr_tpu jits one frame per combination with Tuning as a traced
+argument (vkr_tpu/tools/viewer.py:290-322), each combination's frame goes
+through core/aot.py's cached_jit: captured as CUDA graphs at its first
+frame (the FrameState donated), replayed after, dropped by hot reload.
+The sliders reach it as five 0-d tensors on the device, which a replay
+copies into the graphs' buffers, so moving one needs no new capture.
+
 Usage:
     python -m vkr_tpu_torch.tools.viewer --scene colonnade --width 960 \
         --height 544 --port 8799
@@ -134,6 +141,32 @@ async function poll() {
 }
 poll();
 </script></body></html>"""
+
+
+# the checkboxes and keys that change RenderConfig: one frame function each
+CONFIG_TOGGLES = ("ssr", "gtao", "taa", "ao_only", "mis", "two_dirs",
+                  "refl_only", "normalize", "accumulate", "bilateral",
+                  "random", "blur")
+
+
+def tuning_tensors(sliders, device):
+    """The sliders as a frame.Tuning of five 0-d tensors on `device` (the
+    four floats float32, the temporal ray count int32, at least 1), each
+    made by a fill on the device: no copy from the host, no wait."""
+    import torch
+
+    from vkr_tpu_torch.frame import Tuning
+
+    def full(v, dtype=torch.float32):
+        return torch.full((), v, dtype=dtype, device=device)
+
+    return Tuning(
+        weight_ratio=full(float(sliders["weight_ratio"])),
+        ssr_max_roughness=full(float(sliders["ssr_max_roughness"])),
+        shade_min_roughness=full(float(sliders["shade_min_roughness"])),
+        shade_max_roughness=full(float(sliders["shade_max_roughness"])),
+        ssr_temporal_rays=full(max(1, int(sliders["ssr_temporal_rays"])),
+                               torch.int32))
 
 
 class ViewerState:
@@ -257,6 +290,7 @@ def main(argv=None):
     from vkr_tpu_torch import frame as F
     from vkr_tpu_torch.config import RenderConfig
     from vkr_tpu_torch.core import registry
+    from vkr_tpu_torch.core.aot import cached_jit
     from vkr_tpu_torch.core.formats import linear_to_srgb
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.readback import png_bytes, to_host
@@ -285,36 +319,29 @@ def main(argv=None):
     threading.Thread(target=server.serve_forever, daemon=True).start()
     print(f"viewer: http://localhost:{args.port}/", flush=True)
 
-    frame_fns = {}
+    frame_fns = {}  # CONFIG_TOGGLES values -> the captured frame
 
-    def get_frame_fn(tg):
-        key = (tg["ssr"], tg["gtao"], tg["taa"], tg["ao_only"],
-               tg["mis"], tg["two_dirs"], tg["refl_only"],
-               tg["normalize"], tg["accumulate"], tg["bilateral"],
-               tg["random"], tg["blur"])
-        if key not in frame_fns:
-            cfg = RenderConfig(
-                width=args.width, height=args.height,
-                enable_ssr=tg["ssr"], enable_gtao=tg["gtao"],
-                enable_taa=tg["taa"], show_ao_only=tg["ao_only"],
-            )
-            cfg = dataclasses.replace(
-                cfg,
-                gtao=dataclasses.replace(
-                    cfg.gtao, mis=tg["mis"],
-                    two_directions=tg["two_dirs"],
-                    reflections_only=tg["refl_only"]),
-                ssr=dataclasses.replace(
-                    cfg.ssr, normalize_filter=tg["normalize"],
-                    accumulate=tg["accumulate"],
-                    bilateral_filter=tg["bilateral"],
-                    update_random=tg["random"], use_blur=tg["blur"]),
-            )
+    def config(tg):
+        cfg = RenderConfig(
+            width=args.width, height=args.height,
+            enable_ssr=tg["ssr"], enable_gtao=tg["gtao"],
+            enable_taa=tg["taa"], show_ao_only=tg["ao_only"],
+        )
+        return dataclasses.replace(
+            cfg,
+            gtao=dataclasses.replace(
+                cfg.gtao, mis=tg["mis"], two_directions=tg["two_dirs"],
+                reflections_only=tg["refl_only"]),
+            ssr=dataclasses.replace(
+                cfg.ssr, normalize_filter=tg["normalize"],
+                accumulate=tg["accumulate"],
+                bilateral_filter=tg["bilateral"],
+                update_random=tg["random"], use_blur=tg["blur"]),
+        )
 
-            def fn(s, st, c, t, cfg=cfg):
-                return F.render_frame(s, st, c, ssr_res, cfg, tuning=t)
-            frame_fns[key] = (fn, cfg)
-        return frame_fns[key]
+    def frame_fn(cfg):
+        return lambda s, st, c, t: F.render_frame(s, st, c, ssr_res, cfg,
+                                                  tuning=t)
 
     fstate = FrameState.initial(args.height, args.width, device)
     prev_view = cam.view_matrix()
@@ -355,19 +382,18 @@ def main(argv=None):
                    ("arrowdown" in keys) * look
                    - ("arrowup" in keys) * look)
 
-        fn, cfg = get_frame_fn(toggles)
+        key = tuple(toggles[k] for k in CONFIG_TOGGLES)
+        cfg = config(toggles)
         view = cam.view_matrix()
         cframe = F.camera_frame(cfg, view, prev_view, i, device,
                                 use_jitter=toggles["jitter"])
-        tun = F.Tuning(
-            weight_ratio=float(sliders["weight_ratio"]),
-            ssr_max_roughness=float(sliders["ssr_max_roughness"]),
-            shade_min_roughness=float(sliders["shade_min_roughness"]),
-            shade_max_roughness=float(sliders["shade_max_roughness"]),
-            ssr_temporal_rays=max(1, int(sliders["ssr_temporal_rays"])),
-        )
+        tun = tuning_tensors(sliders, device)
+        if key not in frame_fns:
+            frame_fns[key] = cached_jit(f"viewer {key}", frame_fn(cfg),
+                                        (scene, fstate, cframe, tun),
+                                        donate_argnums=(1,))
         t0 = time.perf_counter()
-        color, fstate, _ = fn(scene, fstate, cframe, tun)
+        color, fstate, _ = frame_fns[key](scene, fstate, cframe, tun)
         rgb = np.clip(to_host(linear_to_srgb(color)) * 255, 0,
                       255).astype(np.uint8)
         ms = (time.perf_counter() - t0) * 1e3
