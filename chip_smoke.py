@@ -181,6 +181,13 @@
    only (a new toggle combination, after the reload; the slider and j
    take none); each tool's ms or seconds print beside the eager run's,
    with the bytes each viewer capture adds to the allocator's reserve.
+   Then the viewer twice more without a client: a forced bin overflow
+   (raster/setup.PAIR_HEADROOM 1.0, frames 0-1 looking steeply up the
+   hall, then the preset's view, jitter off) must make it capture anew
+   once, at frame 3, and go on, every frame from there equal, colour and
+   state, to the eager frame on its inputs; and ten toggle combinations,
+   more than viewer.MAX_CAPTURES, must keep the allocator's reserve within
+   MAX_CAPTURES x the largest capture.
 14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
    with 2 ranks on this card (it prints what NCCL says; it refuses ranks
    that share a card). Then 4 ranks, processes on this one card in a gloo
@@ -209,7 +216,16 @@
    roofline bound from this run's inputs (K1 and K7: the pair rows' raster
    fields, the winning rows' resolve fields, the kept pixels' outputs and
    4 planes per pair-pixel the pair covers). For K5 it also times an empty
-   kernel on K5's grid. Also prints each K1/K7 call's pairs per tile and
+   kernel on K5's grid. R1 also on a per-ray and a 0-d t_max tensor (hits
+   equal to the plain version's), its walk transcribed (rt_walk: hits
+   equal to the plain version's, slot tests per ray, where each test
+   ends), the SIMT efficiency of its lane map against three others, its
+   slot loop's SASS size, registers and spills, and the instruction-issue
+   estimate; with VKR_R1_PARENT naming another commit's
+   csrc/ray_any_hit.cu of a C interface it knows (build_r1_parent), that
+   kernel's hits and its ms a frame against this one's in turns (parent,
+   change, change, parent). Also prints each
+   K1/K7 call's pairs per tile and
    the (pair, 8x16 patch) items its patch reject keeps, against the
    covered pair-pixels, and the march's steps per ray and SIMT efficiency
    under one-ray-per-lane warps of 32x1, 8x4 and 4x8 rays. Then stress
@@ -235,6 +251,7 @@ Any failed check exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import ast
+import collections
 import contextlib
 import dataclasses
 import json
@@ -296,9 +313,15 @@ PEAK_F32_FLOPS = 67e12
 MARCH_FLOPS_PER_ITERATION = 55
 PLANE_FLOPS = 4  # fma(a, px, b*py) + c
 # float32 operations of one Moller-Trumbore slot test (csrc/ray_any_hit.cu,
-# an fma counted as 2): the edges 6, p = cross(d, e2) 9, det 5, 1 / det 1,
-# s 3, u 6, q = cross(s, e1) 9, v 6, t 6, u + v 1
-MT_FLOPS = 52
+# an fma counted as 2; compares and the reject's two scalings not
+# counted), by where the test ends (rt_walk's exits): after det, p =
+# cross(d, e2) 9 and det 5; before the division, s 3 and a 5 more; after
+# u, 1 / det and u; after v, q = cross(s, e1) 9, v 6 and u + v 1; forming
+# t, 6 more. The edges are formed once per grid, in the slot records.
+MT_OPS = {"det": 14, "a": 22, "u": 24, "v": 40, "t": 46}
+# PR 15's count, every test charged in full with its edges (6): printed
+# beside the bound, to set this run against PR 15's figures
+MT_FLOPS_PR15 = 52
 # K1/K7 stress calls on one tile: (tile width, pairs, K1 with a peel floor).
 # 8x128: one cell, 160 chunks; 8x512: four cells of 16 chunks each.
 STRESS = ((128, 20_480, False), (512, 2_048, True))
@@ -761,13 +784,16 @@ def work_of(name, args, kw, plain):
     if name == "ray_any_hit":
         grid, origin, direction, t_max = args[:4]
         n_rays = origin.numel() // 3
-        # each ray's origin and direction (and t_max) once, its hit; the
-        # grid's tables once
-        return (n_rays * (2 * 3 * 4 + 1) + nbytes(t_max, grid.tri_verts,
-                                                  grid.cell_tris,
-                                                  grid.grid_min,
-                                                  grid.cell_size),
-                rt_slot_tests(*args[:4], kw.get("max_steps")) * MT_FLOPS)
+        steps = kw.get("max_steps")
+        _, tests, exits = rt_walk(*args[:4], steps)
+        check(int(tests.sum()) == rt_slot_tests(*args[:4], steps),
+              "R1: rt_walk's slot tests differ from rt_slot_tests'")
+        # each ray's origin, direction (and t_max tensor) once, its hit;
+        # the filled slot records (48 bytes each) and the spans once; each
+        # test's operations up to where it ends
+        return (n_rays * (2 * 3 * 4 + 1) + int(grid.spans[:, 1].sum()) * 48
+                + nbytes(t_max, grid.spans, grid.grid_min, grid.cell_size),
+                sum(MT_OPS[k] * n for k, n in exits.items()))
     if name == "hierarchical_march":
         pyr, rays = args[0], args[1:5]
         steps = plain[3]
@@ -868,6 +894,8 @@ def rt_compare(got, want, args, kw):
     if n == 0:
         return 0.0, True, f"hits equal on all {got.numel()} rays"
     rays = [t.reshape(-1, 3)[diff] for t in (origin, direction)]
+    if isinstance(t_max, torch.Tensor) and t_max.dim():
+        t_max = t_max.expand(origin.shape[:-1]).reshape(-1)[diff]
     walks = {}
     saved = accel._fma
     for label, fma in (("_fma", saved), ("fma_exact", fma_exact)):
@@ -887,6 +915,407 @@ def rt_compare(got, want, args, kw):
             f"fma_exact gives the kernel's hit on "
             f"{int((walks['fma_exact'] == kernel_hits).sum())} of them"
             + (" (double-rounding cases of _fma)" if ties else ""))
+
+
+def rt_walk(grid, origin, direction, t_max, max_steps=None):
+    """csrc/ray_any_hit.cu's walk transcribed to PyTorch: each ray's DDA
+    over the grid's slot records (grid.records, grid.spans: a cell's filled
+    slots in record order, up to the first that hits), each slot test
+    leaving where the kernel leaves it: a miss after det, before the
+    division (a_rejects, a = dot3(s, p)), after u, after v. Rays leave the
+    work where the kernel's thread returns. Returns (hits of the leading
+    shape, slot tests per ray (int32, flat), tests that left {"det", "a",
+    "u", "v"} and that formed t {"t"}, as ints)."""
+    import torch
+
+    from vkr_tpu_torch.scene.accel import cross, dot3
+
+    lead = origin.shape[:-1]
+    o = origin.reshape(-1, 3)
+    d = direction.reshape(-1, 3)
+    dev = o.device
+    n = o.shape[0]
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    tm = tm.expand(lead).reshape(-1)
+    sx, sy, sz = grid.dims
+    dims = torch.tensor([sx, sy, sz], device=dev)
+    steps = sum(grid.dims) if max_steps is None else int(max_steps)
+    small = d.abs() < 1e-20
+    inv_d = torch.where(small, 1e20, 1.0 / torch.where(d == 0.0, 1.0, d))
+    rel = (o - grid.grid_min) / grid.cell_size
+    ic = torch.minimum(torch.floor(rel).clamp(-1.0, 2.0 ** 24).long()
+                       .clamp(min=0), dims - 1)
+    step = torch.where(d >= 0.0, 1, -1)
+    t_next = ((ic + (step > 0).long()).float() * grid.cell_size
+              + grid.grid_min - o) * inv_d
+    t_next = torch.where(small, 1e20, t_next)
+    dt = (grid.cell_size * inv_d).abs()
+
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    tests = torch.zeros(n, dtype=torch.int32, device=dev)
+    left = {"det": 0, "a": 0, "u": 0, "v": 0, "t": 0}
+    ids = torch.arange(n, device=dev)
+    for _ in range(steps):
+        if ids.numel() == 0:
+            break
+        oo, dd, tt = o[ids], d[ids], tm[ids]
+        flat = ((ic[:, 2] * sy + ic[:, 1]) * sx + ic[:, 0]).clamp(
+            0, sx * sy * sz - 1)
+        start, count = grid.spans[flat].long().unbind(-1)
+        walking = torch.ones_like(ids, dtype=torch.bool)
+        for j in range(int(count.max()) if count.numel() else 0):
+            act = walking & (j < count)
+            rec = grid.records[(start + j).clamp(max=grid.records.shape[0]
+                                                 - 1)]
+            v0, e1, e2 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
+            p = cross(dd, e2)
+            det = dot3(e1, p)
+            ok_det = det.abs() >= 1e-20
+            s = oo - v0
+            a = dot3(s, p)
+            ok_a = ok_det & ~a_rejects(a, det)
+            inv = 1.0 / torch.where(ok_det, det, 1.0)
+            u = a * inv
+            ok_u = ok_a & (u >= 0.0) & ~(u > 1.0)
+            q = cross(s, e1)
+            v = dot3(dd, q) * inv
+            ok_v = ok_u & (v >= 0.0) & (u + v <= 1.0)
+            t = dot3(e2, q) * inv
+            h = act & ok_v & (t > 1e-12) & (t < tt)
+            tests[ids] += act.int()
+            for key, passed, before in (("det", ok_det, act),
+                                        ("a", ok_a, act & ok_det),
+                                        ("u", ok_u, act & ok_a),
+                                        ("v", ok_v, act & ok_u)):
+                left[key] += int((before & ~passed).sum())
+            left["t"] += int((act & ok_v).sum())
+            hit[ids[h]] = True
+            walking &= ~h
+        # the DDA step; a NaN t_next (amin NaN) ends the walk after its
+        # cell
+        tmin = t_next.amin(-1)
+        onehot = torch.argmin(t_next, -1)[:, None] == torch.arange(3,
+                                                                   device=dev)
+        ic = ic + torch.where(onehot, step[ids], 0)
+        t_next = t_next + torch.where(onehot, dt[ids], 0.0)
+        inside = ((ic >= 0) & (ic < dims)).all(-1)
+        keep = torch.nonzero(walking & inside & (tmin <= tt)).squeeze(1)
+        ids, ic, t_next = ids[keep], ic[keep], t_next[keep]
+    return hit.reshape(lead), tests, left
+
+
+def a_rejects(a, det):
+    """csrc/ray_any_hit.cu's test before the division, in float32: True
+    where u = a * (1 / det) lies out of [0, 1] for certain, |a| > |det|
+    (1 + 2^-20) (|u| > 1 through both roundings), or a and det of opposite
+    signs with |a| > |det| 2^-50 (u < 0, too far from 0 to round to -0.0).
+    NaN a: False."""
+    import torch
+
+    aa, ad = a.abs(), det.abs()
+    opposite = torch.signbit(a) != torch.signbit(det)
+    return (aa > ad * (1.0 + 2.0 ** -20)) | (opposite & (aa > ad * 2.0 ** -50))
+
+
+def rt_lane_rays(pixels, dirs, warp=32):
+    """A thread -> ray map that csrc/ray_any_hit.cu measured and left
+    (it takes rays in order, thread i on ray i): for rays (pixels, dirs),
+    ray p * dirs + c, warp w takes direction w % dirs of the 32 pixels from
+    (w // dirs) * 32; -1 for the threads past the last pixel."""
+    import torch
+
+    threads = -(-pixels // warp) * warp * dirs
+    k = torch.arange(threads)
+    w = k // warp
+    p = w // dirs * warp + k % warp
+    return torch.where(p < pixels, p * dirs + w % dirs, -1)
+
+
+def tile_lane_rays(h, w, dirs, tile_w, tile_h, stride=1):
+    """A candidate thread -> ray map for rays (h, w, dirs): a warp takes one
+    direction of tile_w x tile_h pixels spaced `stride` apart (stride 4:
+    pixels of one class of gtao_rt's 4x4 dither pattern); -1 for threads
+    whose pixel lies outside."""
+    import torch
+
+    assert tile_w * tile_h == 32
+    span_w, span_h = tile_w * stride, tile_h * stride
+    tx, ty = -(-w // span_w), -(-h // span_h)
+    lane = torch.arange(32)
+    # warps: (tile row, tile column, class y, class x, direction)
+    idx = torch.arange(ty * tx * stride * stride * dirs)
+    c = idx % dirs
+    k = idx // dirs
+    cx, cy = k % stride, k // stride % stride
+    col, row = k // (stride * stride) % tx, k // (stride * stride * tx)
+    x = (col * span_w + cx)[:, None] + lane % tile_w * stride
+    y = (row * span_h + cy)[:, None] + lane // tile_w * stride
+    ray = (y * w + x) * dirs + c[:, None]
+    return torch.where((x < w) & (y < h), ray, -1).reshape(-1)
+
+
+def lane_efficiency(work, thread_items, warp=32):
+    """Sum of work / sum of (32 x the warp's largest) for warps of 32
+    consecutive threads, thread k taking item thread_items[k] (-1: no
+    item): the share of lane-steps that do work, with no refill."""
+    import torch
+
+    rays = thread_items.to(work.device)
+    w = torch.where(rays >= 0, work[rays.clamp(min=0)], 0).double()
+    w = w.reshape(-1, warp)
+    return float(w.sum() / (w.amax(1).sum() * warp))
+
+
+def sass_text(path):
+    from vkr_tpu_torch import kernels
+
+    cuobjdump = kernels.nvcc_path()[:-len("nvcc")] + "cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def slot_test_loop(path):
+    """(instructions, divisions, instructions per slot test) of the slot
+    loop of a built R1 library (cuobjdump -sass): the shortest loop body
+    (instructions a backward branch spans) that holds a reciprocal
+    (MUFU.RCP, the 1 / det of each test), divided by the reciprocals in
+    it, so an unrolled loop counts per test. A static count: the early
+    exits skip the rest of a test's body."""
+    text = sass_text(path)
+    block = [b for b in text.split("Function : ")[1:]
+             if "ray_any_hit_kernel" in b.split("\n", 1)[0]][0]
+    insns = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+    best = None
+    for addr, ins in insns:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for a, i in insns if int(m.group(1), 16) <= a <= addr
+                and not re.search(r"\bNOP\b", i)]
+        rcp = sum(1 for i in body if "MUFU.RCP" in i)
+        if rcp and (best is None or len(body) < best[0]):
+            best = (len(body), rcp)
+    check(best is not None, f"{path}: no loop with a MUFU.RCP")
+    return best[0], best[1], best[0] / best[1]
+
+
+def res_usage(path, kernel="ray_any_hit_kernel"):
+    """cuobjdump -res-usage's line for `kernel` in a built library:
+    {"REG": registers a thread, "STACK": ..., "LOCAL": spill bytes, ...}."""
+    from vkr_tpu_torch import kernels
+
+    cuobjdump = kernels.nvcc_path()[:-len("nvcc")] + "cuobjdump"
+    text = subprocess.run([cuobjdump, "-res-usage", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Function" in line and kernel in line:
+            return {k: int(v) for k, v in re.findall(r"(\w+):(\d+)",
+                                                     lines[i + 1])}
+    raise SmokeFailure(f"cuobjdump -res-usage: no {kernel} in {path}")
+
+
+# The C interfaces of csrc/ray_any_hit.cu that build_r1_parent calls, by
+# the parameter types of vkr_ray_any_hit (c_params): PR 15's (commit
+# 9169a07: triangle ids, then vertices; a float t_max) and this tree's
+# (slot records and spans; a t_max pointer and its stride). A source
+# named by VKR_R1_PARENT is timed against this tree's kernel in turns.
+R1_PR15_PARAMS = ("const float*", "const float*", "float", "int",
+                  "const float*", "const int*", "const float*",
+                  "const float*", "int", "int", "int", "int", "int",
+                  "unsigned char*", "void*")
+R1_PARENT_ENV = "VKR_R1_PARENT"
+
+
+def c_params(src, name="vkr_ray_any_hit"):
+    """The parameter types of `name`'s extern "C" definition in the CUDA
+    source `src`, in order, names and spacing dropped ("const float*")."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + name + r"\s*\(([^)]*)\)",
+                  open(src).read())
+    check(m is not None, f'{src}: no extern "C" int {name}(...)')
+    return tuple(" ".join(re.sub(r"\w+\s*$", "", p).replace("*", " * ")
+                          .split()).replace(" *", "*")
+                 for p in m.group(1).split(","))
+
+
+def build_r1_parent(src):
+    """Another commit's R1 built with this tree's flags from `src` into
+    vkr_tpu_torch/build/ (keyed by its bytes): (library path,
+    call(grid, origin, direction, t_max, max_steps) -> hits). Fails
+    unless its vkr_ray_any_hit has PR 15's interface or this tree's."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.scene import accel
+
+    params = c_params(src)
+    pr15 = params == R1_PR15_PARAMS
+    check(pr15 or params == c_params(kernels.CSRC / "ray_any_hit.cu"),
+          f"{src}: vkr_ray_any_hit{params} has neither PR 15's interface "
+          f"nor this tree's, the two build_r1_parent can call")
+    out = kernels.BUILD / ("libray_any_hit_parent-" + hashlib.blake2b(
+        open(src, "rb").read(), digest_size=8).hexdigest() + ".so")
+    if not out.exists():
+        kernels.BUILD.mkdir(parents=True, exist_ok=True)
+        run = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                              "-o", str(out), str(src)],
+                             capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"nvcc {src}: {run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.vkr_ray_any_hit.argtypes = [
+        ctypes.c_void_p if p.endswith("*") else
+        {"int": ctypes.c_int, "float": ctypes.c_float}[p] for p in params]
+    lib.vkr_ray_any_hit.restype = ctypes.c_int
+
+    def call(grid, origin, direction, t_max, max_steps=None):
+        lead = origin.shape[:-1]
+        o = origin.reshape(-1, 3).contiguous()
+        d = direction.reshape(-1, 3).contiguous()
+        hit = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+        steps = sum(grid.dims) if max_steps is None else int(max_steps)
+        if pr15:
+            check(not isinstance(t_max, torch.Tensor),
+                  "PR 15's R1 takes a float t_max")
+            args = (o, d, float(t_max), o.shape[0], grid.tri_verts,
+                    grid.cell_tris, grid.grid_min, grid.cell_size,
+                    *grid.dims, int(grid.cap), steps, hit)
+        else:
+            value, per_ray, stride = accel._kernel_t_max(t_max, lead)
+            args = (o, d, value, per_ray, stride, o.shape[0], grid.records,
+                    grid.spans, grid.grid_min, grid.cell_size, *grid.dims,
+                    steps, hit)
+        kernels.check(lib.vkr_ray_any_hit(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args),
+            torch.cuda.current_stream().cuda_stream), "R1 parent")
+        return hit.reshape(lead)
+    return out, call
+
+
+R1_TIME_BUDGET_S = 0.2  # time_ms's budget per call in the R1 phase
+R1_TMAX_SEED = 16
+ISSUE_PER_CLOCK = 132 * 4 * 32  # SMs x warp instructions x lanes a clock
+
+
+def r1_phase(calls):
+    """R1 on RT frame 1's captured calls (name, args, kw): per-ray and 0-d
+    t_max tensors held to the plain version; the kernel's walk transcribed
+    (rt_walk) with its hits equal to the plain version's and its slot
+    tests per ray; the SIMT efficiency of this kernel's lane map (ray
+    order: 4 pixels x 8 directions a warp) and of the maps it was measured
+    against (one direction of 32 pixels of a row, of 8x4 pixels, of 8x4
+    pixels of one dither class); the slot loop's SASS size, registers and
+    spills; the operations the tests need by where they end (the bound's),
+    against PR 15's count; the instruction-issue estimate; with
+    VKR_R1_PARENT, that kernel's hits and its time per frame against this
+    one's, in turns (parent, change, change, parent)."""
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.scene import accel
+
+    grid, o, d, tm = calls[0][1][:4]
+    kw = calls[0][2]
+    gen = torch.Generator(device=o.device).manual_seed(R1_TMAX_SEED)
+    per_ray = float(tm) * (0.25 + 1.25 * torch.rand(
+        o.shape[:-1], generator=gen, device=o.device))
+    float_hits = accel.ray_any_hit(grid, o, d, tm, **kw)
+    for label, t in (("per-ray", per_ray),
+                     ("0-d", torch.tensor(float(tm), device=o.device))):
+        got = accel.ray_any_hit(grid, o, d, t, **kw)
+        want = accel.ray_any_hit_reference(grid, o, d, t, **kw)
+        torch.cuda.synchronize()
+        err, ok, note = rt_compare(got, want, (grid, o, d, t), kw)
+        check(ok, f"R1 with a {label} t_max tensor: {note}")
+        if label == "0-d":
+            check(torch.equal(got, float_hits), "R1: a 0-d t_max tensor "
+                  "gives other hits than the float")
+        print(f"R1 t_max {label} tensor [{tuple(t.shape)}]: {note}, hit "
+              f"share {float(got.float().mean()):.4f}")
+
+    tests, left = [], collections.Counter()
+    for _, args, ckw in calls:
+        hits, per, exits = rt_walk(*args[:4], **ckw)
+        want = accel.ray_any_hit_reference(*args[:4], **ckw)
+        check(torch.equal(hits, want), "R1's walk transcribed (rt_walk) "
+              "gives other hits than the plain version")
+        tests.append(per.reshape(args[1].shape[:-1]))
+        left.update(exits)
+    n_tests = sum(int(t.sum()) for t in tests)
+    n_rays = sum(t.numel() for t in tests)
+    pixels, dirs = tests[0].shape[:-1].numel(), tests[0].shape[-1]
+    n = tests[0].numel()
+    in_order = torch.arange(-(-n // 32) * 32)
+    in_order = torch.where(in_order < n, in_order, -1)
+    h, w = tests[0].shape[:2]
+    maps = (("ray order (this kernel)", in_order),
+            ("one direction, 32 pixels of a row", rt_lane_rays(pixels, dirs)),
+            ("one direction, 8x4 pixels", tile_lane_rays(h, w, dirs, 8, 4)),
+            ("one direction, 8x4 pixels of one dither class",
+             tile_lane_rays(h, w, dirs, 8, 4, stride=4)))
+    simt = {label: statistics.fmean(lane_efficiency(t.reshape(-1), m)
+                                    for t in tests) for label, m in maps}
+    print(f"R1 slot tests on RT frame 1's {len(calls)} calls: {n_tests} "
+          f"({n_tests / n_rays:.3f} a ray; per ray in call 0 "
+          f"{quantiles(tests[0])}); tests leaving after det {left['det']}, "
+          f"before the division {left['a']}, after u {left['u']}, after v "
+          f"{left['v']}, forming t "
+          f"{left['t']}; SIMT efficiency (tests / 32 x the warp's most): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in simt.items()))
+    ops = sum(MT_OPS[k] * v for k, v in left.items())
+    print(f"R1 operations by where the tests end ({MT_OPS}): {ops} "
+          f"({ops / n_tests:.3f} a test), {ops / PEAK_F32_FLOPS * 1e3:.4f} ms"
+          f" a frame at the float32 peak; PR 15's count ({MT_FLOPS_PR15} a "
+          f"test, the edges included, every test in full) "
+          f"{n_tests * MT_FLOPS_PR15 / PEAK_F32_FLOPS * 1e3:.4f} ms")
+
+    lib = kernels.library_path("ray_any_hit")
+    size, rcp, per_test = slot_test_loop(lib)
+    usage = res_usage(lib)
+    print(f"R1 SASS loop bodies {sass_loops(lib)['ray_any_hit_kernel'][1]}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    max_mhz, now_mhz = (float(v) for v in smi.stdout.split(",")[:2])
+    est_ms = per_test * n_tests / (ISSUE_PER_CLOCK * max_mhz * 1e6) * 1e3
+    print(f"R1 SASS: slot loop {size} instructions, {rcp} reciprocal(s): "
+          f"{per_test:.1f} instructions a test; {usage} (cuobjdump "
+          f"-res-usage); instruction-issue estimate {per_test:.1f} x "
+          f"{n_tests} / (132 SMs x 4 x 32 x {max_mhz:.0f} MHz, the SM "
+          f"clock's maximum; {now_mhz:.0f} MHz now) = {est_ms:.4f} ms a "
+          f"frame at full SIMT efficiency, "
+          f"{est_ms / simt['ray order (this kernel)']:.4f} "
+          f"ms at this map's ({CARD})")
+
+    parent_src = os.environ.get(R1_PARENT_ENV)
+    if not parent_src:
+        print(f"R1 parent: {R1_PARENT_ENV} not set, no comparison")
+        return
+    path, parent = build_r1_parent(parent_src)
+    for _, args, ckw in calls:
+        check(torch.equal(parent(*args, **ckw),
+                          accel.ray_any_hit(*args, **ckw)),
+              "R1: the parent kernel's hits differ from this one's")
+    size, rcp, per = slot_test_loop(path)
+    usage = res_usage(path)
+    print(f"R1 parent ({path.name}): hits equal on all {len(calls)} calls; "
+          f"slot loop {size} instructions, {rcp} reciprocal(s): {per:.1f} a"
+          f" test; loop bodies {sass_loops(path)['ray_any_hit_kernel'][1]}; "
+          f"{usage}")
+    wrappers = {"parent": parent, "change": accel.ray_any_hit}
+    times = []
+    for label in ("parent", "change", "change", "parent"):
+        ms = sum(time_ms(wrappers[label], args, ckw, R1_TIME_BUDGET_S)
+                 for _, args, ckw in calls)
+        times.append((label, ms))
+    print(f"R1 ms a frame ({len(calls)} calls) in turns on {CARD}: "
+          + ", ".join(f"{label} {ms:.4f}" for label, ms in times))
 
 
 def stress_rows(device, n_pairs, w, seed):
@@ -952,16 +1381,12 @@ def stress_peel(device, w, seed):
 
 def sass_loops(lib):
     """{kernel: (instructions, loop bodies longest first)} of a built
-    library, from cuobjdump -sass: a loop body is the instructions that a
-    backward branch spans."""
-    import re
-
+    library (a csrc name, or the path of a library), from cuobjdump -sass:
+    a loop body is the instructions that a backward branch spans."""
     from vkr_tpu_torch import kernels
 
-    cuobjdump = kernels.nvcc_path()[:-len("nvcc")] + "cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(kernels.library_path(lib))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+    text = sass_text(lib if str(lib).endswith(".so")
+                     else kernels.library_path(lib))
     out = {}
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
@@ -2205,7 +2630,6 @@ def _drive_viewer(port, device, eager=False):
 
     def capture(self, args):
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved()
         out = saved[4](self, args)
         torch.cuda.synchronize()
@@ -2270,6 +2694,188 @@ def _drive_viewer(port, device, eager=False):
         f["tuning"] = [t.item() for t in f["tuning"]]
     return {"ms": ms, "seen": seen, "client": client_log,
             "reloads": reloads, "captures": captures, "pngs": pngs}
+
+
+# The viewer's forced overflow (F1): frames 0-1 look steeply up the hall
+# (fewer bin pairs), frames 2.. at the preset's view, jitter off, with
+# raster/setup.PAIR_HEADROOM at 1.0 for the run: frame 2's replay drops
+# pairs and frame 3 captures anew
+OVERFLOW_FRAMES = 6
+OVERFLOW_DENSE_FROM = 2
+OVERFLOW_HEADROOM = 1.0
+# The viewer's capture bound (F2): the checkbox frame i flips for frame
+# i + 1, so frames 0..9 see ten toggle combinations, more than
+# viewer.MAX_CAPTURES
+BOUND_FLIPS = ("ssr", "gtao", "taa", "ao_only", "mis", "two_dirs",
+               "refl_only", "normalize", "accumulate")
+
+
+def _viewer_run(device, frames, views=None, flips=(), headroom=None,
+                keep_calls=False):
+    """viewer.main on this thread at its defaults (960x544), --max-frames
+    `frames`, no client. views(i) -> (view, prev view) replaces the fly
+    camera's for frame i (jitter off); flips[i] toggles that checkbox for
+    frame i + 1; headroom sets raster/setup.PAIR_HEADROOM for the run.
+    Returns a dict: the BinOverflow errors the frames met, the captures
+    (frame, the bytes the capture added to the allocator's reserve, with
+    nothing emptied before it), the reserve before the first capture and
+    after each frame, and with keep_calls
+    every replayed call (frame, fn, argument clones, colour and state
+    clones)."""
+    import torch
+
+    from vkr_tpu_torch import frame as F
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.raster import setup
+    from vkr_tpu_torch.tools import viewer
+
+    got = {"overflows": [], "captures": [], "reserved": [], "calls": []}
+    at, states = [-1], []
+    saved = (F.camera_frame, viewer.ViewerState, aot.CapturedFrame.__call__,
+             aot.CapturedFrame._capture, setup.PAIR_HEADROOM)
+
+    def camera_frame(cfg, view, prev, i, dev, use_jitter=True):
+        if i > 0:
+            torch.cuda.synchronize()
+            got["reserved"].append(torch.cuda.memory_reserved())
+        at[0] = i
+        if i < len(flips):
+            with states[0].lock:
+                states[0].toggles[flips[i]] ^= True
+        if views is not None:
+            view, prev = views(i)
+            use_jitter = False
+        return saved[0](cfg, view, prev, i, dev, use_jitter=use_jitter)
+
+    class Spy(saved[1]):
+        def __init__(self):
+            super().__init__()
+            states.append(self)
+
+    def call(self, *args):
+        try:
+            out = saved[2](self, *args)
+        except aot.BinOverflow as err:
+            got["overflows"].append((at[0], err))
+            raise
+        if keep_calls:
+            # the scene as it is (nothing writes it), the rest cloned
+            got["calls"].append((at[0], self.fn, (args[0],) + aot._map(
+                args[1:], lambda t: t.clone() if isinstance(t, torch.Tensor)
+                else t), out[0].clone(), aot._map(out[1], torch.clone),
+                int(out[2]["overflow"])))
+        return out
+
+    def capture(self, args):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        got.setdefault("reserved_before", before)
+        out = saved[3](self, args)
+        torch.cuda.synchronize()
+        got["captures"].append((at[0], torch.cuda.memory_reserved()
+                                - before))
+        return out
+
+    (F.camera_frame, viewer.ViewerState, aot.CapturedFrame.__call__,
+     aot.CapturedFrame._capture) = camera_frame, Spy, call, capture
+    if headroom is not None:
+        setup.PAIR_HEADROOM = headroom
+    try:
+        got["ms"] = viewer.main(["--port", str(_free_port()),
+                                 "--max-frames", str(frames)])
+    finally:
+        (F.camera_frame, viewer.ViewerState, aot.CapturedFrame.__call__,
+         aot.CapturedFrame._capture, setup.PAIR_HEADROOM) = saved
+    torch.cuda.synchronize()
+    got["reserved"].append(torch.cuda.memory_reserved())
+    return got
+
+
+def viewer_captures_phase(device):
+    """F1 and F2 on the card. A forced overflow: the viewer captures on a
+    steep view up the hall with PAIR_HEADROOM 1.0, then moves to the
+    preset's denser view; it must go on to its last frame, having
+    captured anew once (at frame 3, after frame 2's replay dropped pairs),
+    with every frame from the recapture on equal, colour and state bit for
+    bit, to the eager frame on the same inputs. The bound: ten toggle
+    combinations, more than viewer.MAX_CAPTURES; the allocator's reserve
+    must stay within MAX_CAPTURES x the largest capture of the reserve
+    before the first."""
+    import numpy as np
+    import torch
+
+    from vkr_tpu_torch.core.aot import _flat
+    from vkr_tpu_torch.mathlib import look_at
+    from vkr_tpu_torch.tools import viewer
+    from vkr_tpu_torch.tools.render import SCENE_PRESETS
+
+    preset = SCENE_PRESETS["colonnade"]
+    eye = np.asarray(preset["eye"], np.float32)
+    fwd = np.asarray(preset["center"], np.float32) - eye
+    fwd[1] = 0.0
+    fwd /= np.linalg.norm(fwd)
+    sparse = look_at(eye, eye + np.float32([0.0, 1.0, 0.0]) + 0.1 * fwd,
+                     (0, -1, 0))
+    dense = look_at(eye, preset["center"], (0, -1, 0))
+
+    def views(i):
+        def at(k):
+            return sparse if k < OVERFLOW_DENSE_FROM else dense
+        return at(i), at(max(i - 1, 0))
+
+    t0 = time.perf_counter()
+    got = _viewer_run(device, OVERFLOW_FRAMES, views=views,
+                      headroom=OVERFLOW_HEADROOM, keep_calls=True)
+    run_s = time.perf_counter() - t0
+    again = OVERFLOW_DENSE_FROM + 1
+    check(len(got["ms"]) == OVERFLOW_FRAMES,
+          f"viewer, forced overflow: {len(got['ms'])} frames")
+    check([f for f, _ in got["overflows"]] == [again]
+          and [f for f, _ in got["captures"]] == [0, again],
+          f"viewer, forced overflow: overflows at frames "
+          f"{[(f, e.dropped) for f, e in got['overflows']]}, captures at "
+          f"{[f for f, _ in got['captures']]}")
+    dropped = [c[5] for c in got["calls"] if c[0] == OVERFLOW_DENSE_FROM]
+    check(dropped and dropped[0] > 0, f"viewer, forced overflow: frame "
+          f"{OVERFLOW_DENSE_FROM} dropped {dropped} pairs")
+    after = [c for c in got["calls"] if c[0] >= again]
+    check(len(after) == OVERFLOW_FRAMES - again and all(
+        c[5] == 0 for c in after), "viewer, forced overflow: the frames "
+          "after the recapture dropped pairs")
+    for i, fn, args, color, state, _ in after:
+        want_color, want_state, _ = fn(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(color, want_color) and all(
+            torch.equal(a, b) for a, b in zip(_flat(state),
+                                              _flat(want_state))),
+              f"viewer, forced overflow: frame {i} differs from the eager "
+              f"frame on its inputs")
+    err = got["overflows"][0][1]
+    print(f"tools viewer, forced overflow (PAIR_HEADROOM "
+          f"{OVERFLOW_HEADROOM}, steep view for frames 0-1, the preset's "
+          f"from {OVERFLOW_DENSE_FROM}): frame {again} found call "
+          f"{err.call}'s {err.dropped} dropped pairs and captured anew; "
+          f"{OVERFLOW_FRAMES} frames, ms {[round(m, 3) for m in got['ms']]}"
+          f", frames {again}..{OVERFLOW_FRAMES - 1} equal to the eager "
+          f"frames bit for bit; {run_s:.1f} s")
+
+    t0 = time.perf_counter()
+    got = _viewer_run(device, len(BOUND_FLIPS) + 1, flips=BOUND_FLIPS)
+    run_s = time.perf_counter() - t0
+    sizes = [b for _, b in got["captures"]]
+    check(len(sizes) == len(BOUND_FLIPS) + 1 > viewer.MAX_CAPTURES,
+          f"viewer, capture bound: {len(sizes)} captures")
+    held = max(got["reserved"]) - got["reserved_before"]
+    limit = viewer.MAX_CAPTURES * max(sizes)
+    check(held <= limit, f"viewer, capture bound: {held} bytes reserved "
+          f"over {len(sizes)} toggle combinations, more than "
+          f"{viewer.MAX_CAPTURES} x the largest capture ({limit})")
+    print(f"tools viewer, capture bound: {len(sizes)} toggle combinations, "
+          f"MAX_CAPTURES {viewer.MAX_CAPTURES}; bytes each capture added "
+          f"{sizes}; reserve above the first capture's start after each "
+          f"frame {[r - got['reserved_before'] for r in got['reserved']]}, "
+          f"at most {held} <= {viewer.MAX_CAPTURES} x {max(sizes)} = "
+          f"{limit}; {run_s:.1f} s on {CARD}")
 
 
 def tools_phase(gltf_path, tmp, device, sponza_root):
@@ -2459,6 +3065,8 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
           f"median of the replays {statistics.median(replays):.3f} ms; "
           f"eager ms/frame {[round(m, 3) for m in eager_ms]}, median of "
           f"frames 1.. {statistics.median(eager_ms[1:]):.3f} ms")
+
+    viewer_captures_phase(device)
 
     shows = {}
     for mode in ("captured", "eager"):
@@ -3674,6 +4282,9 @@ def main() -> int:
                                 f"{err}, covered {covered}")
     check(not failures, "kernel disagrees with its plain version: "
           + "; ".join(failures))
+    # R1 beyond its row: t_max tensors, slot tests, lane maps, SASS, the
+    # parent's time in turns where VKR_R1_PARENT names it
+    r1_phase(rt_captured)
     for name in KERNELS:
         check(name in results, f"{name} was not called in main frame "
               f"{CAPTURE_FRAME}, the shadow phase, the probe grid or RT "

@@ -210,7 +210,10 @@ def test_reference_edge_rays_bit_equal_to_vkr_tpu(case):
 def test_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
     """On CPU tensors ray_any_hit is ray_any_hit_reference: the same hits,
     no CUDA library asked for, kernels.LAUNCHES untouched. The kernel
-    path's checks refuse a t_max tensor, a CPU tensor and a float64 ray."""
+    path's checks take a t_max tensor of the leading shape and a 0-d one
+    (vkr_tpu's ray_any_hit broadcasts t_max), and refuse a t_max tensor
+    that is not float32 or does not broadcast, a CPU tensor and a float64
+    ray."""
     from vkr_tpu_torch import kernels
 
     def no_library(name):
@@ -233,9 +236,27 @@ def test_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
         assert got.dtype == torch.bool and got.shape == (10, 100)
         assert torch.equal(got.reshape(-1), want) and want.any()
     assert dict(kernels.LAUNCHES) == before
-    # what the kernel does not take raises before any launch
-    with pytest.raises(ValueError, match="one t_max"):
-        taccel._check_kernel_inputs(tg, o, dd, torch.from_numpy(t_max), True)
+    # what the kernel does not take raises before any launch; a t_max
+    # tensor that it takes gets as far as the device check
+    lead = (10, 100)
+    o3, d3 = o.reshape(*lead, 3), dd.reshape(*lead, 3)
+    for tm in (torch.from_numpy(t_max).reshape(lead), torch.tensor(1.5),
+               torch.full((10, 1), 1.5)):
+        with pytest.raises(ValueError, match="unsupported device cpu"):
+            taccel._check_kernel_inputs(tg, o, dd, tm, True, lead)
+        value, per_ray, stride = taccel._kernel_t_max(tm, lead)
+        assert stride == (0 if tm.dim() == 0 else 1) and value == 0.0
+        assert per_ray.is_contiguous() and per_ray.numel() in (1, 1000)
+        assert torch.equal(per_ray.expand(1000) if stride == 0 else per_ray,
+                           tm.expand(lead).reshape(-1))
+        got = taccel.ray_any_hit(tg, o3, d3, tm, max_steps=9)
+        assert torch.equal(got, taccel.ray_any_hit_reference(
+            tg, o3, d3, tm, max_steps=9))
+    assert taccel._kernel_t_max(1.5, lead) == (1.5, None, 0)
+    for tm in (torch.from_numpy(t_max).double().reshape(lead),
+               torch.ones(100, 10)):
+        with pytest.raises(ValueError, match="t_max tensor must be float32"):
+            taccel._check_kernel_inputs(tg, o, dd, tm, True, lead)
     with pytest.raises(ValueError, match="unsupported device cpu"):
         taccel._check_kernel_inputs(tg, o, dd, 1.5, True)
     with pytest.raises(ValueError, match="contiguous"):

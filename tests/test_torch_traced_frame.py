@@ -406,6 +406,9 @@ class FakeGraphs:
     def pinned(self, n):
         return torch.zeros(n, dtype=torch.int32)
 
+    def release(self):
+        self.released = getattr(self, "released", 0) + 1
+
 
 @pytest.fixture(scope="module")
 def small():
@@ -512,6 +515,49 @@ def test_captured_frame_overflow_and_arguments():
         frame(torch.zeros(3), state, big, 3.0)
     with pytest.raises(NotImplementedError):
         aot.CapturedFrame("two", fn, donate_argnums=(0, 1))
+
+
+def test_captured_frame_takes_a_tri_grid_among_its_arguments():
+    """A TriGrid among a CapturedFrame's arguments: the capture flattens it
+    (_flat rebuilds it with None leaves, which leaves its slot records
+    None), and every replay gives the eager hits; a grid with the same
+    large vertex table but other cells is copied in with its own slot
+    records, and a grid with another vertex table is refused."""
+    import dataclasses
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.scene import accel
+
+    rng = np.random.default_rng(4)
+    # 2,000 triangles: a 72,000-byte vertex table, read in place
+    tris = rng.uniform(-1.0, 1.0, (2000, 1, 3)) + rng.normal(
+        0.0, 0.05, (2000, 3, 3))
+    grid = accel.build_tri_grid(tris.reshape(-1, 3),
+                                np.arange(6000).reshape(-1, 3),
+                                resolution=6, cap=8, device="cpu")
+    assert grid.tri_verts.numel() * 4 > aot.INPUT_BYTES
+    flat = aot._flat((grid,))
+    assert any(leaf is grid.records for leaf in flat)
+    assert aot._map(grid, lambda leaf: None).records is None
+    o = torch.from_numpy(rng.uniform(-1.2, 1.2, (64, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+
+    def fn(g, orig, dirs):
+        return accel.ray_any_hit(g, orig, dirs, 0.7, max_steps=4)
+
+    frame = aot.CapturedFrame("grid", fn, graphs=FakeGraphs())
+    for _ in range(3):
+        assert torch.equal(frame(grid, o, d), fn(grid, o, d))
+    # other cells over the same vertex table: the small tables and the
+    # slot records follow the call's grid
+    other = dataclasses.replace(grid, cell_tris=torch.where(
+        grid.cell_tris % 2 == 0, -1, grid.cell_tris))
+    assert not torch.equal(fn(other, o, d), fn(grid, o, d))
+    assert torch.equal(frame(other, o, d), fn(other, o, d))
+    assert torch.equal(frame(grid, o, d), fn(grid, o, d))
+    with pytest.raises(ValueError, match="not the captured call's"):
+        frame(dataclasses.replace(grid, tri_verts=grid.tri_verts.clone()),
+              o, d)
 
 
 def test_ray_traced_frame_runs_eagerly_by_rule(small, monkeypatch):

@@ -84,6 +84,39 @@ def cached_jit(name: str, fn: Callable, example_args, *, donate_argnums=(),
         name, fn, donate_argnums=donate_argnums, verbose=verbose))
 
 
+class BinOverflow(RuntimeError):
+    """A replay of a CapturedFrame dropped bin pairs: its frame binned more
+    pairs than the capture frame's counts times PAIR_HEADROOM. Raised at a
+    later call, before that call replays anything; `call` is the number of
+    the replay that dropped them, `dropped` how many. A tool goes on with
+    call_or_recapture, as vkr_tpu's tools render on past an overflow."""
+
+    def __init__(self, message, call, dropped):
+        super().__init__(message)
+        self.call = call
+        self.dropped = dropped
+
+
+def call_or_recapture(frame, *args):
+    """frame(*args), as the tools call their captured frame: on a
+    BinOverflow the capture is dropped (cache_clear, which frees its
+    pools) and made anew at this call, on these arguments, the current
+    view. The donated state carries over: the state the last replay
+    returned is copied before the old pools go, and the copy is the new
+    capture's example state. An uncaptured frame (cached_jit's fn on the
+    CPU) is called as it is."""
+    try:
+        return frame(*args)
+    except BinOverflow as err:
+        args = list(args)
+        for i in frame.donated:
+            args[i] = _map(args[i], torch.clone)
+        frame.cache_clear()
+        print(f"{err}; captured anew at the next view", file=sys.stderr,
+              flush=True)
+        return frame(*args)
+
+
 def _map(tree, f):
     """tree with every leaf replaced by f(leaf), in _leaves' traversal
     (tuples, NamedTuples, lists, dicts, dataclasses; None is a leaf)."""
@@ -161,6 +194,13 @@ class _CudaGraphs:
     def pinned(n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=torch.int32, pin_memory=True)
 
+    @staticmethod
+    def release():
+        """Return the pools of dropped graphs to the device: a graph's
+        private pool is freed only by empty_cache(), and no other
+        allocation can use it meanwhile."""
+        torch.cuda.empty_cache()
+
 
 class CapturedFrame:
     """fn recorded into two CUDA graphs at its first call and replayed at
@@ -197,13 +237,15 @@ class CapturedFrame:
     Overflow is never silent: after each replay the frame's overflow
     (the dropped bin pairs under a dict key or field "overflow") is copied
     without waiting into pinned memory, and each later call reads the
-    readings whose replay has completed and raises on one that is not 0,
-    naming the call and the count. The caller reads the last frame's
-    aux["overflow"] itself, as with the eager frame.
+    readings whose replay has completed and raises BinOverflow on one that
+    is not 0, naming the call and the count (call_or_recapture goes on
+    from it). The caller reads the last frame's aux["overflow"] itself, as
+    with the eager frame.
 
     cache_clear() (registry.clear_jit_caches(), reload()) drops the graphs;
-    the next call captures anew. graphs: the CUDA side (_CudaGraphs), which
-    a test replaces with a fake."""
+    the next call captures anew (`captures` counts the captures made).
+    graphs: the CUDA side (_CudaGraphs), which a test replaces with a
+    fake."""
 
     def __init__(self, name, fn, *, donate_argnums=(), verbose=False,
                  graphs=None):
@@ -219,13 +261,18 @@ class CapturedFrame:
         self.capacities = None
         self.launches = None
         self.calls = 0
+        self.captures = 0
         self.cache_clear()
 
     def cache_clear(self):
-        """Drop the graphs, their pools and buffers."""
+        """Drop the graphs, their pools and buffers; the pools go back to
+        the device (graphs.release())."""
+        held = getattr(self, "_slots", None) is not None
         self._slots = self._sets = self._inputs = self._ring = None
         self._returned = None
         self._pending = collections.deque()
+        if held:
+            self.graphs.release()
 
     # ---------------------------------------------------------------- capture
 
@@ -284,6 +331,7 @@ class CapturedFrame:
             first, self.graphs.capture(lambda: self._body(1)))]
         self._ring = self.graphs.pinned(OVERFLOW_RING)
         self._last = 1
+        self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
         if self.verbose:
             print(f"aot: {self.name}: warm-up and two captures in "
@@ -351,12 +399,12 @@ class CapturedFrame:
             call, slot, _ = self._pending.popleft()
             dropped = int(self._ring[slot])
             if dropped:
-                raise RuntimeError(
+                raise BinOverflow(
                     f"cached_jit: {self.name}: call {call} dropped {dropped}"
                     f" bin pairs (overflow) at capacities {self.capacities}"
                     f" (the capture frame's pair counts times "
                     f"{setup.PAIR_HEADROOM}); make a new cached_jit on a "
-                    f"view of that frame")
+                    f"view of that frame", call, dropped)
 
     def __call__(self, *args):
         if self._slots is None:

@@ -56,8 +56,8 @@ _SIGNATURES = {
                           _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P],
     },
     "ray_any_hit": {
-        "vkr_ray_any_hit": [_P, _P, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P, _P],
+        "vkr_ray_any_hit": [_P, _P, _F, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _P, _P],
     },
 }
 

@@ -13,9 +13,10 @@ world-space triangles instead:
     did not fit is counted in TriGrid.overflowed. A dropped pair can only
     turn a hit into a miss.
   * traversal: a 3-D DDA walks up to max_steps cells per ray and tests
-    each cell's CAP slots with Moller-Trumbore any-hit. ray_any_hit runs
-    it on the card in csrc/ray_any_hit.cu (R1), one thread per ray, a
-    launch of fixed shape that a captured frame (core/aot.py) records; on
+    each cell's filled slots with Moller-Trumbore any-hit. ray_any_hit
+    runs it on the card in csrc/ray_any_hit.cu (R1), one thread per ray,
+    a launch of fixed shape that a captured frame (core/aot.py) records,
+    over the grid's slot records (slot_records, made with the grid); on
     CPU tensors it takes the plain version, ray_any_hit_reference.
 
 vkr_tpu computes the traversal in jnp inside a lax.fori_loop, and XLA
@@ -43,7 +44,16 @@ RAY_CHUNK = 1 << 20
 
 @dataclasses.dataclass
 class TriGrid:
-    """Uniform-grid acceleration structure (the BLAS/TLAS analog)."""
+    """Uniform-grid acceleration structure (the BLAS/TLAS analog).
+
+    records and spans, R1's slot table (slot_records), are made from
+    tri_verts and cell_tris whenever a TriGrid is made of those two
+    tensors; a value passed in for them is replaced, so a grid made with
+    other tables (dataclasses.replace) has its own. They are fields, so a
+    captured frame (core/aot.py) takes them as leaves of its arguments
+    and copies them in together with the tables they come from. A TriGrid
+    whose tables are not tensors (aot's _flat rebuilds the structure with
+    None leaves) has None for both."""
 
     tri_verts: torch.Tensor   # (T, 3, 3) f32 world-space triangles
     cell_tris: torch.Tensor   # (cells, CAP) i32 triangle ids, -1 empty
@@ -52,6 +62,46 @@ class TriGrid:
     dims: Tuple[int, int, int]  # cell counts per axis
     cap: int                    # slots per cell
     overflowed: int             # (triangle, cell) pairs that did not fit
+    records: "torch.Tensor | None" = None  # (cells * CAP, 12) f32
+    spans: "torch.Tensor | None" = None    # (cells, 2) i32
+
+    def __post_init__(self):
+        self.records = self.spans = None
+        if (isinstance(self.tri_verts, torch.Tensor)
+                and isinstance(self.cell_tris, torch.Tensor)):
+            self.records, self.spans = slot_records(self.tri_verts,
+                                                    self.cell_tris)
+
+
+def slot_records(tri_verts, cell_tris):
+    """R1's slot table, on the tables' device, with no read to the host.
+
+    records: (cells * CAP, 12) float32. For every filled slot (id >= 0),
+    in cell order and then slot order, the row v0, e1 = v1 - v0,
+    e2 = v2 - v0, each padded with a 0 to four floats (csrc/ray_any_hit.cu
+    loads them as three float4). e1 and e2 are the float32 subtractions
+    the slot test forms, so a test on the row gives the same bits. The
+    rows after the last filled slot are 0. spans: (cells, 2) int32, each
+    cell's first row and its number of filled slots; the rows of cell k
+    are spans[k, 0] .. spans[k, 0] + spans[k, 1] - 1. Empty slots anywhere
+    in a cell are skipped, not assumed to come last."""
+    n_cells, cap = cell_tris.shape
+    filled = cell_tris >= 0
+    count = filled.sum(1)
+    start = torch.cumsum(count, 0) - count
+    # a filled slot's row: its cell's start plus the filled slots before
+    # it; every empty slot goes to one spare row, dropped after
+    rank = torch.cumsum(filled.int(), 1) - 1
+    row = torch.where(filled, start[:, None] + rank, n_cells * cap)
+    tv = tri_verts[cell_tris.clamp(min=0).reshape(-1)]
+    zero = torch.zeros_like(tv[:, 0, :1])
+    vals = torch.cat([tv[:, 0], zero, tv[:, 1] - tv[:, 0], zero,
+                      tv[:, 2] - tv[:, 0], zero], -1)
+    records = torch.zeros(n_cells * cap + 1, 12, dtype=vals.dtype,
+                          device=vals.device)
+    records[row.reshape(-1)] = vals
+    spans = torch.stack([start, count], -1).to(torch.int32)
+    return records[:-1], spans.contiguous()
 
 
 def build_tri_grid(world_positions, indices, resolution: int = 48,
@@ -148,52 +198,82 @@ def ray_any_hit(grid: TriGrid, origin, direction, t_max,
     """R1, the rayQuery any-hit analog: True where the segment
     origin + t * direction, t in (0, t_max], hits scene geometry.
 
-    origin/direction: (..., 3) float32; t_max: a float (on CPU tensors
-    also a tensor of the leading shape); max_steps: cells per ray
-    (default: the whole grid). Returns a bool tensor of the leading
-    shape. On CUDA tensors csrc/ray_any_hit.cu computes it, one thread per
-    ray, with the plain version's hits (scene/accel.py:
-    ray_any_hit_reference; the kernel's fmaf rounds once where the plain
-    version's float64 _fma rounds twice); dims, cap, max_steps and t_max
-    go in as kernel arguments, and nothing is read from the host. On CPU
-    tensors the plain version, in batches of ray_chunk rays (the kernel
-    has no batches)."""
+    origin/direction: (..., 3) float32; t_max: a float, or a float32
+    tensor that broadcasts to the leading shape (0-d: one value for all
+    rays); max_steps: cells per ray (default: the whole grid). Returns a
+    bool tensor of the leading shape. On CUDA tensors csrc/ray_any_hit.cu
+    computes it, one thread per ray over the grid's slot records, with
+    the plain version's hits (scene/accel.py:ray_any_hit_reference; the
+    kernel's fmaf rounds once where the plain version's float64 _fma
+    rounds twice); dims, max_steps and t_max go in as kernel arguments,
+    and nothing is read from the host. On CPU tensors the plain version,
+    in batches of ray_chunk rays (the kernel has no batches)."""
     if origin.device.type == "cpu":
         return ray_any_hit_reference(grid, origin, direction, t_max,
                                      max_steps=max_steps, ray_chunk=ray_chunk)
     lead = origin.shape[:-1]
     o = origin.reshape(-1, 3).contiguous()
     d = direction.reshape(-1, 3).contiguous()
-    _check_kernel_inputs(grid, o, d, t_max, direction.shape == origin.shape)
+    _check_kernel_inputs(grid, o, d, t_max, direction.shape == origin.shape,
+                         lead)
     n = o.shape[0]
     sx, sy, sz = grid.dims
     steps = sum(grid.dims) if max_steps is None else int(max_steps)
+    value, per_ray, stride = _kernel_t_max(t_max, lead)
     hit = torch.empty(n, dtype=torch.bool, device=o.device)
     err = kernels.library("ray_any_hit").vkr_ray_any_hit(
-        o.data_ptr(), d.data_ptr(), float(t_max), n,
-        grid.tri_verts.data_ptr(), grid.cell_tris.data_ptr(),
+        o.data_ptr(), d.data_ptr(), value,
+        None if per_ray is None else per_ray.data_ptr(), stride, n,
+        grid.records.data_ptr(), grid.spans.data_ptr(),
         grid.grid_min.data_ptr(), grid.cell_size.data_ptr(), sx, sy, sz,
-        int(grid.cap), steps, hit.data_ptr(),
+        steps, hit.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream)
     kernels.check(err, "ray_any_hit")
     kernels.LAUNCHES["ray_any_hit"] += 1
     return hit.reshape(lead)
 
 
-def _check_kernel_inputs(grid, o, d, t_max, same_shape):
-    """Raise on what csrc/ray_any_hit.cu does not take: float32 rays and
-    vertex tables and int32 cells, contiguous, on one CUDA device; one
-    t_max, a number; fewer than 2^31 rays."""
-    if isinstance(t_max, torch.Tensor):
-        raise ValueError("ray_any_hit: the kernel takes one t_max, a "
-                         "number, for all rays")
-    floats = (o, d, grid.tri_verts, grid.grid_min, grid.cell_size)
-    for t in floats + (grid.cell_tris,):
-        want = torch.int32 if t is grid.cell_tris else torch.float32
+def _kernel_t_max(t_max, lead):
+    """t_max as the kernel takes it: (the number, the tensor it reads or
+    None, that tensor's stride per ray). A float goes in by value, a 0-d
+    tensor with stride 0, any other tensor broadcast to the leading shape
+    with stride 1."""
+    if not isinstance(t_max, torch.Tensor):
+        return float(t_max), None, 0
+    if t_max.dim() == 0:
+        return 0.0, t_max, 0
+    return 0.0, t_max.expand(lead).reshape(-1).contiguous(), 1
+
+
+def _check_kernel_inputs(grid, o, d, t_max, same_shape, lead=None):
+    """Raise on what csrc/ray_any_hit.cu does not take: float32 rays,
+    vertex tables and slot records and int32 cells and spans, contiguous,
+    on one CUDA device; t_max a number or a float32 tensor there that
+    broadcasts to the leading shape `lead` (default: o's); fewer than 2^31
+    rays."""
+    lead = o.shape[:-1] if lead is None else tuple(lead)
+    floats = (o, d, grid.tri_verts, grid.grid_min, grid.cell_size,
+              grid.records)
+    for t in floats + (grid.cell_tris, grid.spans):
+        want = (torch.int32 if t is grid.cell_tris or t is grid.spans
+                else torch.float32)
         if t.device != o.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"ray_any_hit: every input must be contiguous "
-                             f"on {o.device} (cell_tris int32, the rest "
-                             f"float32), got {t.dtype} on {t.device}")
+                             f"on {o.device} (cell_tris and spans int32, "
+                             f"the rest float32), got {t.dtype} on "
+                             f"{t.device}")
+    if isinstance(t_max, torch.Tensor):
+        try:
+            fits = torch.broadcast_shapes(t_max.shape, lead) == lead
+        except RuntimeError:
+            fits = False
+        if (t_max.dtype != torch.float32 or t_max.device != o.device
+                or not fits):
+            raise ValueError(f"ray_any_hit: a t_max tensor must be float32 "
+                             f"on {o.device} and broadcast to the rays' "
+                             f"leading shape {tuple(lead)}, got "
+                             f"{t_max.dtype} {tuple(t_max.shape)} on "
+                             f"{t_max.device}")
     if not same_shape or o.shape[0] >= 2 ** 31:
         raise ValueError("ray_any_hit: origin and direction of one shape, "
                          "fewer than 2^31 rays")

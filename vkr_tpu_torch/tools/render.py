@@ -7,7 +7,9 @@ PNG. --no-kernels renders vkr_tpu's use_pallas=False oracle frame instead
 (frame.py's use_kernels=False). As vkr_tpu's render.py:138 jits the
 frame with the state donated, the frames run through core/aot.py's
 cached_jit: captured as a CUDA graph at the first frame, replayed after
-(on the CPU, the frame itself). Examples:
+(on the CPU, the frame itself); a replay that dropped bin pairs makes the
+next frame capture anew at its view (core/aot.py:call_or_recapture),
+where vkr_tpu's tool renders on. Examples:
 
     python -m vkr_tpu_torch.tools.render --scene colonnade --width 1920 \
         --height 1080 --frames 8 --out captures/frame.png
@@ -124,7 +126,7 @@ def main(argv=None):
     import dataclasses
 
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.core.aot import cached_jit
+    from vkr_tpu_torch.core.aot import cached_jit, call_or_recapture
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.graph import PassGraph
     from vkr_tpu_torch.core.readback import save_png, to_host
@@ -172,7 +174,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     jitted = cached_jit("render_frame", frame_fn, (scene, state, cam),
                         donate_argnums=(1,))
-    color, state, aux = jitted(scene, state, cam)
+    color, state, aux = call_or_recapture(jitted, scene, state, cam)
     synchronize(device)
     print(f"compile+first: {(time.perf_counter() - t0) * 1e3:.1f} ms "
           "(kernel build, capture, first frame)")
@@ -182,7 +184,7 @@ def main(argv=None):
         prev_view, view = view, view_at(i)
         cam = camera_frame(cfg, view, prev_view, i, device)
         t0 = time.perf_counter()
-        color, state, aux = jitted(scene, state, cam)
+        color, state, aux = call_or_recapture(jitted, scene, state, cam)
         synchronize(device)
         times.append(time.perf_counter() - t0)
     if times:

@@ -9,8 +9,10 @@ TAA and SSR converge, every 2nd frame kept) and the GIF (a third of the
 frame size, 640x360 at the default, LANCZOS, 66 ms per frame, looping) are
 vkr_tpu's. As vkr_tpu jits the frame with the state donated
 (vkr_tpu/tools/showcase.py:25), the frames go through core/aot.py's
-cached_jit: captured as CUDA graphs at the first frame, replayed after.
-The downscale and the GIF writer are core/readback's.
+cached_jit: captured as CUDA graphs at the first frame, replayed after,
+and captured anew at the current view after a replay that dropped bin
+pairs (core/aot.py:call_or_recapture). The downscale and the GIF writer
+are core/readback's.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def main(argv=None):
     device = ensure_platform()
     print("backend:", device)
     from vkr_tpu_torch.config import RenderConfig
-    from vkr_tpu_torch.core.aot import cached_jit
+    from vkr_tpu_torch.core.aot import cached_jit, call_or_recapture
     from vkr_tpu_torch.core.formats import linear_to_srgb
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.readback import (gif_bytes, lanczos_resize,
@@ -86,7 +88,7 @@ def main(argv=None):
     for i in range(args.frames):
         prev, view = view, view_at(i)
         cam = camera_frame(cfg, view, prev, i, device)
-        color, state, _ = render(scene, state, cam)
+        color, state, _ = call_or_recapture(render, scene, state, cam)
         if i >= SKIP:
             frames.append(np.clip(to_host(linear_to_srgb(color)) * 255, 0,
                                   255).astype(np.uint8))

@@ -27,6 +27,10 @@ As vkr_tpu jits one frame per combination with Tuning as a traced
 argument (vkr_tpu/tools/viewer.py:290-322), each combination's frame goes
 through core/aot.py's cached_jit: captured as CUDA graphs at its first
 frame (the FrameState donated), replayed after, dropped by hot reload.
+The viewer keeps the MAX_CAPTURES combinations used last (capture_for);
+a replay that dropped bin pairs, as a camera flown into a denser view
+makes it, is captured anew at the current view
+(core/aot.py:call_or_recapture), where vkr_tpu's viewer renders on.
 The sliders reach it as five 0-d tensors on the device, which a replay
 copies into the graphs' buffers, so moving one needs no new capture.
 
@@ -39,6 +43,7 @@ Then open http://localhost:8799/ .
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import threading
 import time
@@ -147,6 +152,26 @@ poll();
 CONFIG_TOGGLES = ("ssr", "gtao", "taa", "ao_only", "mis", "two_dirs",
                   "refl_only", "normalize", "accumulate", "bilateral",
                   "random", "blur")
+# captured frames kept, one per toggle combination used (each holds its
+# graphs' pools, ~0.8 GB at 960x544)
+MAX_CAPTURES = 8
+
+
+def capture_for(frames, key, make):
+    """frames[key] (an OrderedDict, least recently used first), made by
+    make() where it is missing, now the most recently used. Before a new
+    one is made, the least recently used beyond MAX_CAPTURES - 1 are
+    dropped with their cache_clear(), which frees their graphs' pools."""
+    fn = frames.pop(key, None)
+    if fn is None:
+        while len(frames) >= MAX_CAPTURES:
+            _, old = frames.popitem(last=False)
+            clear = getattr(old, "cache_clear", None)
+            if clear is not None:
+                clear()
+        fn = make()
+    frames[key] = fn
+    return fn
 
 
 def tuning_tensors(sliders, device):
@@ -290,7 +315,7 @@ def main(argv=None):
     from vkr_tpu_torch import frame as F
     from vkr_tpu_torch.config import RenderConfig
     from vkr_tpu_torch.core import registry
-    from vkr_tpu_torch.core.aot import cached_jit
+    from vkr_tpu_torch.core.aot import cached_jit, call_or_recapture
     from vkr_tpu_torch.core.formats import linear_to_srgb
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.core.readback import png_bytes, to_host
@@ -319,7 +344,8 @@ def main(argv=None):
     threading.Thread(target=server.serve_forever, daemon=True).start()
     print(f"viewer: http://localhost:{args.port}/", flush=True)
 
-    frame_fns = {}  # CONFIG_TOGGLES values -> the captured frame
+    # CONFIG_TOGGLES values -> the captured frame, least recently used first
+    frame_fns = collections.OrderedDict()
 
     def config(tg):
         cfg = RenderConfig(
@@ -388,12 +414,12 @@ def main(argv=None):
         cframe = F.camera_frame(cfg, view, prev_view, i, device,
                                 use_jitter=toggles["jitter"])
         tun = tuning_tensors(sliders, device)
-        if key not in frame_fns:
-            frame_fns[key] = cached_jit(f"viewer {key}", frame_fn(cfg),
-                                        (scene, fstate, cframe, tun),
-                                        donate_argnums=(1,))
+        frame = capture_for(frame_fns, key, lambda: cached_jit(
+            f"viewer {key}", frame_fn(cfg), (scene, fstate, cframe, tun),
+            donate_argnums=(1,)))
         t0 = time.perf_counter()
-        color, fstate, _ = frame_fns[key](scene, fstate, cframe, tun)
+        color, fstate, _ = call_or_recapture(frame, scene, fstate, cframe,
+                                             tun)
         rgb = np.clip(to_host(linear_to_srgb(color)) * 255, 0,
                       255).astype(np.uint8)
         ms = (time.perf_counter() - t0) * 1e3
