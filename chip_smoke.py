@@ -168,7 +168,13 @@
    seconds printed) and render of it; parity --size 64 (each figure
    finite and at most PARITY_MAX_DROP_DB below PARITY_64_CPU_DB, or both
    at least PARITY_HIGH_DB) and --size 256; profile at 1080p, --reps 8,
-   and --scene sponza (--tex-size 512, --reps 2) on the Sponza phase's
+   each of its ten passes captured by cached_jit, and again eagerly, then
+   its passes (profile.run_passes) each captured against the eager pass
+   on the same inputs: both graphs' outputs bit-equal (a NaN equal to the
+   same NaN), and K1, the march, K4, K5 and K6 launched by the captures
+   (each pass's captured and eager ms, capture seconds and launches, and
+   the allocator's reserve with the ten captures alive, printed); and
+   --scene sponza (--tex-size 512, --reps 2) on the Sponza phase's
    stand-in;
    scene_info on the glTF file; the viewer on a free port with
    --max-frames 6, driven over HTTP (a slider, 2, j, r: each must reach
@@ -188,6 +194,18 @@
    state, to the eager frame on its inputs; and ten toggle combinations,
    more than viewer.MAX_CAPTURES, must keep the allocator's reserve within
    MAX_CAPTURES x the largest capture.
+13b. Entry phase: vkr_tpu_torch/tools/entry.py, __graft_entry__.py's
+   counterpart. entry()'s 128x128 frame of the 3-column colonnade (SSR
+   max_iterations 16) on the card, captured by cached_jit with the state
+   donated: 3 calls equal to the eager fn on clones of the same inputs
+   (colour and every FrameState field bit for bit), the eager frames'
+   exact bin-pair counts within the capture's capacities, and one profiled
+   replay running K1, the march, K4, K5 and K6 by CUDA symbol as often as
+   the capture recorded them (its device ms printed). Then
+   dryrun_multichip(4): 4 rank processes sharing this card in a gloo
+   group render vkr_tpu's sharded views and its band frame against each
+   rank's one-device frame; fails unless both of vkr_tpu's OK lines
+   print. Prints the phase's and the dry run's seconds.
 14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
    with 2 ranks on this card (it prints what NCCL says; it refuses ranks
    that share a card). Then 4 ranks, processes on this one card in a gloo
@@ -1909,6 +1927,29 @@ def graph_nodes(frame):
     return n.value
 
 
+def profiled_replay(label, call, symbols):
+    """call() (a replay) under torch.profiler, synchronised: (device ms,
+    kernels and copies, runs of each TRACED_SYMBOLS kernel by CUDA name,
+    call's result). Fails unless each wrapper of `symbols` (wrapper ->
+    launches) ran at least that many times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    device_ms, n_ops = device_time(prof)
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    seen = {w: sum(n for k, n in names if sym in k)
+            for w, sym in TRACED_SYMBOLS.items()}
+    for wrapper, want in symbols.items():
+        check(seen[wrapper] >= want, f"{label}: a profiled replay ran "
+              f"{TRACED_SYMBOLS[wrapper]} {seen[wrapper]} times, not {want}")
+    return device_ms, n_ops, seen, out
+
+
 def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
                  probe_grid=None, tri_grid=None, timing=False):
     """The frame through core/aot.py:cached_jit (captured, replayed, the
@@ -1921,7 +1962,6 @@ def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
     medians (eager, traced, traced, eager), TRACED_TIMED serial frames
     each. Returns a dict of what it measured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vkr_tpu_torch.core.aot import CapturedFrame, cached_jit
     from vkr_tpu_torch.core.framestate import FrameState
@@ -2019,19 +2059,9 @@ def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
                       replay_ms=statistics.median(replay) * 1e3,
                       blocks=blocks)
     # a torch.profiler run leaves the host's launches slower: it comes last
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        c = cam(n_frames + 2 * TRACED_TIMED)
-        color, state, aux = frame(scene, state, c)
-        torch.cuda.synchronize()
-    device_ms, n_ops = device_time(prof)
-    names = [(e.key, e.count) for e in prof.key_averages()
-             if e.self_device_time_total > 0]
-    seen = {w: sum(n for k, n in names if sym in k)
-            for w, sym in TRACED_SYMBOLS.items()}
-    for wrapper, want in symbols.items():
-        check(seen[wrapper] >= want, f"traced {label}: a profiled replay ran "
-              f"{TRACED_SYMBOLS[wrapper]} {seen[wrapper]} times, not {want}")
+    c = cam(n_frames + 2 * TRACED_TIMED)
+    device_ms, n_ops, seen, (color, state, aux) = profiled_replay(
+        f"traced {label}", lambda: frame(scene, state, c), symbols)
     nodes = graph_nodes(frame)
     result.update(capture_s=frame.capture_seconds, nodes=nodes,
                   device_ms=device_ms, ops=n_ops, pool_bytes=pool_bytes,
@@ -2878,6 +2908,209 @@ def viewer_captures_phase(device):
           f"{limit}; {run_s:.1f} s on {CARD}")
 
 
+PROFILE_REPS = 8
+# what profile's ten passes launch (K1 in gbuffer, the march in ssr_trace,
+# K4 in gtao_window, K5 in ssr_blur and gtao_accum, K6 in taa) and
+# entry()'s frame, by wrapper
+SLICE_KERNELS = ("gbuf_tiles", "hierarchical_march",
+                   "window_gather_bilinear_multi", "window_gather_bilinear",
+                   "taa_history_gather")
+
+
+def same_bits(a, b) -> bool:
+    """Equal shape, type and bits: a NaN (ssr_trace's pdf of a ray that
+    missed) equals the same NaN."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(kind[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def profile_phase(size, device, sponza_root):
+    """tools/profile.py at 1080p as a user runs it (each pass captured
+    through cached_jit, --reps PROFILE_REPS replays) and again eagerly
+    (eager_tools); then its ten passes (profile.run_passes) each through
+    a capture against fn on the same inputs: both of the capture's
+    graphs' outputs bit-equal to the eager pass's, and the captures
+    together launch every kernel of SLICE_KERNELS. Prints each pass's
+    captured and eager ms, its capture seconds and launches, and the
+    allocator's reserve with the ten captures alive. Then --scene sponza
+    on the Sponza phase's stand-in."""
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.tools import profile
+
+    t_phase = time.perf_counter()
+    argv = [*size, "--reps", str(PROFILE_REPS)]
+    times = {}
+    for mode in ("captured", "eager"):
+        with (eager_tools() if mode == "eager"
+              else contextlib.nullcontext()):
+            times[mode] = profile.main(argv)
+        torch.cuda.empty_cache()  # the dropped captures' pools
+        check(tuple(times[mode]) == profile.PASSES
+              and all(t > 0 for t in times[mode].values()),
+              f"profile ({mode}): {times[mode]}")
+
+    frames, reserved = [], torch.cuda.memory_reserved()
+
+    def held(name, fn, args):
+        want = [t.clone() for t in aot._flat(fn(*args))
+                if isinstance(t, torch.Tensor)]
+        frame = aot.cached_jit(name, fn, args)
+        check(isinstance(frame, aot.CapturedFrame),
+              f"profile {name}: cached_jit did not capture the pass")
+        frames.append(frame)
+        for g in range(2):  # the capture's call replays graph 0, then 1
+            out = frame(*args)
+            torch.cuda.synchronize()
+            got = [t for t in aot._flat(out) if isinstance(t, torch.Tensor)]
+            check(len(got) == len(want) > 0 and all(
+                same_bits(a, b) for a, b in zip(got, want)),
+                f"profile {name}: graph {g}'s outputs differ from the "
+                f"eager pass's")
+        return out
+
+    profile.run_passes(profile.parse_args(argv), device, held)
+    reserve = torch.cuda.memory_reserved() - reserved
+    launched = collections.Counter()
+    for frame in frames:
+        launched.update(frame.launches)
+    check(all(launched[k] >= 1 for k in SLICE_KERNELS),
+          f"profile: the ten captures launch {dict(launched)}, not each of "
+          f"{SLICE_KERNELS}")
+    for frame in frames:
+        print(f"tools profile {frame.name}: captured "
+              f"{times['captured'][frame.name]:.3f} ms, eager "
+              f"{times['eager'][frame.name]:.3f} ms (means of "
+              f"{PROFILE_REPS}), capture {frame.capture_seconds:.3f} s, "
+              f"launches {frame.launches}, both graphs' outputs equal to "
+              f"the eager pass's bit for bit")
+    print(f"tools profile at {size[1]}x{size[3]} on {CARD}: sums captured "
+          f"{sum(times['captured'].values()):.3f} ms, eager "
+          f"{sum(times['eager'].values()):.3f} ms; the ten captures "
+          f"{sum(f.capture_seconds for f in frames):.3f} s and {reserve} "
+          f"bytes of the allocator's reserve")
+    del frames
+    torch.cuda.empty_cache()
+
+    saved = os.environ.get("VKR_ASSETS")
+    os.environ["VKR_ASSETS"] = sponza_root
+    try:
+        t0 = time.perf_counter()
+        kernels.LAUNCHES.clear()
+        times = profile.main(["--scene", "sponza", *size, "--reps",
+                              str(SPONZA_PROFILE_REPS)])
+        sponza_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("VKR_ASSETS", None)
+        else:
+            os.environ["VKR_ASSETS"] = saved
+    torch.cuda.empty_cache()
+    # profile's G-buffer: an opaque and a masked K1 call in the warm-up
+    # and in each of the two captures (a replay counts none)
+    check(len(times) == 10 and all(t > 0 for t in times.values())
+          and kernels.LAUNCHES.get("gbuf_tiles", 0) == 2 * 3,
+          f"profile --scene sponza: {times}, launches "
+          f"{dict(kernels.LAUNCHES)}")
+    print(f"tools profile --scene sponza (--tex-size 512, the stand-in): "
+          f"{sponza_s:.1f} s with the texture set's load, launches "
+          f"{dict(kernels.LAUNCHES)}; profile phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+ENTRY_CALLS = 3
+DRYRUN_RANKS = 4
+
+
+def entry_phase():
+    """vkr_tpu_torch/tools/entry.py, __graft_entry__.py's counterpart, on
+    the card: entry()'s 128x128 frame captured by cached_jit (the state
+    donated), ENTRY_CALLS calls equal to the eager fn's, run on clones of
+    the same inputs, colour and every FrameState field bit for bit; the
+    eager frames' exact bin-pair counts within the capture's capacities
+    (fn returns no aux, so no replay reports an overflow: the same view
+    bins the same pairs); one profiled replay running K1, the march, K4,
+    K5 and K6 by CUDA symbol, as often as the capture recorded them. Then
+    dryrun_multichip(DRYRUN_RANKS) on ranks sharing this card (gloo):
+    both of vkr_tpu's OK lines. Prints the capture seconds, a replay's
+    device ms and the dry run's seconds."""
+    import io
+
+    import torch
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.raster import setup
+    from vkr_tpu_torch.tools import entry as entry_mod
+
+    t_phase = time.perf_counter()
+    fn, args = entry_mod.entry()
+    scene, state, cam = args
+    check(cam.mvp.is_cuda and state.prev_depth.is_cuda,
+          "entry(): the example arguments are not on the card")
+
+    def tensors(color, st):
+        return [color.clone()] + [getattr(st, f).clone() for f in st.FIELDS]
+
+    st, eager, counts = aot._map(state, torch.clone), [], []
+    for _ in range(ENTRY_CALLS):
+        plan = setup.PairPlan()
+        with setup.pair_plan(plan):
+            color, st = fn(scene, st, cam)
+        eager.append(tensors(color, st))
+        counts.append(plan.counts)
+    frame = aot.cached_jit("entry", fn, args, donate_argnums=(1,))
+    check(isinstance(frame, aot.CapturedFrame),
+          "entry: cached_jit did not capture entry()'s fn")
+    st = state
+    for i in range(ENTRY_CALLS):
+        color, st = frame(scene, st, cam)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(tensors(color, st),
+                                                     eager[i])),
+              f"entry call {i}: the captured frame differs from the eager "
+              f"fn")
+    check(all(len(c) == len(frame.capacities)
+              and all(n <= cap for n, cap in zip(c, frame.capacities))
+              for c in counts),
+          f"entry: pair counts {counts} beyond the capture's capacities "
+          f"{frame.capacities}")
+    check(all(frame.launches.get(k, 0) >= 1 for k in SLICE_KERNELS),
+          f"entry: the capture launches {frame.launches}")
+    symbols = {k: frame.launches.get(k, 0) for k in SLICE_KERNELS}
+    device_ms, n_ops, seen, _ = profiled_replay(
+        "entry", lambda: frame(scene, st, cam), symbols)
+    entry_s = time.perf_counter() - t_phase
+    print(f"entry: {ENTRY_CALLS} calls of entry()'s frame through "
+          f"cached_jit equal the eager fn bit for bit (colour, FrameState); "
+          f"pair counts {counts[0]} within capacities {frame.capacities}; "
+          f"capture {frame.capture_seconds:.3f} s; a replay's device "
+          f"{device_ms:.3f} ms in {n_ops} kernels and copies on {CARD}, "
+          f"kernels by symbol {seen}; {entry_s:.1f} s")
+    del frame, eager
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dry = entry_mod.dryrun_multichip(DRYRUN_RANKS)
+    text = buf.getvalue()
+    print(text, end="")
+    for what in ("views OK", "bands OK"):
+        check(f"dryrun_multichip({DRYRUN_RANKS}): {what}" in text,
+              f"dryrun_multichip({DRYRUN_RANKS}) printed no '{what}'")
+    print(f"entry: dryrun_multichip({DRYRUN_RANKS}) on ranks sharing "
+          f"{CARD} (gloo): {dry['seconds']:.1f} s, coverage "
+          f"{dry['coverage']:.4f}, max dev {dry['max_dev']:.3e}; entry "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def tools_phase(gltf_path, tmp, device, sponza_root):
     """The user entry points (vkr_tpu_torch/tools) as a user calls them:
     render at 1080p through the kernels and as the oracle frame, render of
@@ -2893,8 +3126,7 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
     from vkr_tpu_torch import kernels
     from vkr_tpu_torch.scene import gltf as gltf_mod
     from vkr_tpu_torch.scene import scene as scene_mod
-    from vkr_tpu_torch.tools import (parity, profile, render, scene_info,
-                                     showcase)
+    from vkr_tpu_torch.tools import parity, render, scene_info, showcase
 
     def decode(path):
         with open(path, "rb") as f:
@@ -2997,31 +3229,7 @@ def tools_phase(gltf_path, tmp, device, sponza_root):
                       f"parity --size 64: {k} {v} dB on the card, {cpu} dB "
                       "pinned on the CPU")
 
-    times = profile.main([*size, "--reps", "8"])
-    check(len(times) == 10 and all(t > 0 for t in times.values()),
-          f"profile: {times}")
-    saved = os.environ.get("VKR_ASSETS")
-    os.environ["VKR_ASSETS"] = sponza_root
-    try:
-        t0 = time.perf_counter()
-        kernels.LAUNCHES.clear()
-        times = profile.main(["--scene", "sponza", *size, "--reps",
-                              str(SPONZA_PROFILE_REPS)])
-        sponza_s = time.perf_counter() - t0
-    finally:
-        if saved is None:
-            os.environ.pop("VKR_ASSETS", None)
-        else:
-            os.environ["VKR_ASSETS"] = saved
-    # profile's G-buffer: an opaque and a masked K1 call, first and reps
-    check(len(times) == 10 and all(t > 0 for t in times.values())
-          and kernels.LAUNCHES.get("gbuf_tiles", 0)
-          == 2 * (1 + SPONZA_PROFILE_REPS),
-          f"profile --scene sponza: {times}, launches "
-          f"{dict(kernels.LAUNCHES)}")
-    print(f"tools profile --scene sponza (--tex-size 512, the stand-in): "
-          f"{sponza_s:.1f} s with the texture set's load, launches "
-          f"{dict(kernels.LAUNCHES)}")
+    profile_phase(size, device, sponza_root)
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -4202,6 +4410,9 @@ def main() -> int:
     # ---- tools phase: the user entry points at full width
     tools_phase(gltf_path, scratch.name, device, sponza_root)
     scratch.cleanup()
+
+    # ---- entry phase: __graft_entry__.py's entry points (tools/entry.py)
+    entry_phase()
 
     # ---- multi-device phase: the band frame and view parallelism, ranks
     # on this card

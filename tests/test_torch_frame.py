@@ -198,7 +198,7 @@ def test_port_imports_no_jax():
                  "scene.camera", "core.platform", "native", "tools.render",
                  "tools.parity", "tools.profile", "tools.scene_info",
                  "tools.viewer", "tools.showcase", "scene.jpeg", "core.aot",
-                 "tools.bench"):
+                 "tools.bench", "tools.entry"):
         assert "vkr_tpu_torch." + name in imported, name
 
 

@@ -322,6 +322,38 @@ class TestMarch:
         assert kernels.LAUNCHES["hierarchical_march"] == before
 
 
+# ------------------------------------------------------- flat pyramid
+
+def test_fetch_pyramid_bit_equal():
+    """fetch_pyramid against vkr_tpu's on a seeded 5-level pyramid of
+    37x53: every mip (and -1 and 5, which vkr_tpu's where-chain reads as
+    level 0), x and y from below 0 to past each level's edge."""
+    rng = np.random.default_rng(17)
+    shapes = [(37, 53), (19, 27), (10, 14), (5, 7), (3, 4)]
+    mips = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    n = 4096
+    mip = rng.integers(-1, 6, n).astype(np.int32)
+    x = rng.integers(-20, 80, n).astype(np.int32)
+    y = rng.integers(-20, 60, n).astype(np.int32)
+    want = np.asarray(jssr.fetch_pyramid(
+        jssr.pack_pyramid([jnp.asarray(m) for m in mips]),
+        jnp.asarray(mip), jnp.asarray(x), jnp.asarray(y)))
+    got = tssr.fetch_pyramid(tssr.pack_pyramid([_t(m) for m in mips]),
+                             _t(mip), _t(x), _t(y))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for level in range(-1, 6):  # each mip and both edges were drawn
+        at = mip == level
+        assert (x[at] < 0).any() and (y[at] < 0).any()
+    assert (x >= 53).any() and (y >= 37).any()
+
+
+def test_max_t_is_vkr_tpus():
+    assert tssr.MAX_T == jssr.MAX_T
+    assert np.float32(tssr.MAX_T) == np.float32(jssr.MAX_T)
+    assert tssr.MAX_T is tmarch.MAX_T
+
+
 # ------------------------------------------------------- SSR passes
 
 def test_halton_index_share():

@@ -8,6 +8,7 @@ recently."""
 import pytest
 import torch
 
+from chip_smoke import same_bits
 from test_torch_traced_frame import FakeGraphs
 
 SMALL = ["--tex-size", "32", "--lut-size", "32"]
@@ -226,3 +227,52 @@ def test_viewer_keeps_at_most_max_captures(monkeypatch):
     tg = viewer.ViewerState().toggles
     k0 = tuple(tg[k] for k in viewer.CONFIG_TOGGLES)
     assert keys[0] == f"viewer {k0}"
+
+
+PROFILE_SMALL = ["--width", "32", "--height", "32", "--reps", "2",
+                 "--tex-size", "16", "--lut-size", "16", "--columns", "2",
+                 "--tessellation", "4"]
+
+
+def test_profile_captures_each_pass(monkeypatch, capsys):
+    """profile with cached_jit making a CapturedFrame over FakeGraphs: the
+    ten passes are captured by name, in PASSES order, none donated, each
+    warmed up, captured twice and replayed at its first call and at each
+    of --reps; main returns the ten names and prints each as its line's
+    first word. Each pass's output through its capture equals fn's on
+    the same inputs bit for bit (profile.run_passes, the chain main
+    times)."""
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.tools import profile
+
+    made = []
+
+    def fake(name, fn, example_args, **kw):
+        graphs = FakeGraphs()
+        made.append((name, kw.get("donate_argnums", ()), graphs))
+        return aot.CapturedFrame(name, fn, donate_argnums=kw.get(
+            "donate_argnums", ()), graphs=graphs)
+
+    monkeypatch.setattr(aot, "cached_jit", fake)
+    times = profile.main(PROFILE_SMALL)
+    lines = capsys.readouterr().out.splitlines()[1:]
+    assert tuple(times) == profile.PASSES == tuple(n for n, _, _ in made)
+    assert [ln.split()[0] for ln in lines] == list(profile.PASSES)
+    assert all("(capture " in ln for ln in lines)
+    assert all(donated == () for _, donated, _ in made)
+    for _, _, graphs in made:
+        assert graphs.log == ["warm_up", "capture", "capture"] + [
+            "replay"] * 3
+
+    def held(name, fn, args):
+        want = [t.clone() for t in aot._flat(fn(*args))
+                if isinstance(t, torch.Tensor)]
+        out = aot.CapturedFrame(name, fn, graphs=FakeGraphs())(*args)
+        got = [t for t in aot._flat(out) if isinstance(t, torch.Tensor)]
+        assert len(got) == len(want) > 0, name
+        for a, b in zip(got, want):
+            assert same_bits(a, b), name
+        return out
+
+    profile.run_passes(profile.parse_args(PROFILE_SMALL),
+                       torch.device("cpu"), held)

@@ -39,11 +39,11 @@ from vkr_tpu_torch.mathlib.transforms import look_at, perspective
 from vkr_tpu_torch.passes.gbuffer import SceneDevice, render_gbuffer
 from vkr_tpu_torch.passes.sampling import (band_slice, bilinear_sample,
                                           screen_uv_grid)
+from vkr_tpu_torch.passes.ssr_march import MAX_T
 
 ZNEAR = 0.05   # cube2oct/shader.comp:10
 ZFAR = 80.0
 TRACE_STEPS = 25
-MAX_T = 3.402823466e38
 FOV = math.radians(90.0)
 BACKGROUND = (100.0, 0.0, 0.0)  # clear colour 100 (probe_renderer.cpp:135)
 

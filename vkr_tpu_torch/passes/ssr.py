@@ -52,6 +52,8 @@ from vkr_tpu_torch.passes.sampling import (
     reproject_bilinear,
     screen_uv_grid,
 )
+# vkr_tpu's name here (ssr.py:45); the march defines it
+from vkr_tpu_torch.passes.ssr_march import MAX_T  # noqa: F401
 
 PI = math.pi
 HALTON_SEQ_SIZE = 128  # advanced_ssr.cpp:6
@@ -194,6 +196,22 @@ def pack_pyramid(mips) -> FlatPyramid:
         heights=tuple(int(m.shape[0]) for m in mips),
         widths=tuple(int(m.shape[1]) for m in mips),
     )
+
+
+def fetch_pyramid(pyr: FlatPyramid, mip, x, y):
+    """texelFetch(depth, ivec2(x, y), mip) with a per-pixel mip (vkr_tpu
+    ssr.py:184): x clamped to [0, w_mip - 1] and y to [0, h_mip - 1], then
+    flat[offset_mip + y * w_mip + x]. mip, x, y: integer tensors of one
+    shape. The level's offset, width and height come from small tables
+    indexed by mip; a mip outside [0, levels) reads level 0's, as
+    vkr_tpu's where-chain over the levels does."""
+    lvl = constant([pyr.offsets, pyr.widths, pyr.heights], pyr.flat.device,
+                   torch.int64)
+    m = torch.where((mip >= 0) & (mip < len(pyr.offsets)), mip, 0).long()
+    off, w, h = lvl[0][m], lvl[1][m], lvl[2][m]
+    xi = torch.minimum(x.long().clamp(min=0), w - 1)
+    yi = torch.minimum(y.long().clamp(min=0), h - 1)
+    return pyr.flat[off + yi * w + xi]
 
 
 # ------------------------------------------------------------- trace

@@ -164,13 +164,12 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
     (hierarchical_march_plain): no prefix, no horizon (hor stays 0, and
     camera_start, w0 and params are not read), the finest mip
     most_detailed_mip."""
+    from vkr_tpu_torch.passes.ssr import fetch_pyramid
+
     pyr = _pyramid(mips)
     dev = origin.device
     n_levels = len(pyr.offsets)
     w, h = pyr.widths[0], pyr.heights[0]
-    flat = pyr.flat
-    lvl = constant([pyr.offsets, pyr.widths, pyr.heights], dev,
-                   torch.int64)
     if find_hor:
         tg, aspect, k_nf, k_fn, zfar = _constants(params)
     screen = constant([w, h], dev)
@@ -207,12 +206,9 @@ def hierarchical_march_reference(mips, origin, direction, camera_start, w0,
         scale = ((127 - mip) << 23).view(torch.float32)
         mip_res = screen * scale[..., None]
         mip_pos = mip_res * position[..., :2]
-        m = mip.clamp(0, n_levels - 1).long()
-        off, lw, lh = lvl[0][m], lvl[1][m], lvl[2][m]
-        idx = mip_pos.clamp(-1.0, 16777216.0).to(torch.int32).long()
-        xi = torch.minimum(idx[..., 0].clamp(min=0), lw - 1)
-        yi = torch.minimum(idx[..., 1].clamp(min=0), lh - 1)
-        surface_z = flat[off + yi * lw + xi]
+        idx = mip_pos.clamp(-1.0, 16777216.0).to(torch.int32)
+        surface_z = fetch_pyramid(pyr, mip.clamp(0, n_levels - 1),
+                                  idx[..., 0], idx[..., 1])
 
         # advance_ray (screen_trace.glsl:17-45)
         xy_plane = (torch.floor(mip_pos) + floor_offset) / mip_res + uv_offset

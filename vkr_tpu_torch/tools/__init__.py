@@ -3,5 +3,7 @@
 the CPU): render (the headless app), parity (the kernel frame against the
 oracle frame, PSNR per channel), profile (per-pass times), scene_info
 (the glTF loader's log), viewer (the live fly-through in a browser),
-showcase (the dolly capture) and bench (bench.py's timed 1080p orbit).
+showcase (the dolly capture), bench (bench.py's timed 1080p orbit) and
+entry (__graft_entry__.py's entry points: the capturable 128x128
+frame and the multi-rank dry run).
 Importing a tool runs nothing."""
