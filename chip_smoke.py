@@ -6,7 +6,10 @@
 1. Needs a CUDA card (exits 1 without one) and prints nvidia-smi's name and
    power limit of the card. (`python3 chip_smoke.py --multi-card`, on a
    host of several cards, runs only the multi-device phase below over
-   NCCL, one rank per card.)
+   NCCL, one rank per card, with 8 band frames eager and captured, the
+   captured band frame one graph per rank with its gathers inside, and
+   prints the median ms per band frame of frames 2..7 of each against
+   the one-device frame's, eager and replayed, on card 0.)
 2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
    vkr_tpu_torch/build/, one nvcc per source, all in parallel) and the
    native asset pipeline (vkr_tpu_torch/native, c++) and prints the build
@@ -203,9 +206,9 @@
    replay running K1, the march, K4, K5 and K6 by CUDA symbol as often as
    the capture recorded them (its device ms printed). Then
    dryrun_multichip(4): 4 rank processes sharing this card in a gloo
-   group render vkr_tpu's sharded views and its band frame against each
-   rank's one-device frame; fails unless both of vkr_tpu's OK lines
-   print. Prints the phase's and the dry run's seconds.
+   group render vkr_tpu's sharded views and its band frame, each captured
+   by cached_jit and bit-equal to its eager call, against each rank's
+   one-device frame; fails unless both of vkr_tpu's OK lines print. Prints the phase's and the dry run's seconds.
 14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
    with 2 ranks on this card (it prints what NCCL says; it refuses ranks
    that share a card). Then 4 ranks, processes on this one card in a gloo
@@ -218,10 +221,23 @@
    135 at half res) and holds each against its plain version with the
    kernel phase's tolerances, with their times and bounds, and runs its
    band of the opaque layer through K7 against the whole frame's rows.
+   Then each rank renders frames 0-2 again through core/aot.py:cached_jit
+   (the state donated): the band frame captured as 10 graph segments with
+   its 9 gloo gathers as host steps between them, each frame bit-equal to
+   the rank's eager band frame (so to the main phase's frames as above),
+   overflow 0, one profiled replay running K1 x3, the march, K4, K5 x3
+   and K6 by CUDA symbol; it prints per rank the segments and host steps
+   a graph, graph nodes over the segments, capture s, ms per call and
+   the host steps' ms of it, the replay's device ms (4 processes sharing
+   the card), the reserve. A forced overflow follows (PAIR_HEADROOM 1.0,
+   jitter off, the viewer's steep view for frames 0-1 and the preset's
+   from 2): every rank must raise BinOverflow at frame 3 for the same
+   call, capture anew there and equal the eager band frame from there.
    Then 4 ranks render 4 orbit views (render_views_sharded), each within
-   1e-6 of that view's one-device frame. Prints the ms per band frame of 4
-   ranks sharing one card (no speed-up figure), the gather ms, each rank's
-   launches and peak memory.
+   1e-6 of that view's one-device frame, and again captured (two
+   segments), two calls bit-equal to the eager calls. Prints the ms per
+   band frame of 4 ranks sharing one card (no speed-up figure), the
+   gather ms, each rank's launches and peak memory.
 15. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
    K1's opaque and masked calls on the first probe face, and R1's 8 calls
    of RT frame 1, captured with their inputs, are run again through the
@@ -1887,44 +1903,50 @@ TRACED_TIMED = 6  # serial frames per block of the interleaved timing
 SYNC_FRAME = 2
 
 
-def _frame_tensors(color, state, aux):
+def _frame_tensors(color, state, aux, to=None):
     """Every tensor a frame returns (the colour, each FrameState field,
-    aux's tensors and G-buffer), cloned."""
+    aux's tensors and G-buffer), cloned, or copied to the device `to`."""
     import torch
 
     ts = [color] + [getattr(state, f) for f in state.FIELDS]
     for k in sorted(aux):
         v = aux[k]
         ts += (list(v) if isinstance(v, tuple) else [v])
-    return [t.clone() for t in ts if isinstance(t, torch.Tensor)]
+    return [t.clone() if to is None else t.to(to) for t in ts
+            if isinstance(t, torch.Tensor)]
 
 
 def graph_nodes(frame):
-    """Nodes of a graph of the captured frame: its first graph's body
-    captured once more into a torch.cuda.CUDAGraph(keep_graph=True), the
-    only kind whose cudaGraph_t PyTorch keeps, and counted with
-    cudaGraphGetNodes (the libcudart this process loaded, else the
-    toolkit's). None where this PyTorch has no keep_graph."""
+    """Nodes of a graph of the captured frame, over all its segments: its
+    first graph's body recorded once more (CapturedFrame.record) into
+    torch.cuda.CUDAGraph(keep_graph=True) segments, the only kind whose
+    cudaGraph_t PyTorch keeps, each counted with cudaGraphGetNodes (the
+    libcudart this process loaded, else the toolkit's). None where this
+    PyTorch has no keep_graph."""
     import ctypes
     import glob
 
     import torch
 
+    from vkr_tpu_torch.core import aot
+
     try:
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        torch.cuda.CUDAGraph(keep_graph=True)
     except TypeError:
         return None
-    with torch.cuda.graph(graph):
-        frame._body(0)
+    graph, _ = frame.record(0, aot._CudaGraphs(keep_graph=True))
     with open("/proc/self/maps") as f:
         libs = sorted({ln.split()[-1] for ln in f if "libcudart" in ln})
     libs += glob.glob("/usr/local/cuda/lib64/libcudart.so*")
     rt = ctypes.CDLL(libs[0])
-    n = ctypes.c_size_t(0)
-    err = rt.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
-                               None, ctypes.byref(n))
-    check(err == 0, f"cudaGraphGetNodes: CUDA error {err}")
-    return n.value
+    total = 0
+    for segment in graph.graphs:
+        n = ctypes.c_size_t(0)
+        err = rt.cudaGraphGetNodes(ctypes.c_void_p(segment.raw_cuda_graph()),
+                                   None, ctypes.byref(n))
+        check(err == 0, f"cudaGraphGetNodes: CUDA error {err}")
+        total += n.value
+    return total
 
 
 def profiled_replay(label, call, symbols):
@@ -2821,6 +2843,25 @@ def _viewer_run(device, frames, views=None, flips=(), headroom=None,
     return got
 
 
+def overflow_views():
+    """(sparse, dense) views of the forced overflows: from the colonnade
+    preset's eye, steeply up the hall (few bin pairs) and at the preset's
+    centre."""
+    import numpy as np
+
+    from vkr_tpu_torch.mathlib import look_at
+    from vkr_tpu_torch.tools.render import SCENE_PRESETS
+
+    preset = SCENE_PRESETS["colonnade"]
+    eye = np.asarray(preset["eye"], np.float32)
+    fwd = np.asarray(preset["center"], np.float32) - eye
+    fwd[1] = 0.0
+    fwd /= np.linalg.norm(fwd)
+    sparse = look_at(eye, eye + np.float32([0.0, 1.0, 0.0]) + 0.1 * fwd,
+                     (0, -1, 0))
+    return sparse, look_at(eye, preset["center"], (0, -1, 0))
+
+
 def viewer_captures_phase(device):
     """F1 and F2 on the card. A forced overflow: the viewer captures on a
     steep view up the hall with PAIR_HEADROOM 1.0, then moves to the
@@ -2831,22 +2872,12 @@ def viewer_captures_phase(device):
     combinations, more than viewer.MAX_CAPTURES; the allocator's reserve
     must stay within MAX_CAPTURES x the largest capture of the reserve
     before the first."""
-    import numpy as np
     import torch
 
     from vkr_tpu_torch.core.aot import _flat
-    from vkr_tpu_torch.mathlib import look_at
     from vkr_tpu_torch.tools import viewer
-    from vkr_tpu_torch.tools.render import SCENE_PRESETS
 
-    preset = SCENE_PRESETS["colonnade"]
-    eye = np.asarray(preset["eye"], np.float32)
-    fwd = np.asarray(preset["center"], np.float32) - eye
-    fwd[1] = 0.0
-    fwd /= np.linalg.norm(fwd)
-    sparse = look_at(eye, eye + np.float32([0.0, 1.0, 0.0]) + 0.1 * fwd,
-                     (0, -1, 0))
-    dense = look_at(eye, preset["center"], (0, -1, 0))
+    sparse, dense = overflow_views()
 
     def views(i):
         def at(k):
@@ -3039,8 +3070,9 @@ def entry_phase():
     (fn returns no aux, so no replay reports an overflow: the same view
     bins the same pairs); one profiled replay running K1, the march, K4,
     K5 and K6 by CUDA symbol, as often as the capture recorded them. Then
-    dryrun_multichip(DRYRUN_RANKS) on ranks sharing this card (gloo):
-    both of vkr_tpu's OK lines. Prints the capture seconds, a replay's
+    dryrun_multichip(DRYRUN_RANKS) on ranks sharing this card (gloo),
+    its views and band frame captured by cached_jit: both of vkr_tpu's OK
+    lines. Prints the capture seconds, a replay's
     device ms and the dry run's seconds."""
     import io
 
@@ -3564,6 +3596,12 @@ BAND_FRAMES = 3
 # --multi-card: the band frames of the NCCL run, enough for a median over
 # frames WARMUP_FRAMES..
 MULTI_CARD_FRAMES = 8
+# host steps a graph of the band frame captured under gloo (its grouped
+# gathers, parallel/band.py), one segment more
+BAND_HOST_STEPS = 9
+# the band frame's forced overflow (band_overflow): frames of it, with
+# the viewer's views, headroom and frame of the denser view
+BAND_OVERFLOW_FRAMES = 5
 # the rank whose band calls (offset 270 rows, 135 at half res) are held
 # against their plain versions
 BAND_CAPTURE_RANK = 1
@@ -3668,7 +3706,7 @@ def band_rank(rank, n, port, tmp, backend):
 
     device, scene, cfg, res = _rank_setup(rank, n, port, backend)
     state = FrameState.initial(HEIGHT, WIDTH, device)
-    captured, secs, gather_s = [], [], []
+    captured, secs, gather_s, eager = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
@@ -3687,6 +3725,8 @@ def band_rank(rank, n, port, tmp, backend):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         gather_s.append(stats["gather_s"])
+        # on the host, out of the peak device memory the run prints
+        eager.append(_frame_tensors(color, state, aux, "cpu"))
         if rank == 0:
             g = aux["gbuffer"]
             frame = {k: getattr(g, k).cpu() for k in FRAME_CHANNELS[:5]}
@@ -3698,6 +3738,10 @@ def band_rank(rank, n, port, tmp, backend):
            "launches": dict(kernels.LAUNCHES),
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "row0": band_rows(HEIGHT)[0]}
+    out["captured"] = band_captured(scene, cfg, res, device, eager)
+    del eager
+    if backend == "gloo":
+        out["overflow"] = band_overflow(scene, cfg, res, device)
     if rank == BAND_CAPTURE_RANK:
         plain = plain_versions()
         wrappers = {k: getattr(mod, k) for k, (mod, _) in plain.items()}
@@ -3710,6 +3754,157 @@ def band_rank(rank, n, port, tmp, backend):
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+def band_captured(scene, cfg, res, device, eager):
+    """The band frame through core/aot.py:cached_jit, the state donated,
+    on frames 0..len(eager)-1 of the bench orbit: each call's outputs
+    (colour, FrameState, aux) bit-equal to this rank's eager band frame,
+    overflow 0; then one replay under torch.profiler, which must run K1
+    x3, the march, K4, K5 x3 and K6 by CUDA symbol, and the graph's nodes
+    over its segments. Returns segments and host steps a graph, capture
+    s, ms per call (each followed by a synchronize), host-step ms per
+    call, the profiled replay's device ms and kernels by symbol, graph
+    nodes, the reserve and the part of it the capture added. The ranks
+    meet at a barrier before each timed call, as the eager frames do: a
+    collective waits for the slowest rank's host work between calls."""
+    import torch
+    import torch.distributed as dist
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.parallel import render_frame_banded
+
+    def fn(s, st, c):
+        return render_frame_banded(s, st, c, res, cfg, device=device)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    frame = aot.cached_jit("band", fn, (scene, state,
+                                        _orbit_cam(cfg, 0, device)),
+                           donate_argnums=(1,))
+    check(isinstance(frame, aot.CapturedFrame),
+          "band: cached_jit did not capture the band frame")
+    walls, steps = [], []
+    for i, want in enumerate(eager):
+        c = _orbit_cam(cfg, i, device)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color, state, aux = frame(scene, state, c)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(frame.step_seconds * 1e3)
+        got = _frame_tensors(color, state, aux, "cpu")
+        check(len(got) == len(want) and all(
+            same_bits(a, b) for a, b in zip(got, want)),
+            f"band frame {i}: the captured frame differs from the eager "
+            "band frame")
+        check(int(aux["overflow"]) == 0, f"captured band frame {i}: "
+              f"overflow {int(aux['overflow'])}")
+    reserved = torch.cuda.memory_reserved(device)
+    symbols = {k: frame.launches.get(k, 0) for k in BAND_ROWS}
+    check(all(symbols[k] >= MIN_LAUNCHES_PER_FRAME[k] for k in BAND_ROWS),
+          f"band: the capture launches {frame.launches}")
+    c = _orbit_cam(cfg, len(eager), device)
+    dist.barrier()
+    torch.cuda.synchronize()
+    device_ms, n_ops, seen, _ = profiled_replay(
+        "captured band frame", lambda: frame(scene, state, c), symbols)
+    out = {"segments": frame.segments, "host_steps": frame.host_steps,
+           "capture_s": frame.capture_seconds, "walls": walls,
+           "step_ms": steps, "device_ms": device_ms, "ops": n_ops,
+           "symbols": seen, "nodes": graph_nodes(frame),
+           "reserved": reserved, "capture_bytes": reserved - before,
+           "capacities": frame.capacities}
+    del frame
+    torch.cuda.empty_cache()
+    return out
+
+
+class RaiseLog:
+    """A captured frame as aot.call_or_recapture sees it, keeping each
+    BinOverflow it raised."""
+
+    def __init__(self, frame):
+        self.frame, self.donated, self.raised = frame, frame.donated, []
+
+    def __call__(self, *args):
+        from vkr_tpu_torch.core.aot import BinOverflow
+
+        try:
+            return self.frame(*args)
+        except BinOverflow as err:
+            self.raised.append(err)
+            raise
+
+    def cache_clear(self):
+        self.frame.cache_clear()
+
+
+def band_overflow(scene, cfg, res, device):
+    """A forced overflow of the captured band frame (F1's, on every rank):
+    with raster/setup.PAIR_HEADROOM at OVERFLOW_HEADROOM and the jitter
+    off, frames 0-1 look steeply up the hall and the capture is made
+    there; from
+    OVERFLOW_DENSE_FROM on, the preset's denser view. The replay of frame
+    OVERFLOW_DENSE_FROM drops pairs on some band, the summed overflow is
+    every rank's, so every rank must raise BinOverflow at the next call
+    and capture anew there (call_or_recapture), and from then on equal the
+    eager band frame on the same inputs. Returns (frame, call, dropped)
+    of each BinOverflow raised, the captures, the overflow per frame, the
+    frames equal to eager."""
+    import torch
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import camera_frame
+    from vkr_tpu_torch.parallel import render_frame_banded
+    from vkr_tpu_torch.raster import setup
+
+    def fn(s, st, c):
+        return render_frame_banded(s, st, c, res, cfg, device=device)
+
+    sparse, dense = overflow_views()
+
+    def cam(i):  # jitter off, as the viewer's forced overflow
+        def at(k):
+            return sparse if k < OVERFLOW_DENSE_FROM else dense
+        return camera_frame(cfg, at(i), at(max(i - 1, 0)), i, device,
+                            use_jitter=False)
+
+    again = OVERFLOW_DENSE_FROM + 1
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    raised, overflows, equal = [], [], []
+    saved = setup.PAIR_HEADROOM
+    setup.PAIR_HEADROOM = OVERFLOW_HEADROOM
+    try:
+        frame = RaiseLog(aot.cached_jit("band overflow", fn,
+                                        (scene, state, cam(0)),
+                                        donate_argnums=(1,)))
+        for i in range(BAND_OVERFLOW_FRAMES):
+            c = cam(i)
+            carried = aot._map(state, torch.clone) if i >= again else None
+            n_raised = len(frame.raised)
+            color, state, aux = aot.call_or_recapture(frame, scene, state, c)
+            raised += [(i, e.call, e.dropped)
+                       for e in frame.raised[n_raised:]]
+            overflows.append(int(aux["overflow"]))
+            if carried is not None:
+                want = fn(scene, carried, c)
+                torch.cuda.synchronize()
+                equal.append(all(same_bits(a, b) for a, b in zip(
+                    _frame_tensors(color, state, aux),
+                    _frame_tensors(*want))))
+    finally:
+        setup.PAIR_HEADROOM = saved
+    captures = frame.frame.captures
+    del frame
+    torch.cuda.empty_cache()
+    return {"raised": raised, "captures": captures, "overflows": overflows,
+            "equal": equal}
 
 
 def band_k7(scene, cfg, device, wrappers, plain):
@@ -3772,8 +3967,61 @@ def view_rank(rank, n, port, tmp, backend):
            "frame_index": new_states.frame_index.tolist()}
     if rank == 0:
         torch.save(colors.cpu(), os.path.join(tmp, "views.pt"))
+    out["captured"] = views_captured(scene, cfg, res, mesh, cams, colors,
+                                     new_states)
     dist.barrier()
     dist.destroy_process_group()
+    return out
+
+
+def views_captured(scene, cfg, res, mesh, cams, colors, new_states):
+    """render_views_sharded through core/aot.py:cached_jit, the batched
+    state donated: its first call (fresh states) bit-equal to the eager
+    call's (colors, new_states), its second (on the first's states) to an
+    eager call on the same states. Returns segments and host steps a
+    graph, capture s, the second call's ms (after a barrier) and host-step
+    ms, reserve."""
+    import torch
+    import torch.distributed as dist
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.parallel import batch_states, render_views_sharded
+
+    def fn(s, st, c):
+        return render_views_sharded(s, st, c, res, cfg, mesh)
+
+    def fresh():
+        return batch_states(
+            lambda: FrameState.initial(HEIGHT, WIDTH, mesh.device),
+            mesh.size)
+
+    frame = aot.cached_jit("views", fn, (scene, fresh(), cams),
+                           donate_argnums=(1,))
+    check(isinstance(frame, aot.CapturedFrame),
+          "views: cached_jit did not capture the views")
+    got = frame(scene, fresh(), cams)
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(
+        aot._flat(got), aot._flat((colors, new_states)))),
+        "views: the first captured call differs from the eager call")
+    want = fn(scene, got[1], cams)
+    want = aot._map(want, torch.clone)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = frame(scene, got[1], cams)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(all(same_bits(a, b) for a, b in zip(aot._flat(got),
+                                              aot._flat(want))),
+          "views: the second captured call differs from the eager call")
+    out = {"segments": frame.segments, "host_steps": frame.host_steps,
+           "capture_s": frame.capture_seconds, "ms": ms,
+           "step_ms": frame.step_seconds * 1e3,
+           "reserved": torch.cuda.memory_reserved(mesh.device)}
+    del frame, got, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3871,7 +4119,14 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
     must launch each kernel of BAND_ROWS in every band frame. Returns
     (the capture rank's (kernel, offset, case, ok, note) band calls, the
     band run's launches summed over the ranks, the ms per band frame of
-    the slowest rank)."""
+    the slowest rank, eager and captured).
+
+    Each rank then runs the band frame captured by cached_jit on the same
+    frames (band_captured: under gloo BAND_HOST_STEPS host steps between
+    graph segments, under NCCL one graph), each bit-equal to its eager
+    band frame, and under gloo a forced overflow that every rank must
+    capture anew from at the same call (band_overflow); each view rank
+    runs the views captured (views_captured)."""
     import tempfile
 
     import torch
@@ -3932,8 +4187,67 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
         check(all(out["launches"].get(k, 0) >= v for k, v in
                   MIN_LAUNCHES_PER_FRAME.items()),
               f"view rank {r}: launches {out['launches']}")
+    steps = BAND_HOST_STEPS if backend == "gloo" else 0
+    for r, out in enumerate(ranks):
+        cap = out["captured"]
+        check((cap["segments"], cap["host_steps"]) == (steps + 1, steps),
+              f"band rank {r}: the captured band frame has "
+              f"{cap['segments']} segments and {cap['host_steps']} host "
+              f"steps a graph, not {steps + 1} and {steps}")
+        print(f"band rank {r}, captured by cached_jit ({backend}): frames "
+              f"0-{n_frames(backend) - 1} equal to this rank's eager band "
+              f"frames bit for bit (colour, FrameState, aux), overflow 0; "
+              f"{cap['segments']} segments and {cap['host_steps']} host "
+              f"steps a graph, graph nodes {cap['nodes']}; capture "
+              f"{cap['capture_s']:.3f} s (warm-up and two graphs); ms per "
+              f"call {[round(t, 3) for t in cap['walls']]} (the first with "
+              f"the capture), of it host steps "
+              f"{[round(t, 3) for t in cap['step_ms']]}; a profiled "
+              f"replay's device {cap['device_ms']:.3f} ms in {cap['ops']} "
+              f"kernels and copies, kernels by symbol {cap['symbols']}; "
+              f"reserve {cap['reserved']} bytes ({cap['capture_bytes']} "
+              f"added by the capture); bin-pair capacities "
+              f"{cap['capacities']}")
+    if backend == "gloo":
+        again = OVERFLOW_DENSE_FROM + 1
+        got = [out["overflow"] for out in ranks]
+        calls = {tuple((i, call) for i, call, _ in o["raised"]) for o in got}
+        check(len(calls) == 1 and len(got[0]["raised"]) == 1
+              and got[0]["raised"][0][0] == again,
+              f"band, forced overflow: BinOverflow raised (frame, call) "
+              f"{[o['raised'] for o in got]}, not once at frame {again} "
+              "on every rank")
+        check(all(o["captures"] == 2 and o["equal"] == [True] * (
+            BAND_OVERFLOW_FRAMES - again)
+            and o["overflows"][OVERFLOW_DENSE_FROM] > 0
+            and not any(o["overflows"][again:])
+            for o in got), f"band, forced overflow: captures "
+            f"{[o['captures'] for o in got]}, overflows "
+            f"{[o['overflows'] for o in got]}, frames equal to eager "
+            f"{[o['equal'] for o in got]}")
+        print(f"band, forced overflow (PAIR_HEADROOM {OVERFLOW_HEADROOM}, "
+              f"steep view for frames 0-1, the preset's from "
+              f"{OVERFLOW_DENSE_FROM}): every rank raised BinOverflow at "
+              f"frame {again} for call {got[0]['raised'][0][1]} "
+              f"({got[0]['raised'][0][2]} pairs dropped over the bands) and "
+              f"captured anew there; overflow per frame "
+              f"{got[0]['overflows']}; frames {again}.."
+              f"{BAND_OVERFLOW_FRAMES - 1} equal to the eager band frames "
+              f"bit for bit on all {n_ranks} ranks")
+    for r, out in enumerate(view_ranks):
+        cap = out["captured"]
+        check((cap["segments"], cap["host_steps"]) == (
+            (2, 1) if backend == "gloo" else (1, 0)),
+            f"view rank {r}: {cap['segments']} segments")
+        print(f"view rank {r}, captured by cached_jit: two calls equal to "
+              f"the eager calls bit for bit; {cap['segments']} segments; "
+              f"capture {cap['capture_s']:.3f} s; the second call "
+              f"{cap['ms']:.3f} ms, of it host steps {cap['step_ms']:.3f}; "
+              f"reserve {cap['reserved']} bytes")
     frame_ms = [max(out["secs"][i] for out in ranks) * 1e3
                 for i in range(n_frames(backend))]
+    captured_ms = [max(out["captured"]["walls"][i] for out in ranks)
+                   for i in range(n_frames(backend))]
     gather_ms = [max(out["gather_s"][i] for out in ranks) * 1e3
                  for i in range(n_frames(backend))]
     layout = ("sharing one card (gloo, bands staged through host memory; "
@@ -3984,7 +4298,36 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
     for out in ranks:
         for k, v in out["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return cases, launches, frame_ms
+    return cases, launches, frame_ms, captured_ms
+
+
+def one_device_replay_ms(scene, res, cfg, device, n):
+    """The default frame through cached_jit on one card: the median ms per
+    call, each followed by a synchronize, over frames WARMUP_FRAMES..n-1
+    of the bench orbit."""
+    import torch
+
+    from vkr_tpu_torch.core import aot
+    from vkr_tpu_torch.core.framestate import FrameState
+    from vkr_tpu_torch.frame import render_frame
+
+    def fn(s, st, c):
+        return render_frame(s, st, c, res, cfg)
+
+    state = FrameState.initial(HEIGHT, WIDTH, device)
+    frame = aot.cached_jit("one device", fn, (scene, state,
+                                              _orbit_cam(cfg, 0, device)),
+                           donate_argnums=(1,))
+    walls = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = frame(scene, state, _orbit_cam(cfg, i, device))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del frame, state
+    torch.cuda.empty_cache()
+    return statistics.median(walls[WARMUP_FRAMES:])
 
 
 def multi_card_main() -> int:
@@ -4011,14 +4354,23 @@ def multi_card_main() -> int:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     res = build_ssr_resources(cfg.ssr.lut_size, device)
     outs, secs = render(scene, res, cfg, device, MULTI_CARD_FRAMES)
-    _, launches, frame_ms = multi_device_phase(scene, res, cfg, device, outs,
-                                               backend="nccl", n_ranks=n)
+    replay_ms = one_device_replay_ms(scene, res, cfg, device,
+                                     MULTI_CARD_FRAMES)
+    _, launches, frame_ms, captured_ms = multi_device_phase(
+        scene, res, cfg, device, outs, backend="nccl", n_ranks=n)
     one_ms = print_medians("one-device (card 0)", secs)
     band_ms = statistics.median(frame_ms[WARMUP_FRAMES:])
+    captured_band_ms = statistics.median(captured_ms[WARMUP_FRAMES:])
     print(f"band frame on {n} cards: median {band_ms:.3f} ms over frames "
           f"{WARMUP_FRAMES}..{len(frame_ms) - 1} against the one-device "
           f"frame's {one_ms:.3f} ms (ratio {one_ms / band_ms:.3f}); band "
           f"launches summed over the ranks {launches}")
+    print(f"band frame on {n} cards captured by cached_jit (NCCL inside "
+          f"the graph): median {captured_band_ms:.3f} ms per frame over "
+          f"frames {WARMUP_FRAMES}..{len(captured_ms) - 1} (slowest rank, "
+          f"a synchronize after each call), against the eager band frame's "
+          f"{band_ms:.3f} ms and the one-device replay's {replay_ms:.3f} "
+          f"ms on {CARD}")
     ok_line()
     return 0
 
@@ -4416,8 +4768,8 @@ def main() -> int:
 
     # ---- multi-device phase: the band frame and view parallelism, ranks
     # on this card
-    band_cases, band_launches, _ = multi_device_phase(scene, res, cfg,
-                                                      device, outs)
+    band_cases, band_launches, _, _ = multi_device_phase(scene, res, cfg,
+                                                         device, outs)
 
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()

@@ -14,6 +14,14 @@ fixed shape on the card (csrc/ray_any_hit.cu). On CPU arguments it
 returns fn itself: the kernels' plain versions are the CPU's path, and
 the CPU has no graph.
 
+A frame that runs on several ranks (parallel/band.py, parallel/sharding.py)
+is captured the same way. Its gathers under gloo stage through host memory,
+which a graph cannot hold: each is a host step (host_step below), where
+the capture ends one graph and begins the next, so the frame is a list of
+graphs (segments) replayed in order with the host steps between them.
+Under NCCL (a card per rank) the collectives are recorded into the graph,
+and the frame is one segment.
+
 What a process builds before its first frame, and keeps on disk for the
 next, is the hand-written CUDA kernels (kernels.build(): nvcc into build/,
 keyed by each source's hash) and the native asset pipeline
@@ -26,7 +34,10 @@ jits).
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
+import itertools
 import os
 import sys
 import time
@@ -44,6 +55,124 @@ from vkr_tpu_torch.core.graph import _leaves
 INPUT_BYTES = 1 << 16
 # Overflow readings kept in pinned memory for replays not yet checked.
 OVERFLOW_RING = 8
+
+# What a CapturedFrame records while fn runs in its warm-up or capture
+# (_WarmUp, _Capture); None while fn runs eagerly.
+_RECORDING = contextvars.ContextVar("vkr_aot_recording", default=None)
+
+
+def host_step(fn: Callable, *tensors):
+    """fn(*tensors) as a step on the host between two graphs of a captured
+    frame. fn returns a tuple of tensors and may do what a CUDA graph
+    cannot hold: read the host, run a gloo collective
+    (parallel/band.py:RowGather).
+
+    Eagerly, and in a CapturedFrame's warm-up, this is fn(*tensors); the
+    warm-up records the shapes and dtypes of its results, step by step.
+    While a CapturedFrame captures, the graph being recorded (a segment)
+    ends here, the step returns static tensors of the warm-up's shapes,
+    unwritten, and the next segment begins in the same pool and on the
+    same stream. At each replay, once the segment before the step has
+    completed, fn runs on the same tensors (what that segment wrote) and
+    its results are copied into the static tensors before the next
+    segment is replayed."""
+    rec = _RECORDING.get()
+    return fn(*tensors) if rec is None else rec.step(fn, tensors)
+
+
+def collective():
+    """Tell the CapturedFrame that is warming up fn, if any, that fn runs a
+    collective (parallel/band.py:RowGather calls this). Its overflow is
+    then a reading every rank shares, and each call waits for the
+    previous call's reading before deciding on it, so that every rank
+    raises BinOverflow, and call_or_recapture captures anew, at the same
+    call (else one rank would replay into a collective the others never
+    join)."""
+    rec = _RECORDING.get()
+    if rec is not None:
+        rec.collective = True
+
+
+def capturing() -> bool:
+    """True while fn runs in a CapturedFrame's warm-up or capture."""
+    return _RECORDING.get() is not None
+
+
+@contextlib.contextmanager
+def _recording(rec):
+    token = _RECORDING.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.reset(token)
+
+
+class _Spec:
+    """The shape, dtype and device of a host step's result in the
+    warm-up: the static tensor a capture allocates in its place."""
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype, self.device = t.shape, t.dtype, t.device
+
+    def empty(self) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device=self.device)
+
+
+class _WarmUp:
+    """The warm-up's record: each host step's results as _Specs, in order,
+    and whether fn runs a collective."""
+
+    def __init__(self, name):
+        self.name, self.specs, self.collective = name, [], False
+
+    def step(self, fn, tensors):
+        out = fn(*tensors)
+        if not (isinstance(out, tuple) and all(
+                isinstance(t, torch.Tensor) for t in out)):
+            raise TypeError(f"cached_jit: {self.name}: host step "
+                            f"{len(self.specs)} returned a "
+                            f"{type(out).__name__}, not a tuple of tensors")
+        self.specs.append(tuple(_Spec(t) for t in out))
+        return out
+
+
+class _HostStep:
+    """A host step of a capture: fn, the tensors it reads (the segment
+    before it wrote them) and the static tensors it fills (the segment
+    after it reads them). Calling it runs fn and copies its results in,
+    adding its host seconds to the frame's step_seconds."""
+
+    def __init__(self, frame, fn, inputs, outputs):
+        self.frame, self.fn = frame, fn
+        self.inputs, self.outputs = inputs, outputs
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        for dst, src in zip(self.outputs, self.fn(*self.inputs)):
+            dst.copy_(src)
+        self.frame.step_seconds += time.perf_counter() - t0
+
+
+class _Capture:
+    """A capture's record: at each host step the graphs end a segment and
+    begin the next (graphs.split), and the step's static results are
+    allocated there, in the new segment's pool."""
+
+    def __init__(self, frame, graphs, specs):
+        self.frame, self.graphs, self.specs = frame, graphs, specs
+        self.steps, self.collective = [], False
+
+    def step(self, fn, tensors):
+        k = len(self.steps)
+        if k == len(self.specs):
+            raise RuntimeError(f"cached_jit: {self.frame.name}: the capture "
+                               f"makes more host steps than its warm-up "
+                               f"({k})")
+        step = _HostStep(self.frame, fn, tensors, None)
+        self.graphs.split(step)
+        step.outputs = tuple(s.empty() for s in self.specs[k])
+        self.steps.append(step)
+        return step.outputs
 
 
 def cached_jit(name: str, fn: Callable, example_args, *, donate_argnums=(),
@@ -160,11 +289,44 @@ def _find_overflow(tree):
     return None
 
 
+class _Segments:
+    """A captured frame's graph: the CUDA graphs of its segments, replayed
+    in capture order, and between each two the host step (_HostStep) that
+    split them, run once the segment before it has completed. A frame with
+    no host step is one segment."""
+
+    def __init__(self, keep_graph: bool):
+        self.keep_graph = keep_graph
+        self.graphs, self.steps = [], []
+
+    def begin(self):
+        """Begin recording the next segment on the current stream, in the
+        first segment's pool (a new private pool for the first)."""
+        graph = torch.cuda.CUDAGraph(
+            **({"keep_graph": True} if self.keep_graph else {}))
+        graph.capture_begin(pool=self.graphs[0].pool() if self.graphs
+                            else None)
+        self.graphs.append(graph)
+
+    def replay(self):
+        for graph, step in itertools.zip_longest(self.graphs, self.steps):
+            graph.replay()
+            if step is not None:
+                torch.cuda.current_stream().synchronize()
+                step()
+
+
 class _CudaGraphs:
     """What CapturedFrame asks of CUDA: a warm-up on a side stream, the
-    capture of a graph (its own memory pool), events, pinned memory."""
+    capture of a graph (its own memory pool) in segments, events, pinned
+    memory. keep_graph: keep each segment's cudaGraph_t
+    (CUDAGraph(keep_graph=True)), for a count of its nodes."""
 
     device_type = "cuda"
+
+    def __init__(self, keep_graph: bool = False):
+        self.keep_graph = keep_graph
+        self._open = None
 
     @staticmethod
     def warm_up(run):
@@ -175,13 +337,32 @@ class _CudaGraphs:
         torch.cuda.current_stream().wait_stream(side)
         return out
 
-    @staticmethod
-    def capture(run):
-        """(graph, run's result recorded into it); replay() reruns it."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = run()
-        return graph, out
+    def capture(self, run):
+        """(graph, run's result recorded into it); graph.replay() reruns it.
+        As torch.cuda.graph records one graph (a synchronize and an
+        empty_cache first, then a side stream and a private pool), except
+        that run may call split() at a host step."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self._open = _Segments(self.keep_graph)
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                self._open.begin()
+                try:
+                    out = run()
+                finally:
+                    self._open.graphs[-1].capture_end()
+            return self._open, out
+        finally:
+            self._open = None
+
+    def split(self, step):
+        """End the segment being recorded, to be followed at replay by
+        step, and begin the next in the same pool on the same stream (the
+        torch.cuda.graph context manager cannot be split)."""
+        self._open.graphs[-1].capture_end()
+        self._open.steps.append(step)
+        self._open.begin()
 
     @staticmethod
     def event():
@@ -234,13 +415,23 @@ class CapturedFrame:
     call stay as they are through the next call, which replays the other
     graph; the call after that overwrites them.
 
+    Segments. A graph is the list of segments its capture split at fn's
+    host steps (host_step, a gloo gather of the band frame), all in its
+    pool: `segments` per graph and `host_steps` count them (a frame
+    without host steps is one segment), and `step_seconds` is the host
+    time of the last call's host steps, each timed from the completion of
+    the segment before it to the end of its copies. `launches` counts the
+    kernels of all segments.
+
     Overflow is never silent: after each replay the frame's overflow
     (the dropped bin pairs under a dict key or field "overflow") is copied
     without waiting into pinned memory, and each later call reads the
     readings whose replay has completed and raises BinOverflow on one that
     is not 0, naming the call and the count (call_or_recapture goes on
-    from it). The caller reads the last frame's aux["overflow"] itself, as
-    with the eager frame.
+    from it). A frame that runs a collective (`collective`, see
+    collective()) waits at each call for the previous call's reading, so
+    that every rank decides at the same call. The caller reads the last
+    frame's aux["overflow"] itself, as with the eager frame.
 
     cache_clear() (registry.clear_jit_caches(), reload()) drops the graphs;
     the next call captures anew (`captures` counts the captures made).
@@ -260,6 +451,9 @@ class CapturedFrame:
         self.capture_seconds = None
         self.capacities = None
         self.launches = None
+        self.segments = self.host_steps = None
+        self.collective = False
+        self.step_seconds = 0.0
         self.calls = 0
         self.captures = 0
         self.cache_clear()
@@ -313,31 +507,51 @@ class CapturedFrame:
             self._sets = [_map(state, torch.clone),
                           _map(state, torch.clone)]
 
-        counted = setup.PairPlan()
+        counted, warm = setup.PairPlan(), _WarmUp(self.name)
 
-        def warm():
-            with setup.pair_plan(counted):
+        def run():
+            with setup.pair_plan(counted), _recording(warm):
                 return self.fn(*args)
-        self.graphs.warm_up(warm)
+        self.graphs.warm_up(run)
         self.capacities = setup.static_capacities(counted.counts)
+        self._step_specs = warm.specs
+        self.collective = warm.collective
 
         before = dict(kernels.LAUNCHES)
-        first = self.graphs.capture(lambda: self._body(0))
+        first = self.record(0)
         # a replay launches what its capture recorded, and counts nothing
         self.launches = {k: n - before.get(k, 0)
                          for k, n in kernels.LAUNCHES.items()
                          if n > before.get(k, 0)}
-        self._slots = [(graph, out, _find_overflow(out)) for graph, out in (
-            first, self.graphs.capture(lambda: self._body(1)))]
+        self._slots = [(graph, out, _find_overflow(out))
+                       for graph, out in (first, self.record(1))]
+        self.host_steps = len(warm.specs)
+        self.segments = self.host_steps + 1
         self._ring = self.graphs.pinned(OVERFLOW_RING)
         self._last = 1
         self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
         if self.verbose:
             print(f"aot: {self.name}: warm-up and two captures in "
-                  f"{self.capture_seconds:.2f} s, bin-pair capacities "
-                  f"{self.capacities} for counts {counted.counts}",
-                  file=sys.stderr, flush=True)
+                  f"{self.capture_seconds:.2f} s, {self.segments} segments "
+                  f"and {self.host_steps} host steps a graph, bin-pair "
+                  f"capacities {self.capacities} for counts "
+                  f"{counted.counts}", file=sys.stderr, flush=True)
+
+    def record(self, g: int, graphs=None):
+        """(graph, out): _body(g) captured by graphs (default the frame's),
+        split at its host steps into the warm-up's number of segments. The
+        capture's own step; chip_smoke.py's graph_nodes records once more
+        with _CudaGraphs(keep_graph=True)."""
+        graphs = graphs or self.graphs
+        rec = _Capture(self, graphs, self._step_specs)
+        with _recording(rec):
+            graph, out = graphs.capture(lambda: self._body(g))
+        if len(rec.steps) != len(self._step_specs):
+            raise RuntimeError(f"cached_jit: {self.name}: the capture made "
+                               f"{len(rec.steps)} host steps, its warm-up "
+                               f"{len(self._step_specs)}")
+        return graph, out
 
     def _body(self, g: int):
         """What graph g records: fn on the buffers, the binning at the static
@@ -390,10 +604,13 @@ class CapturedFrame:
 
     def _check_overflow(self, block: bool = False):
         """Raise on the first completed replay that dropped bin pairs; with
-        block, wait for the oldest pending replay first."""
+        block, wait for the oldest pending replay first; a collective
+        frame waits for every pending replay."""
         from vkr_tpu_torch.raster import setup
 
-        if block:
+        if self.collective and self._pending:
+            self._pending[-1][2].synchronize()
+        elif block:
             self._pending[0][2].synchronize()
         while self._pending and self._pending[0][2].query():
             call, slot, _ = self._pending.popleft()
@@ -415,6 +632,7 @@ class CapturedFrame:
         g = 1 - self._last
         self._load(args, g)
         graph, out, overflow = self._slots[g]
+        self.step_seconds = 0.0
         graph.replay()
         self.calls += 1
         if overflow is not None:

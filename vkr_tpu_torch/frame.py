@@ -267,10 +267,12 @@ def shade_frame(gbuf, state: FrameState, cam: CameraFrame,
     band=(row0, band_h), gather_fn (the multi-device frame,
     parallel/band.py; vkr_tpu frame.py:228): every expensive pass computes
     the full-res rows [row0, row0 + band_h) (half-res [row0/2, ...)) from
-    whole-frame inputs, and gather_fn, which takes a band (band rows, ...)
-    to the whole (H rows, ...), makes each output whole for the next pass.
-    hi-Z and the histories stay whole on every caller. row0 and band_h
-    must be even. The result is whole. band=None is the one-device frame."""
+    whole-frame inputs, and gather_fn, which takes bands (band rows, ...)
+    to the whole (H rows, ...), makes each output whole for the next pass
+    (one band -> a tensor, several -> a tuple; outputs that follow each
+    other go in one call, one host step of a captured gloo frame). hi-Z
+    and the histories stay whole on every caller. row0 and band_h must be
+    even. The result is whole. band=None is the one-device frame."""
     mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                     tri_grid=tri_grid, use_kernels=use_kernels,
                     tuning=tuning, band=band, gather_fn=gather_fn)
@@ -282,7 +284,7 @@ def shade_frame(gbuf, state: FrameState, cam: CameraFrame,
 def _banding(band, gather_fn):
     """(row0, band_h, gather) of band mode; (None, None, identity) off."""
     if band is None:
-        return None, None, lambda x: x
+        return None, None, lambda *xs: xs[0] if len(xs) == 1 else xs
     if gather_fn is None:
         raise ValueError("band mode needs a gather_fn")
     row0, band_h = band
@@ -337,7 +339,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
                 max_iterations=cfg.ssr.max_iterations,
                 use_kernel=use_kernels, **hb))
         rays_band = rays
-        rays, ssr_occ = g(rays), g(ssr_occ)
+        rays, ssr_occ = g(rays, ssr_occ)
         reflections = g(add_task(
             "SSSR_filter",
             lambda: registry.get("sssr_filter")(
@@ -382,8 +384,9 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         ssr_blurred = (compose_probe_reflections(ssr_blurred, rays_band,
                                                  probe_rgb)
                        if cfg.enable_ssr else probe_rgb)
-        probe_refl = g(probe_refl)
-    ssr_blurred = g(ssr_blurred)
+        probe_refl, ssr_blurred = g(probe_refl, ssr_blurred)
+    else:
+        ssr_blurred = g(ssr_blurred)
 
     if cfg.enable_gtao:
         gp = _gtao.GTAOParams(

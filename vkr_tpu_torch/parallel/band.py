@@ -19,21 +19,30 @@ Every rank returns the whole colour, FrameState and aux. vkr_tpu all-gathers
 and so does the port: no halo exchange by point-to-point sends.
 
 The gather is all_gather_single (all_gather_into_tensor in older torch)
-over the leading row axis. Under gloo, whose collectives take CPU tensors
-only, each band is staged through host memory and the whole tensor copied
-back to the rank's device; the group's backend, which the caller chose,
-decides this. Under NCCL (one card per rank) the device tensors go to the
-collective directly.
+over the leading row axis. The group's backend, which the caller chose,
+decides its form (RowGather):
+  * gloo, whose collectives take CPU tensors only: each band is staged
+    through host memory and the whole tensor copied back to the rank's
+    device. A CUDA graph cannot hold that, so each gather call is a host
+    step (core/aot.py:host_step): a frame captured by cached_jit ends a
+    graph segment before it and begins the next after it. The frame calls
+    gathers that follow each other as one (the G-buffer's five planes and
+    the overflow sum; SSR's rays and occlusion), so the default frame has
+    9 host steps and 10 segments.
+  * NCCL (one card per rank): the device tensors go to the collective
+    directly, on the current stream, and a captured frame records the
+    collectives into its one graph.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 import torch.distributed as dist
 
-from vkr_tpu_torch.core import registry
+from vkr_tpu_torch.core import aot, registry
 from vkr_tpu_torch.core.graph import add_task
 
 # torch 2.13 names the tensor all-gather all_gather_single and deprecates
@@ -43,13 +52,15 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
 
 
 class RowGather:
-    """gather_fn of band mode: a band (band rows, ...) on `device` -> the
+    """gather_fn of band mode: bands (band rows, ...) on `device` -> each
     whole (group size x band rows, ...), rank order, on `device`.
 
     stats: an optional dict; when given, each call synchronises the card
     before and after and adds its seconds to stats["gather_s"] and one to
     stats["gathers"] (the band's compute then stays out of the gather's
-    time)."""
+    time). An eager frame's only: a captured frame cannot synchronise
+    inside its graph, so stats raises there; its host steps are timed by
+    the CapturedFrame (step_seconds)."""
 
     def __init__(self, group, device, stats=None):
         self.group = group
@@ -62,26 +73,52 @@ class RowGather:
         if self.stats is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def __call__(self, x):
+    def __call__(self, *bands, total=None):
+        """Each band made whole and, with `total`, that tensor summed over
+        the group (an all_reduce), last; one band and no total give a
+        tensor, else a tuple. Under gloo the call is one host step
+        (core/aot.py:host_step); under NCCL its collectives run on
+        the current stream, where a capture records them."""
+        if self.stats is not None and aot.capturing():
+            raise RuntimeError(
+                "RowGather: stats synchronises the card around each gather,"
+                " which a captured frame cannot do; read the CapturedFrame's"
+                " step_seconds instead")
+        aot.collective()
+        xs = bands + (() if total is None else (total,))
+        collect = functools.partial(self._collect, len(bands))
         self._sync()
         t0 = time.perf_counter()
-        src = (x.cpu() if self.via_host else x).contiguous()
-        out = torch.empty((self.n * src.shape[0],) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        _ALL_GATHER(out, src, group=self.group)
-        out = out.to(self.device)
+        out = aot.host_step(collect, *xs) if self.via_host else collect(*xs)
         if self.stats is not None:
             self._sync()
             self.stats["gather_s"] = (self.stats.get("gather_s", 0.0)
                                       + time.perf_counter() - t0)
             self.stats["gathers"] = self.stats.get("gathers", 0) + 1
-        return out
+        return out[0] if len(out) == 1 else out
+
+    def _collect(self, n_bands, *xs):
+        """The first n_bands of xs all-gathered over rows, the rest summed;
+        staged through host memory under gloo."""
+        out = []
+        for i, x in enumerate(xs):
+            src = x.cpu() if self.via_host else x
+            if i < n_bands:
+                src = src.contiguous()
+                whole = torch.empty((self.n * src.shape[0],)
+                                    + tuple(src.shape[1:]),
+                                    dtype=src.dtype, device=src.device)
+                _ALL_GATHER(whole, src, group=self.group)
+            else:
+                whole = src.clone()
+                dist.all_reduce(whole, op=dist.ReduceOp.SUM,
+                                group=self.group)
+            out.append(whole.to(self.device))
+        return tuple(out)
 
     def sum(self, x):
         """x summed over the group (an all_reduce), on `device`."""
-        src = (x.cpu() if self.via_host else x).clone()
-        dist.all_reduce(src, op=dist.ReduceOp.SUM, group=self.group)
-        return src.to(self.device)
+        return self(total=x)
 
 
 def band_rows(height: int, group=None):
@@ -123,10 +160,10 @@ def render_frame_banded(scene, state, cam, ssr_res, cfg, group=None, *,
             mask_peel_layers=cfg.raster.mask_peel_layers,
             trilinear=cfg.trilinear_textures, oracle=not use_kernels,
             full_height=h, row_offset=row0))
-    gbuf = GBuffer(albedo=gather(gb.albedo), normal=gather(gb.normal),
-                   material=gather(gb.material),
-                   velocity=gather(gb.velocity), depth=gather(gb.depth),
-                   overflow=gather.sum(gb.overflow))
+    planes = ("albedo", "normal", "material", "velocity", "depth")
+    *whole, overflow = gather(*(getattr(gb, k) for k in planes),
+                              total=gb.overflow)
+    gbuf = GBuffer(**dict(zip(planes, whole)), overflow=overflow)
     return shade_frame(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                        tri_grid=tri_grid, use_kernels=use_kernels,
                        tuning=tuning, band=(row0, band_h), gather_fn=gather)

@@ -65,7 +65,9 @@ def render_views_sharded(scene, states, cams, ssr_res, cfg,
     states: a FrameState batched on axis 0 (batch_states); cams: a
     CameraFrame batched on axis 0 (batch_cams). Returns (colours (V, H, W,
     3), the new states batched), whole on every rank (vkr_tpu
-    sharding.py:41-81 returns them sharded over the view axis)."""
+    sharding.py:41-81 returns them sharded over the view axis). The
+    gather is one call: one host step of a frame captured under gloo, so
+    the captured views are two segments (core/aot.py)."""
     from vkr_tpu_torch.frame import CameraFrame, render_frame
 
     n, v = mesh.size, mesh.rank
@@ -76,12 +78,12 @@ def render_views_sharded(scene, states, cams, ssr_res, cfg,
     cam = CameraFrame(*(t[v] for t in cams))
     color, new_state, _ = render_frame(scene, state, cam, ssr_res, cfg,
                                        use_kernels=use_kernels)
-    gather = RowGather(mesh.group, mesh.device)
-    fields = {name: gather(getattr(new_state, name)[None])
-              for name in new_state.FIELDS if name != "frame_index"}
+    names = [name for name in new_state.FIELDS if name != "frame_index"]
+    colors, *fields = RowGather(mesh.group, mesh.device)(
+        color[None], *(getattr(new_state, name)[None] for name in names))
     new_states = new_state.replace(frame_index=states.frame_index + 1,
-                                   **fields)
-    return gather(color[None]), new_states
+                                   **dict(zip(names, fields)))
+    return colors, new_states
 
 
 def batch_states(make_state, n: int):

@@ -16,7 +16,10 @@ platform="cpu" (or VKR_PLATFORM=cpu) they raise.
 
 The module run captures entry()'s frame with cached_jit, runs it once,
 then runs dryrun_multichip(DRYRUN_DEVICES, default 8); it exits non-zero
-on any failure.
+on any failure. The dry run's views and band frame go through cached_jit,
+as __graft_entry__.py jits them: on the card each rank captures them (the
+gloo gathers as host steps between graph segments, core/aot.py); on the
+CPU cached_jit returns the eager function.
 """
 
 from __future__ import annotations
@@ -96,12 +99,16 @@ def dryrun_multichip(n_devices: int, platform=None) -> dict:
     3-column colonnade with 32^2 textures, LUTs of 32):
 
     views: n orbit cameras around (4, 1.8, 0.5) through
-    render_views_sharded over make_render_mesh(n): colours (n, 64, 64, 3),
-    finite, more than MIN_COVERAGE of prev_depth below 1;
-    bands: camera 0 through render_frame_banded against the rank's own
-    one-device render_frame: G-buffer and prev_depth bit for bit, colour
-    and TAA history within BAND_ATOL, overflow 0 (vkr_tpu allows 4e-3
-    between its two jitted programs; the port runs one eager program).
+    render_views_sharded over make_render_mesh(n), captured by cached_jit
+    (the batched state donated): every output bit-equal to the eager
+    call's; colours (n, 64, 64, 3), finite, more than MIN_COVERAGE of
+    prev_depth below 1;
+    bands: camera 0 through render_frame_banded, captured by cached_jit
+    (the state donated): every output bit-equal to the eager band frame's,
+    and against the rank's own one-device render_frame: G-buffer and
+    prev_depth bit for bit, colour and TAA history within BAND_ATOL,
+    overflow 0 (vkr_tpu allows 4e-3 between its two jitted programs; the
+    port's captured frame replays the eager frame's kernels).
 
     Prints vkr_tpu's "views OK" and "bands OK" lines and returns
     {"coverage", "max_dev", "seconds"}. 64 rows must split into n bands of
@@ -152,10 +159,31 @@ def _fail(what: str):
     raise RuntimeError(f"dryrun_multichip: {what}")
 
 
+def same_bits(a, b) -> bool:
+    """Every tensor of two result trees equal bit for bit (NaNs too), the
+    other leaves equal."""
+    import torch
+
+    from vkr_tpu_torch.core.aot import _flat
+
+    def bits(t):
+        if t.is_floating_point():
+            return t.view({2: torch.int16, 4: torch.int32,
+                           8: torch.int64}[t.element_size()])
+        return t
+
+    xs, ys = _flat(a), _flat(b)
+    return len(xs) == len(ys) and all(
+        (x.dtype == y.dtype and x.shape == y.shape
+         and torch.equal(bits(x), bits(y)))
+        if isinstance(x, torch.Tensor) else x == y for x, y in zip(xs, ys))
+
+
 def _dryrun_rank(rank: int, n: int, device) -> dict:
     """One rank's share of the dry run: both checks, raising on a miss."""
     import torch
 
+    from vkr_tpu_torch.core import aot
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.frame import render_frame
     from vkr_tpu_torch.parallel import (make_render_mesh,
@@ -171,8 +199,21 @@ def _dryrun_rank(rank: int, n: int, device) -> dict:
     def fresh():
         return FrameState.initial(cfg.height, cfg.width, device)
 
-    colors, states = render_views_sharded(
-        scene, batch_states(fresh, n), batch_cams(cams), res, cfg, mesh)
+    def views(scene_in, states_in, cams_in):
+        return render_views_sharded(scene_in, states_in, cams_in, res, cfg,
+                                    mesh)
+
+    def band(scene_in, state_in, cam_in):
+        return render_frame_banded(scene_in, state_in, cam_in, res, cfg,
+                                   device=device)
+
+    view_args = (scene, batch_states(fresh, n), batch_cams(cams))
+    eager = views(*view_args)
+    colors, states = aot.cached_jit("views", views, view_args,
+                                    donate_argnums=(1,))(*view_args)
+    if not same_bits((colors, states), eager):
+        _fail(f"rank {rank}: the captured views differ from the eager "
+              f"views")
     coverage = float((states.prev_depth < 1.0).float().mean())
     shape = (n, cfg.height, cfg.width, 3)
     if tuple(colors.shape) != shape:
@@ -185,8 +226,13 @@ def _dryrun_rank(rank: int, n: int, device) -> dict:
 
     color_1, state_1, aux_1 = render_frame(scene, fresh(), cams[0], res,
                                            cfg)
-    color_b, state_b, aux_b = render_frame_banded(scene, fresh(), cams[0],
-                                                  res, cfg, device=device)
+    eager = band(scene, fresh(), cams[0])
+    color_b, state_b, aux_b = aot.cached_jit(
+        "band", band, (scene, fresh(), cams[0]), donate_argnums=(1,))(
+        scene, fresh(), cams[0])
+    if not same_bits((color_b, state_b, aux_b), eager):
+        _fail(f"rank {rank}: the captured band frame differs from the "
+              f"eager band frame")
     for k in GBUF:
         if not torch.equal(getattr(aux_b["gbuffer"], k),
                            getattr(aux_1["gbuffer"], k)):
