@@ -1934,7 +1934,7 @@ def graph_nodes(frame):
         torch.cuda.CUDAGraph(keep_graph=True)
     except TypeError:
         return None
-    graph, _ = frame.record(0, aot._CudaGraphs(keep_graph=True))
+    graph, _, _ = frame.record(0, aot._CudaGraphs(keep_graph=True))
     with open("/proc/self/maps") as f:
         libs = sorted({ln.split()[-1] for ln in f if "libcudart" in ln})
     libs += glob.glob("/usr/local/cuda/lib64/libcudart.so*")

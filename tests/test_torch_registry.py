@@ -177,15 +177,3 @@ def test_add_task_records_only_while_recording():
     assert [r.name for r in graph.records] == ["B"]
     assert graph.records[0].inputs == ["int32[3]"]
     assert PassGraph._active is None
-
-
-def test_pass_profiler_times_each_pass():
-    from vkr_tpu_torch.core.graph import PassProfiler
-
-    prof = PassProfiler()
-    out = prof.run("A", lambda t: t * 2, torch.ones(4))
-    prof.run("A", lambda t: t * 2, out)
-    prof.run("B", lambda: None)
-    assert list(prof.times_ms) == ["A", "B"]
-    assert all(ms >= 0.0 for ms in prof.times_ms.values())
-    assert "TOTAL" in prof.report()

@@ -14,7 +14,8 @@ This package never imports jax or vkr_tpu.
   core/       — storage-format emulation, FrameState, and the runtime
                 layer: the pass registry under the reference's manifest
                 names with hot reload (registry.py), the pass graph with
-                task labels, DAG dump and per-pass timing (graph.py),
+                task labels and DAG dump, and the trace: spans and
+                counters, pass spans inside a replay (graph.py),
                 readback and PNG / depth-CSV capture (readback.py),
                 FrameState checkpoints (checkpoint.py), the start-up
                 disk cache (diskcache.py) and the device choice

@@ -1,7 +1,8 @@
 """The runtime layer: storage formats, FrameState, and vkr_tpu/core's
-registry (shader manifest, hot reload), pass graph (task labels, DAG dump,
-per-pass timing), readback and capture, FrameState checkpoints, the
-start-up disk cache and the warm-start entry (aot.cached_jit)."""
+registry (shader manifest, hot reload), pass graph (task labels, DAG dump)
+and trace (spans and counters), readback and capture, FrameState
+checkpoints, the start-up disk cache and the warm-start entry
+(aot.cached_jit)."""
 
 from vkr_tpu_torch.core import (  # noqa: F401
     aot,
@@ -18,4 +19,4 @@ from vkr_tpu_torch.core.formats import (
     quantize_f16,
 )
 from vkr_tpu_torch.core.framestate import FrameState
-from vkr_tpu_torch.core.graph import PassGraph, PassProfiler, add_task
+from vkr_tpu_torch.core.graph import PassGraph, add_task

@@ -46,7 +46,8 @@ from typing import Callable
 import torch
 
 from vkr_tpu_torch.core import registry
-from vkr_tpu_torch.core.graph import _leaves
+from vkr_tpu_torch.core.graph import (
+    PassMarks, _leaves, marking, new_call, span, tracing)
 
 # A non-donated tensor argument of at most this many bytes (a camera
 # matrix, a jitter, a transform table) is copied into a buffer of the
@@ -140,7 +141,8 @@ class _HostStep:
     """A host step of a capture: fn, the tensors it reads (the segment
     before it wrote them) and the static tensors it fills (the segment
     after it reads them). Calling it runs fn and copies its results in,
-    adding its host seconds to the frame's step_seconds."""
+    a host_step span, adding its host seconds to the frame's
+    step_seconds."""
 
     def __init__(self, frame, fn, inputs, outputs):
         self.frame, self.fn = frame, fn
@@ -148,8 +150,9 @@ class _HostStep:
 
     def __call__(self):
         t0 = time.perf_counter()
-        for dst, src in zip(self.outputs, self.fn(*self.inputs)):
-            dst.copy_(src)
+        with span("host_step"):
+            for dst, src in zip(self.outputs, self.fn(*self.inputs)):
+                dst.copy_(src)
         self.frame.step_seconds += time.perf_counter() - t0
 
 
@@ -312,7 +315,8 @@ class _Segments:
         for graph, step in itertools.zip_longest(self.graphs, self.steps):
             graph.replay()
             if step is not None:
-                torch.cuda.current_stream().synchronize()
+                with span("wait"):
+                    torch.cuda.current_stream().synchronize()
                 step()
 
 
@@ -372,6 +376,15 @@ class _CudaGraphs:
         return done
 
     @staticmethod
+    def timing_event():
+        """A timing event recorded on the current stream; under a capture
+        an event-record node of the graph (external), recorded again at
+        each replay."""
+        done = torch.cuda.Event(enable_timing=True, external=True)
+        done.record()
+        return done
+
+    @staticmethod
     def pinned(n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=torch.int32, pin_memory=True)
 
@@ -419,9 +432,22 @@ class CapturedFrame:
     host steps (host_step, a gloo gather of the band frame), all in its
     pool: `segments` per graph and `host_steps` count them (a frame
     without host steps is one segment), and `step_seconds` is the host
-    time of the last call's host steps, each timed from the completion of
-    the segment before it to the end of its copies. `launches` counts the
-    kernels of all segments.
+    time of the last call's host steps (each a host_step span), each
+    timed from the completion of the segment before it to the end of its
+    copies. `launches` counts the kernels of all segments.
+
+    Trace (core/graph.py). The warm-up and captures are a start-up span,
+    "capture", whose seconds are `capture_seconds`. While the trace is on
+    a call is a span "call" with a new call id, and its children
+    "overflow_check" (with a "wait" for each time it blocks on the
+    device), "load", "replay" (the launches, and a "host_step" for each
+    host step). A capture made while the trace is on puts a pair of
+    timing events around the graph and around each pass (add_task) into
+    both graphs (PassMarks); a traced call then first waits for the last
+    replay of the graph it is about to replay, two calls back, and
+    records that replay's device spans ("replay" and the passes, under
+    the call id of that replay). A capture made with the trace off has no
+    node more.
 
     Overflow is never silent: after each replay the frame's overflow
     (the dropped bin pairs under a dict key or field "overflow") is copied
@@ -464,6 +490,8 @@ class CapturedFrame:
         held = getattr(self, "_slots", None) is not None
         self._slots = self._sets = self._inputs = self._ring = None
         self._returned = None
+        self._marks = [None, None]     # graph g's PassMarks, if traced
+        self._unread = [None, None]    # (replay span, call) not yet read
         self._pending = collections.deque()
         if held:
             self.graphs.release()
@@ -481,56 +509,59 @@ class CapturedFrame:
         from vkr_tpu_torch import kernels
         from vkr_tpu_torch.raster import setup
 
-        t0 = time.perf_counter()
-        rest, state = self._split(args)
-        for leaf in _flat(args):
-            if (isinstance(leaf, torch.Tensor)
-                    and leaf.device.type != self.graphs.device_type):
-                raise ValueError(f"cached_jit: {self.name}: an argument "
-                                 f"tensor on {leaf.device}; the captured "
-                                 f"frame takes CUDA tensors")
+        with span("capture", startup=True) as capture:
+            rest, state = self._split(args)
+            for leaf in _flat(args):
+                if (isinstance(leaf, torch.Tensor)
+                        and leaf.device.type != self.graphs.device_type):
+                    raise ValueError(f"cached_jit: {self.name}: an argument "
+                                     f"tensor on {leaf.device}; the captured "
+                                     f"frame takes CUDA tensors")
 
-        def buffer(leaf):
-            if (isinstance(leaf, torch.Tensor)
-                    and leaf.numel() * leaf.element_size() <= INPUT_BYTES):
-                return leaf.clone()
-            return leaf
-        self._inputs = _map(rest, buffer)
-        self._input_leaves = _flat(self._inputs)
-        self._arg_leaves = _flat(rest)
-        if state is not None:
-            for leaf in _flat(state):
-                if not isinstance(leaf, torch.Tensor):
-                    raise TypeError(f"cached_jit: {self.name}: the donated "
-                                    f"argument holds a {type(leaf).__name__}"
-                                    f"; the captured frame takes tensors")
-            self._sets = [_map(state, torch.clone),
-                          _map(state, torch.clone)]
+            def buffer(leaf):
+                if (isinstance(leaf, torch.Tensor)
+                        and leaf.numel() * leaf.element_size() <= INPUT_BYTES):
+                    return leaf.clone()
+                return leaf
+            self._inputs = _map(rest, buffer)
+            self._input_leaves = _flat(self._inputs)
+            self._arg_leaves = _flat(rest)
+            if state is not None:
+                for leaf in _flat(state):
+                    if not isinstance(leaf, torch.Tensor):
+                        raise TypeError(
+                            f"cached_jit: {self.name}: the donated argument "
+                            f"holds a {type(leaf).__name__}; the captured "
+                            f"frame takes tensors")
+                self._sets = [_map(state, torch.clone),
+                              _map(state, torch.clone)]
 
-        counted, warm = setup.PairPlan(), _WarmUp(self.name)
+            counted, warm = setup.PairPlan(), _WarmUp(self.name)
 
-        def run():
-            with setup.pair_plan(counted), _recording(warm):
-                return self.fn(*args)
-        self.graphs.warm_up(run)
-        self.capacities = setup.static_capacities(counted.counts)
-        self._step_specs = warm.specs
-        self.collective = warm.collective
+            def run():
+                with setup.pair_plan(counted), _recording(warm):
+                    return self.fn(*args)
+            self.graphs.warm_up(run)
+            self.capacities = setup.static_capacities(counted.counts)
+            self._step_specs = warm.specs
+            self.collective = warm.collective
 
-        before = dict(kernels.LAUNCHES)
-        first = self.record(0)
-        # a replay launches what its capture recorded, and counts nothing
-        self.launches = {k: n - before.get(k, 0)
-                         for k, n in kernels.LAUNCHES.items()
-                         if n > before.get(k, 0)}
-        self._slots = [(graph, out, _find_overflow(out))
-                       for graph, out in (first, self.record(1))]
-        self.host_steps = len(warm.specs)
-        self.segments = self.host_steps + 1
-        self._ring = self.graphs.pinned(OVERFLOW_RING)
-        self._last = 1
-        self.captures += 1
-        self.capture_seconds = time.perf_counter() - t0
+            before = dict(kernels.LAUNCHES)
+            first = self.record(0)
+            # a replay launches what its capture recorded, and counts nothing
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in kernels.LAUNCHES.items()
+                             if n > before.get(k, 0)}
+            recorded = (first, self.record(1))
+            self._slots = [(graph, out, _find_overflow(out))
+                           for graph, out, _ in recorded]
+            self._marks = [marks for _, _, marks in recorded]
+            self.host_steps = len(warm.specs)
+            self.segments = self.host_steps + 1
+            self._ring = self.graphs.pinned(OVERFLOW_RING)
+            self._last = 1
+            self.captures += 1
+        self.capture_seconds = capture.seconds
         if self.verbose:
             print(f"aot: {self.name}: warm-up and two captures in "
                   f"{self.capture_seconds:.2f} s, {self.segments} segments "
@@ -539,19 +570,25 @@ class CapturedFrame:
                   f"{counted.counts}", file=sys.stderr, flush=True)
 
     def record(self, g: int, graphs=None):
-        """(graph, out): _body(g) captured by graphs (default the frame's),
-        split at its host steps into the warm-up's number of segments. The
-        capture's own step; chip_smoke.py's graph_nodes records once more
-        with _CudaGraphs(keep_graph=True)."""
+        """(graph, out, marks): _body(g) captured by graphs (default the
+        frame's), split at its host steps into the warm-up's number of
+        segments, and its timing events (PassMarks) if the trace is on,
+        else None. The capture's own step; chip_smoke.py's graph_nodes
+        records once more with _CudaGraphs(keep_graph=True)."""
         graphs = graphs or self.graphs
+        marks = PassMarks(graphs.timing_event) if tracing() else None
         rec = _Capture(self, graphs, self._step_specs)
-        with _recording(rec):
-            graph, out = graphs.capture(lambda: self._body(g))
+
+        def body():
+            return self._body(g) if marks is None else marks.whole(
+                lambda: self._body(g))
+        with _recording(rec), marking(marks):
+            graph, out = graphs.capture(body)
         if len(rec.steps) != len(self._step_specs):
             raise RuntimeError(f"cached_jit: {self.name}: the capture made "
                                f"{len(rec.steps)} host steps, its warm-up "
                                f"{len(self._step_specs)}")
-        return graph, out
+        return graph, out, marks
 
     def _body(self, g: int):
         """What graph g records: fn on the buffers, the binning at the static
@@ -609,9 +646,11 @@ class CapturedFrame:
         from vkr_tpu_torch.raster import setup
 
         if self.collective and self._pending:
-            self._pending[-1][2].synchronize()
+            with span("wait"):
+                self._pending[-1][2].synchronize()
         elif block:
-            self._pending[0][2].synchronize()
+            with span("wait"):
+                self._pending[0][2].synchronize()
         while self._pending and self._pending[0][2].query():
             call, slot, _ = self._pending.popleft()
             dropped = int(self._ring[slot])
@@ -624,16 +663,29 @@ class CapturedFrame:
                     f"view of that frame", call, dropped)
 
     def __call__(self, *args):
+        with span("call", call=new_call() if tracing() else None):
+            return self._call(args)
+
+    def _call(self, args):
         if self._slots is None:
             self._capture(args)
-        self._check_overflow()
-        if len(self._pending) == OVERFLOW_RING:
-            self._check_overflow(block=True)
+        with span("overflow_check"):
+            self._check_overflow()
+            if len(self._pending) == OVERFLOW_RING:
+                self._check_overflow(block=True)
         g = 1 - self._last
-        self._load(args, g)
+        with span("load"):
+            self._load(args, g)
+        marks, unread = self._marks[g], self._unread[g]
+        if unread is not None and tracing():
+            with span("read_passes"):
+                marks.read(*unread)
         graph, out, overflow = self._slots[g]
         self.step_seconds = 0.0
-        graph.replay()
+        with span("replay") as replay:
+            graph.replay()
+        self._unread[g] = ((replay.id, replay.call)
+                           if marks is not None and tracing() else None)
         self.calls += 1
         if overflow is not None:
             slot = self.calls % OVERFLOW_RING

@@ -32,6 +32,7 @@ from vkr_tpu_torch.core.formats import (
     quantize_unorm,
     srgb_to_linear,
 )
+from vkr_tpu_torch.core.graph import span
 from vkr_tpu_torch.core.registry import register
 from vkr_tpu_torch.mathlib.octahedral import encode_normal
 from vkr_tpu_torch.raster.pipeline import rasterize
@@ -96,43 +97,46 @@ def _corner_tables(world, world_n, uvs, tri):
 def upload_scene(scene: CompiledScene, device) -> SceneDevice:
     """Move a CompiledScene to `device` (the reference's staged scene
     upload, scene.cpp:270-303), pack its textures (at their native sizes
-    when the scene carries tex_images) and build the corner tables."""
-    mask = scene.mat_clip_alpha[np.maximum(scene.tri_material, 0)] > 0
-    mask &= scene.tri_material >= 0
+    when the scene carries tex_images) and build the corner tables: a
+    start-up span "upload" (core/graph.py)."""
+    with span("upload", startup=True):
+        mask = scene.mat_clip_alpha[np.maximum(scene.tri_material, 0)] > 0
+        mask &= scene.tri_material >= 0
 
-    def dev(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
+        def dev(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
 
-    positions, normals, uvs = (dev(scene.positions), dev(scene.normals),
-                               dev(scene.uvs))
-    vert_transform = dev(scene.vert_transform, torch.long)
-    transforms, normal_mats = dev(scene.transforms), dev(scene.normal_mats)
-    tri_o = dev(scene.tri_indices[~mask], torch.long)
-    tri_m = dev(scene.tri_indices[mask], torch.long)
-    world = world_positions(positions, vert_transform, transforms)
-    world_n = transform_normals(normals, vert_transform, normal_mats)
-    cw_o, ca_o = _corner_tables(world, world_n, uvs, tri_o)
-    cw_m, ca_m = (_corner_tables(world, world_n, uvs, tri_m)
-                  if tri_m.shape[0] > 0 else (None, None))
-    tex_args = (scene.tex_wrap, scene.mat_albedo_tex, scene.mat_mr_tex,
-                device)
-    tex_images = getattr(scene, "tex_images", None)
-    tex = (pack_texture_array_native(list(tex_images), *tex_args)
-           if tex_images is not None
-           else pack_texture_array(scene.tex_mips, *tex_args))
-    return SceneDevice(
-        positions=positions, normals=normals, uvs=uvs,
-        vert_transform=vert_transform, transforms=transforms,
-        normal_mats=normal_mats, tri_opaque=tri_o, tri_masked=tri_m,
-        tri_opaque_mat=dev(scene.tri_material[~mask]),
-        tri_masked_mat=dev(scene.tri_material[mask]),
-        mat_albedo_tex=dev(scene.mat_albedo_tex, torch.long),
-        mat_mr_tex=dev(scene.mat_mr_tex, torch.long),
-        tex=tex,
-        corner_world_o=cw_o, corner_attr_o=ca_o,
-        corner_world_m=cw_m, corner_attr_m=ca_m,
-    )
+        positions, normals, uvs = (dev(scene.positions), dev(scene.normals),
+                                   dev(scene.uvs))
+        vert_transform = dev(scene.vert_transform, torch.long)
+        transforms = dev(scene.transforms)
+        normal_mats = dev(scene.normal_mats)
+        tri_o = dev(scene.tri_indices[~mask], torch.long)
+        tri_m = dev(scene.tri_indices[mask], torch.long)
+        world = world_positions(positions, vert_transform, transforms)
+        world_n = transform_normals(normals, vert_transform, normal_mats)
+        cw_o, ca_o = _corner_tables(world, world_n, uvs, tri_o)
+        cw_m, ca_m = (_corner_tables(world, world_n, uvs, tri_m)
+                      if tri_m.shape[0] > 0 else (None, None))
+        tex_args = (scene.tex_wrap, scene.mat_albedo_tex, scene.mat_mr_tex,
+                    device)
+        tex_images = getattr(scene, "tex_images", None)
+        tex = (pack_texture_array_native(list(tex_images), *tex_args)
+               if tex_images is not None
+               else pack_texture_array(scene.tex_mips, *tex_args))
+        return SceneDevice(
+            positions=positions, normals=normals, uvs=uvs,
+            vert_transform=vert_transform, transforms=transforms,
+            normal_mats=normal_mats, tri_opaque=tri_o, tri_masked=tri_m,
+            tri_opaque_mat=dev(scene.tri_material[~mask]),
+            tri_masked_mat=dev(scene.tri_material[mask]),
+            mat_albedo_tex=dev(scene.mat_albedo_tex, torch.long),
+            mat_mr_tex=dev(scene.mat_mr_tex, torch.long),
+            tex=tex,
+            corner_world_o=cw_o, corner_attr_o=ca_o,
+            corner_world_m=cw_m, corner_attr_m=ca_m,
+        )
 
 
 class GBuffer(NamedTuple):

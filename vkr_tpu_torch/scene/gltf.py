@@ -27,6 +27,7 @@ from typing import List
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
 
+from vkr_tpu_torch.core.graph import count, span
 from vkr_tpu_torch.scene.jpeg import decode_jpeg
 
 _COMPONENT_DTYPES = {
@@ -268,12 +269,19 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def _decode_image(data: bytes) -> np.ndarray:
-    """An image's bytes -> (H, W, 4) u8, by its signature."""
-    if data[:2] == b"\xff\xd8":
-        return decode_jpeg(data)
-    if data[:len(PNG_SIGNATURE)] == PNG_SIGNATURE:
-        return decode_png(data)
-    raise ValueError(f"image is neither PNG nor JPEG (starts {data[:8]!r})")
+    """An image's bytes -> (H, W, 4) u8, by its signature. A start-up span
+    "decode"; counters decode.images and decode.bytes (the bytes read)."""
+    with span("decode", startup=True):
+        if data[:2] == b"\xff\xd8":
+            image = decode_jpeg(data)
+        elif data[:len(PNG_SIGNATURE)] == PNG_SIGNATURE:
+            image = decode_png(data)
+        else:
+            raise ValueError(
+                f"image is neither PNG nor JPEG (starts {data[:8]!r})")
+    count("decode.images", startup=True)
+    count("decode.bytes", len(data), startup=True)
+    return image
 
 
 # ---------------------------------------------------------------- glTF

@@ -348,10 +348,12 @@ def sponza_texture_set(tex_size: int = 512):
     texture -> image from `textures[*].source`; materials from
     pbrMetallicRoughness with MASK alpha and alphaCutoff (default 0.5);
     every sampler REPEAT. Returns (materials, images, texture_image,
-    texture_wrap) for build_colonnade."""
+    texture_wrap) for build_colonnade. Each decode and each resize is a
+    start-up span (core/graph.py), "decode" and "resize"."""
     import json
     import os
 
+    from vkr_tpu_torch.core.graph import span
     from vkr_tpu_torch.scene import gltf as _gltf
     from vkr_tpu_torch.scene import resample
     from vkr_tpu_torch.scene.assets import asset_path
@@ -365,8 +367,9 @@ def sponza_texture_set(tex_size: int = 512):
     for img in doc.get("images", []):
         with open(os.path.join(base, img["uri"]), "rb") as f:
             rgba = _gltf._decode_image(f.read())
-        images.append(resample.pil_bilinear_resize(rgba, tex_size,
-                                                   tex_size))
+        with span("resize", startup=True):
+            images.append(resample.pil_bilinear_resize(rgba, tex_size,
+                                                       tex_size))
     texture_image = [t["source"] for t in doc.get("textures", [])]
     materials = []
     for m in doc.get("materials", []):

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 
 from vkr_tpu_torch import native
+from vkr_tpu_torch.core.graph import span
 from vkr_tpu_torch.mathlib.transforms import normal_matrix
 from vkr_tpu_torch.scene import gltf as _gltf
 
@@ -166,24 +167,26 @@ def compile_scene(
 
     n_tex = len(scene.texture_image)
     tex_images = tex_mips = None
-    if native_sizes:
-        tex_images = []
-        for t in range(max(n_tex, 1)):
-            img_id = scene.texture_image[t] if t < n_tex else -1
-            if 0 <= img_id < len(scene.images):
-                tex_images.append(_native_image(scene.images[img_id],
-                                                tex_size))
-            else:
-                tex_images.append(np.full((1, 1, 4), 255, np.uint8))
-        tex_images = tuple(tex_images)
-    else:
-        tex_array = np.zeros((max(n_tex, 1), tex_size, tex_size, 4),
-                             np.uint8)
-        tex_array[..., 3] = 255
-        for t, img_id in enumerate(scene.texture_image):
-            if 0 <= img_id < len(scene.images):
-                tex_array[t] = _resize_rgba(scene.images[img_id], tex_size)
-        tex_mips = build_mip_pyramid(tex_array)
+    # the textures' resizes and mips: a start-up span (core/graph.py)
+    with span("resize", startup=True):
+        if native_sizes:
+            tex_images = []
+            for t in range(max(n_tex, 1)):
+                img_id = scene.texture_image[t] if t < n_tex else -1
+                if 0 <= img_id < len(scene.images):
+                    tex_images.append(_native_image(scene.images[img_id],
+                                                    tex_size))
+                else:
+                    tex_images.append(np.full((1, 1, 4), 255, np.uint8))
+            tex_images = tuple(tex_images)
+        else:
+            tex_array = np.zeros((max(n_tex, 1), tex_size, tex_size, 4),
+                                 np.uint8)
+            tex_array[..., 3] = 255
+            for t, img_id in enumerate(scene.texture_image):
+                if 0 <= img_id < len(scene.images):
+                    tex_array[t] = _resize_rgba(scene.images[img_id], tex_size)
+            tex_mips = build_mip_pyramid(tex_array)
 
     materials = scene.materials or [_gltf.Material()]
 
