@@ -20,13 +20,13 @@
    314,988 triangles, 96 alpha-MASK) with the default RenderConfig (SSR on,
    MIS GTAO). Launch counters are cleared just before and read just after;
    every kernel of the path must have launched (per frame at least K1 x3,
-   the march x1, K4 x1, K5 x3, K6 x1). Fails unless each frame covers >= 98%
-   of the pixels, drops no bin pair and is finite on every channel, SSR
-   included. Prints the median frame time (synchronised host clock, the
-   first two frames excluded as warm-up). Frame 1 renders under a
-   PassGraph (every pass is built through the registry under add_task):
-   fails unless its records name vkr_tpu's default chain in order, and
-   prints the dump's first lines.
+   the march x1, K4 x1, K5 x3, K6 x1, R2 x1). Fails unless each frame
+   covers >= 98% of the pixels, drops no bin pair and is finite on every
+   channel, SSR included. Prints the median frame time (synchronised
+   host clock, the first two frames excluded as warm-up). Frame 1 renders
+   under a PassGraph (every pass is built through the registry under
+   add_task): fails unless its records name vkr_tpu's default chain in
+   order, and prints the dump's first lines.
 3b. Traced phase: the frame as vkr_tpu runs it, traced once and
    replayed: core/aot.py:cached_jit captures render_frame into CUDA
    graphs (the FrameState donated). On this colonnade, bench.py's
@@ -37,7 +37,8 @@
    for bit, overflow is 0 on every replay, frame 2's eager body at the
    captured bin-pair capacities runs under
    torch.cuda.set_sync_debug_mode("error"), and one profiled replay runs
-   K1's walk x3, the march, K4, K5 x3 and K6 by their CUDA symbol names.
+   K1's walk x3, the march, K4, K5 x3, K6 and R2 by their CUDA symbol
+   names.
    The same on 3 frames of the SSR-off frame (after its phase), the probe
    frame (after its phase), the ray-traced GTAO frame (after its phase;
    a replay must also run R1 x8 by symbol, and its timing is printed too)
@@ -266,6 +267,12 @@
    calls, K1 and K7 held to their plain versions on one tile of many
    chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
    and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
+   R2 (csrc/ssr_blur.cu) on the benchmark cells' frame (r2_phase):
+   frames 0 and 1 of the orbit at 2560x1440, frame 1's blur call held
+   bit for bit to its plain version, on the whole frame and on the band
+   of rank 1 of 4 (rows 180-359 at half res, which must also equal the
+   whole call's rows), with kernel, plain and bound ms, the pixels by
+   radius, and registers and spills.
 16. Renders the main phase's 8 frames, the probe phase's 3, the RT
    phase's 3, the glTF phase's 3 trilinear frames, the JPEG glTF
    phase's 3 and the Sponza phase's 3 with the plain versions
@@ -326,12 +333,13 @@ SLEEP_CYCLES_PER_S = 2e9  # about the H100's SM clock (1.98 GHz boost)
 MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
                           "window_gather_bilinear_multi": 1,
                           "window_gather_bilinear": 3,
-                          "taa_history_gather": 1}
+                          "taa_history_gather": 1, "ssr_blur": 1}
 # gtao_rt takes the MIS pass's place, so K4 does not launch; it runs R1
 # once per chunk of 8 of its 64 directions
 RT_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3, "hierarchical_march": 1,
                              "window_gather_bilinear": 3,
-                             "taa_history_gather": 1, "ray_any_hit": 8}
+                             "taa_history_gather": 1, "ray_any_hit": 8,
+                             "ssr_blur": 1}
 SSR_OFF_MIN_LAUNCHES_PER_FRAME = {"gbuf_tiles": 3,
                                   "window_gather_bilinear_multi": 1,
                                   "window_gather_bilinear": 2,
@@ -353,6 +361,16 @@ PLANE_FLOPS = 4  # fma(a, px, b*py) + c
 # u, 1 / det and u; after v, q = cross(s, e1) 9, v 6 and u + v 1; forming
 # t, 6 more. The edges are formed once per grid, in the slot records.
 MT_OPS = {"det": 14, "a": 22, "u": 24, "v": 40, "t": 46}
+# float32 operations of one R2 tap inside its pixel's radius
+# (csrc/ssr_blur.cu): the depth weight 6 (difference, abs, the product by
+# 1000, the division, 1 - it, the clamp), the normal weight 6 (three
+# products, two sums, the clamp), the gaussian 5 (i i + j j, the
+# division, expf), the weight 2, the colour 6, the weight sum 1
+R2_OPS = 26
+R2_RADIUS = 11  # the 23 x 23 window's halo
+# R2's phase: the benchmark cells' frame, and the band of rank 1 of 4
+R2_WIDTH, R2_HEIGHT = 2560, 1440
+R2_BAND_RANK, R2_BAND_RANKS = 1, 4
 # PR 15's count, every test charged in full with its edges (6): printed
 # beside the bound, to set this run against PR 15's figures
 MT_FLOPS_PR15 = 52
@@ -377,6 +395,9 @@ KERNELS = {
     # R1: vkr_tpu computes ray_any_hit in jnp (no pallas_call)
     "ray_any_hit": ("vkr_tpu_torch/csrc/ray_any_hit.cu",
                     "vkr_tpu/scene/accel.py:140"),
+    # R2: vkr_tpu computes the SSR blur's taps in jnp (no pallas_call)
+    "ssr_blur": ("vkr_tpu_torch/csrc/ssr_blur.cu",
+                 "vkr_tpu/passes/ssr.py:858"),
 }
 # K1 on the probe grid's cubemap faces at start-up: a row of its own
 PROBE_FACE_ROW = "gbuf_tiles (probe faces)"
@@ -434,7 +455,7 @@ def check(ok: bool, what: str) -> None:
 
 def plain_versions():
     """kernel wrapper name -> (module, its plain PyTorch version)."""
-    from vkr_tpu_torch.passes import ssr_march
+    from vkr_tpu_torch.passes import ssr_blur_kernel, ssr_march
     from vkr_tpu_torch.raster import gather_kernel, gbuf_kernel, kernel
     from vkr_tpu_torch.scene import accel
 
@@ -450,6 +471,7 @@ def plain_versions():
                                gather_kernel.taa_history_gather_reference),
         "rasterize_tiles": (kernel, kernel.rasterize_tiles_reference),
         "ray_any_hit": (accel, accel.ray_any_hit_reference),
+        "ssr_blur": (ssr_blur_kernel, ssr_blur_kernel.ssr_blur_reference),
     }
 
 
@@ -502,7 +524,7 @@ def render(scene, res, cfg, device, n_frames, on_frame=None,
     from vkr_tpu_torch.frame import camera_frame, render_frame
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
 
-    state = FrameState.initial(HEIGHT, WIDTH, device)
+    state = FrameState.initial(cfg.height, cfg.width, device)
     outs, secs = [], []
     for i in range(n_frames):
         cam = camera_frame(cfg, bench_orbit_view(i),
@@ -624,7 +646,8 @@ def compare(name, got, want, args, kw=None):
     K1: depth and triangle id equal (the same fma-form plane evaluation
     and the same d <= z walk), attributes within 1e-6 + 1e-6 |x| (a
     float64-emulated fma may round differently from fmaf on a float32
-    tie). K7: depth and triangle id equal. K4/K5/K6: the same
+    tie). K7: depth and triangle id equal. R2: bit-equal (the taps in
+    the same order, the same roundings). K4/K5/K6: the same
     clamp/floor/lerp sequence in float32 without contraction, atol 1e-6.
     The march: the same operations in the same order, so bit-equal
     rays are expected; required are validity agreement >= 0.9999 and
@@ -646,6 +669,8 @@ def compare(name, got, want, args, kw=None):
                 torch.equal(z, z0) and torch.equal(tid, tid0), "")
     if name == "ray_any_hit":
         return rt_compare(got, want, args, kw or {})
+    if name == "ssr_blur":
+        return float((got - want).abs().max()), same_bits(got, want), ""
     if name == "hierarchical_march":
         (pos, hor, it), (pos0, hor0, it0) = got, want[:3]
         max_it = args[6]
@@ -828,6 +853,17 @@ def work_of(name, args, kw, plain):
         return (n_rays * (2 * 3 * 4 + 1) + int(grid.spans[:, 1].sum()) * 48
                 + nbytes(t_max, grid.spans, grid.grid_min, grid.cell_size),
                 sum(MT_OPS[k] * n for k, n in exits.items()))
+    if name == "ssr_blur":
+        refl, depth, normal, sigma = args[:4]
+        big_h, w = depth.shape
+        row0, h = kw.get("row0", 0), sigma.shape[0]
+        # the band's rows and their halo of the whole frame's planes,
+        # sigma and the colour once; R2_OPS for each tap inside its
+        # pixel's radius on this frame's sigma plane
+        rows = (min(big_h, row0 + h + R2_RADIUS)
+                - max(0, row0 - R2_RADIUS))
+        return (rows * w * (3 + 1 + 3) * 4 + nbytes(sigma) + h * w * 3 * 4,
+                r2_taps(sigma) * R2_OPS)
     if name == "hierarchical_march":
         pyr, rays = args[0], args[1:5]
         steps = plain[3]
@@ -845,6 +881,21 @@ def work_of(name, args, kw, plain):
     images = sum(nbytes(a) * min(1.0, (bh + 2 * radius + 1) / a.shape[0])
                  for a in args[:n_img])
     return int(images) + nbytes(*args[n_img:]) + nbytes(out), taps * 10
+
+
+def r2_radius(sigma):
+    """R2's tap radius per pixel, -1 (no tap) to 11: floor(3 sigma -
+    0.01) as the kernel and its plain version compute it."""
+    import torch
+
+    return torch.floor(3.0 * sigma - 0.01).clamp(-1, R2_RADIUS)
+
+
+def r2_taps(sigma) -> int:
+    """Taps inside each pixel's radius, summed: the taps R2 computes on
+    finite inputs."""
+    r = r2_radius(sigma).double()
+    return int(((2 * r + 1) ** 2 * (r >= 0)).sum())
 
 
 def simt_efficiency(steps, patch_w, patch_h):
@@ -1235,6 +1286,71 @@ def build_r1_parent(src):
 R1_TIME_BUDGET_S = 0.2  # time_ms's budget per call in the R1 phase
 R1_TMAX_SEED = 16
 ISSUE_PER_CLOCK = 132 * 4 * 32  # SMs x warp instructions x lanes a clock
+
+
+def r2_phase(scene, res, device):
+    """R2 on the benchmark cells' frame: frames 0 and 1 of the bench orbit
+    at R2_WIDTH x R2_HEIGHT in this colonnade (eager, every kernel), frame
+    1's blur call recorded. R2 against its plain version bit for bit on
+    the whole frame and on the band of rank R2_BAND_RANK of R2_BAND_RANKS
+    (whose rows must also equal the whole call's), each with kernel,
+    plain and bound ms; the radius histogram and the taps it needs;
+    registers and spills. Returns the two cases."""
+    import torch
+
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=R2_WIDTH, height=R2_HEIGHT)
+    calls = []
+
+    def hook(i):
+        if i == CAPTURE_FRAME:
+            return Substitute(recording(calls, only=("ssr_blur",)))
+        return contextlib.nullcontext()
+    render(scene, res, cfg, device, CAPTURE_FRAME + 1, on_frame=hook)
+    check(len(calls) == 1, f"r2: {len(calls)} ssr_blur calls recorded in "
+          f"{R2_WIDTH}x{R2_HEIGHT} frame {CAPTURE_FRAME}")
+    _, args, kw = calls[0]
+    refl, depth, normal, sigma = args
+    bh = depth.shape[0] // R2_BAND_RANKS
+    r0 = R2_BAND_RANK * bh
+    band = ((refl, depth, normal, sigma[r0:r0 + bh].contiguous()),
+            dict(kw, row0=r0))
+    plain = plain_versions()
+    wrappers = {k: getattr(mod, k) for k, (mod, _) in plain.items()}
+    whole = wrappers["ssr_blur"](*args, **kw)
+    cases = []
+    for label, (a, k) in (("whole frame", (args, kw)),
+                          (f"band of rank {R2_BAND_RANK} of "
+                           f"{R2_BAND_RANKS}", band)):
+        case, ok, _, _ = measure_call("ssr_blur", a, k, wrappers, plain)
+        note = ""
+        if k.get("row0"):
+            rows_equal = same_bits(wrappers["ssr_blur"](*a, **k),
+                                   whole[r0:r0 + bh])
+            note = (f", rows {'equal' if rows_equal else 'DIFFER FROM'} "
+                    "the whole call's")
+            ok = ok and rows_equal
+        r = r2_radius(a[3])
+        hist = torch.bincount((r + 1).long().flatten(),
+                              minlength=R2_RADIUS + 2).tolist()
+        print(f"kernel ssr_blur {R2_WIDTH}x{R2_HEIGHT} {label} "
+              f"[{case['shape']}]: {'bit-equal' if ok else 'DIFFERS'} "
+              f"(max_abs_err {case['max_abs_err']:.3g}{note}), "
+              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}: "
+              f"{case['bytes'] / 1e6:.1f} MB, {case['ops'] / 1e9:.3f} "
+              f"GFLOP; {r2_taps(a[3])} taps inside the radii, "
+              f"{a[3].numel() * (2 * R2_RADIUS + 1) ** 2} in the windows); "
+              f"pixels by radius -1..{R2_RADIUS} {hist}")
+        check(ok, f"r2 {label}: R2 differs from its plain version")
+        cases.append(case)
+    use = res_usage(kernels.library_path("ssr_blur"), "ssr_blur_kernel")
+    print(f"ssr_blur_kernel: {use.get('REG')} registers, "
+          f"{use.get('SHARED')} bytes shared, {use.get('LOCAL', 0)} bytes "
+          f"local a thread; on {CARD}")
+    return cases
 
 
 def r1_phase(calls):
@@ -1896,7 +2012,8 @@ TRACED_SYMBOLS = {"gbuf_tiles": "walk_kernel<true>",
                   "window_gather_bilinear_multi": "window_gather_multi_kernel",
                   "window_gather_bilinear": "window_gather_k5",
                   "taa_history_gather": "taa_history_gather_kernel",
-                  "ray_any_hit": "ray_any_hit_kernel"}
+                  "ray_any_hit": "ray_any_hit_kernel",
+                  "ssr_blur": "ssr_blur_kernel"}
 TRACED_FRAMES = 8
 TRACED_OTHER_FRAMES = 3  # the SSR-off, trilinear and probe frames
 TRACED_TIMED = 6  # serial frames per block of the interleaved timing
@@ -2941,11 +3058,11 @@ def viewer_captures_phase(device):
 
 PROFILE_REPS = 8
 # what profile's ten passes launch (K1 in gbuffer, the march in ssr_trace,
-# K4 in gtao_window, K5 in ssr_blur and gtao_accum, K6 in taa) and
-# entry()'s frame, by wrapper
+# K4 in gtao_window, K5 and R2 in ssr_blur, K5 in gtao_accum, K6 in taa)
+# and entry()'s frame, by wrapper
 SLICE_KERNELS = ("gbuf_tiles", "hierarchical_march",
                    "window_gather_bilinear_multi", "window_gather_bilinear",
-                   "taa_history_gather")
+                   "taa_history_gather", "ssr_blur")
 
 
 def same_bits(a, b) -> bool:
@@ -3613,7 +3730,7 @@ RANK_TIMEOUT_S = 600
 # kernels line
 BAND_ROWS = {name: f"{name} (band)" for name in (
     "gbuf_tiles", "hierarchical_march", "window_gather_bilinear_multi",
-    "window_gather_bilinear", "taa_history_gather")}
+    "window_gather_bilinear", "taa_history_gather", "ssr_blur")}
 
 
 def band_offset(name, args, kw):
@@ -4512,6 +4629,8 @@ def main() -> int:
                  SSR_OFF_MIN_LAUNCHES_PER_FRAME, "ssr-off")
     check("hierarchical_march" not in off_launches,
           "ssr-off: the march launched with SSR off")
+    check("ssr_blur" not in off_launches,
+          "ssr-off: R2 launched with SSR off")
     print(f"ssr-off: {SSR_OFF_FRAMES} frames, launches {off_launches}")
     print_medians("ssr-off", off_secs)
     traced["SSR off"] = traced_phase(
@@ -4848,6 +4967,8 @@ def main() -> int:
     # R1 beyond its row: t_max tensors, slot tests, lane maps, SASS, the
     # parent's time in turns where VKR_R1_PARENT names it
     r1_phase(rt_captured)
+    # R2 on the benchmark's 1440p frame and one of its bands
+    r2_phase(scene, res, device)
     for name in KERNELS:
         check(name in results, f"{name} was not called in main frame "
               f"{CAPTURE_FRAME}, the shadow phase, the probe grid or RT "

@@ -68,6 +68,10 @@ def timed_steps():
                                       shading, ssr, ssr_march, taa)
     from vkr_tpu_torch.raster import gbuf_kernel, pair_rows, setup
     from vkr_tpu_torch.scene import accel
+    try:
+        from vkr_tpu_torch.passes import ssr_blur_kernel
+    except ImportError:  # a checkout from before R2
+        ssr_blur_kernel = None
 
     gbuffer_pass = frame if hasattr(frame, "render_gbuffer") else gbuffer
     return [step for step in [
@@ -75,7 +79,7 @@ def timed_steps():
         (downsample, "build_hiz", "pass.hiz"),
         (ssr, "ssr_trace", "pass.ssr_trace"),
         (ssr, "ssr_filter", "pass.ssr_filter"),
-        (ssr, "ssr_blur", "pass.ssr_blur (K5)"),
+        (ssr, "ssr_blur", "pass.ssr_blur (R2, K5)"),
         (probes, "probe_trace", "pass.trace_probes"),
         (gtao, "gtao_main_mis", "pass.gtao_main_mis (K4)"),
         (gtao, "gtao_rt", "pass.gtao_rt"),
@@ -95,6 +99,7 @@ def timed_steps():
         (gbuf_kernel, "gbuf_tiles", "raster.gbuf_tiles (K1)"),
         (ssr_march, "hierarchical_march", "ssr.march (K2+K3)"),
         (accel, "ray_any_hit", "gtao_rt.ray_any_hit"),
+        (ssr_blur_kernel, "ssr_blur", "ssr.blur (R2)"),
     ] if hasattr(step[0], step[1])]
 
 

@@ -412,8 +412,10 @@ def test_ssr_blur(hall, traced, accumulate, monkeypatch):
     """The 23x23 blur and the history blend on identical inputs (random
     history). vkr_tpu's reprojection runs through its jnp window-gather
     oracle, the function its K5 computes, so both sides clamp the offset
-    to +-16 px. The port sums each row's 23 taps before adding them
-    (ssr.ssr_blur), so 1e-5."""
+    to +-16 px. R2's plain version adds the 529 taps one by one in
+    vkr_tpu's order (ssr_blur_kernel.ssr_blur_reference); the two differ
+    by their expf and float32 roundings only, 1.2e-7 at most here (the
+    row sums this replaced read 1.5e-7), held to 1e-5."""
     import vkr_tpu.raster.gather_kernel as jgather
 
     monkeypatch.setattr(
@@ -443,6 +445,107 @@ def test_ssr_blur(hall, traced, accumulate, monkeypatch):
     # also agree on which
     assert np.abs(got - hist).max() > 0.01
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _blur_pass_inputs(h=24, w=32, seed=5):
+    """The blur pass's inputs for a flat patch: depth near 0.5, normals
+    near +z, roughness 0 (sigma 0.4, radius 1) but for a 16x16 block of
+    roughness 1 (sigma 4, radius 11) at full-res (16, 16); reflections in
+    [0, 1) with +inf at (12, 20) channel 1 and NaN at (5, 5) channel 0;
+    no motion."""
+    rng = np.random.default_rng(seed)
+    refl = rng.random((h, w, 3)).astype(np.float32)
+    refl[12, 20, 1] = np.inf
+    refl[5, 5, 0] = np.nan
+    depth = (0.5 + 1e-6 * rng.random((h, w))).astype(np.float32)
+    normal = (0.5 + 0.01 * rng.random((h, w, 2))).astype(np.float32)
+    material = np.zeros((2 * h, 2 * w, 4), np.float32)
+    material[16:32, 16:32, 1] = 1.0
+    zeros = np.zeros((h, w, 3), np.float32)
+    return (refl, depth, normal, material, zeros,
+            np.zeros((h, w, 2), np.float32), depth)
+
+
+def test_ssr_blur_nonfinite_reflection():
+    """A non-finite reflection inside a pixel's 23x23 window but outside
+    its radius still reaches its colour: the tap's weight there is 0 and
+    inf x 0 and NaN x 0 are NaN, in vkr_tpu's fori_loop as in the port.
+    So the channel of an inf is +inf within the radius of the pixels
+    around it (a positive weight) and NaN on the rest of their window; a
+    NaN makes its channel NaN on its whole window; every other value is
+    finite. The port's pass (R2's plain version, no history) holds
+    vkr_tpu's pass there exactly and elsewhere to 1e-5."""
+    args = _blur_pass_inputs()
+    eye = np.eye(4, dtype=np.float32)
+    kw = dict(fovy=1.0, aspect=4.0 / 3.0, znear=0.05, zfar=80.0,
+              accumulate=False)
+    want = np.asarray(jssr.ssr_blur(
+        *(jnp.asarray(a) for a in args),
+        jssr.SSRBlurParams(inverse_camera=jnp.asarray(eye),
+                           prev_inverse_camera=jnp.asarray(eye), **kw),
+        use_kernel_gather=False))
+    got = tssr.ssr_blur(*(_t(a) for a in args), tssr.SSRBlurParams(
+        inverse_camera=_t(eye), prev_inverse_camera=_t(eye), **kw)).numpy()
+    h, w = args[1].shape
+    y, x = np.mgrid[0:h, 0:w]
+    radius = np.where((y >= 8) & (y < 16) & (x >= 8) & (x < 16), 11, 1)
+
+    def window(cy, cx):
+        return (np.abs(y - cy) <= 11) & (np.abs(x - cx) <= 11)
+
+    def inside(cy, cx):
+        return (np.abs(y - cy) <= radius) & (np.abs(x - cx) <= radius)
+
+    inf_win, nan_win = window(12, 20), window(5, 5)
+    assert np.array_equal(np.isposinf(got[..., 1]), inside(12, 20))
+    assert np.array_equal(np.isnan(got[..., 1]),
+                          inf_win & ~inside(12, 20))
+    assert np.array_equal(np.isnan(got[..., 0]), nan_win)
+    assert np.isfinite(got[..., 2]).all()
+    assert 0 < inside(12, 20).sum() < inf_win.sum()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-5)
+
+
+def test_ssr_blur_wrapper_on_cpu(monkeypatch):
+    """R2's wrapper on CPU tensors is its plain version (bit for bit, no
+    CUDA library asked for, kernels.LAUNCHES untouched), whole and as a
+    band; its kernel path's checks refuse a wrong shape, a float64 plane,
+    a non-contiguous plane, rows beyond the frame, and a CPU tensor."""
+    from vkr_tpu_torch import kernels
+    from vkr_tpu_torch.passes import ssr_blur_kernel as bk
+
+    def no_library(name):
+        raise AssertionError(f"a CPU call asked for the {name} library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    rng = np.random.default_rng(11)
+    h, w = 20, 28
+    refl = _t(rng.random((h, w, 3)).astype(np.float32))
+    depth = _t((0.5 + 1e-5 * rng.random((h, w))).astype(np.float32))
+    normal = _t(np.tile(np.float32([0.0, 0.0, 1.0]), (h, w, 1)))
+    sigma = _t((0.4 + 3.6 * rng.random((h, w))).astype(np.float32))
+    before = dict(kernels.LAUNCHES)
+    whole = bk.ssr_blur(refl, depth, normal, sigma)
+    assert torch.equal(whole, bk.ssr_blur_reference(refl, depth, normal,
+                                                    sigma))
+    band = bk.ssr_blur(refl, depth, normal, sigma[5:12], row0=5)
+    assert torch.equal(band, whole[5:12])
+    assert dict(kernels.LAUNCHES) == before
+    assert torch.isfinite(whole).all() and whole.shape == (h, w, 3)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        bk._check(refl, depth, normal, sigma[5:12], 5)
+    for bad, match in (
+            ((refl[:, :-1].contiguous(), depth, normal, sigma, 0), "want"),
+            ((refl, depth.double(), normal, sigma, 0), "float32"),
+            ((refl, depth, normal.transpose(0, 1).contiguous()
+              .transpose(0, 1), sigma, 0), "contiguous"),
+            ((refl, depth, normal, sigma[:8], 15), "rows"),
+            ((refl, depth, normal, sigma[:8], -1), "rows")):
+        with pytest.raises(ValueError, match=match):
+            bk._check(*bad)
 
 
 @pytest.mark.parametrize("reflections_only", [False, True])

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("gbuf_tiles", "window_gather", "ssr_march", "ray_any_hit")
+SOURCES = ("gbuf_tiles", "window_gather", "ssr_march", "ray_any_hit",
+           "ssr_blur")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -58,6 +59,9 @@ _SIGNATURES = {
     "ray_any_hit": {
         "vkr_ray_any_hit": [_P, _P, _F, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                             _I, _I, _P, _P],
+    },
+    "ssr_blur": {
+        "vkr_ssr_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     },
 }
 

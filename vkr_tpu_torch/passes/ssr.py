@@ -52,7 +52,10 @@ from vkr_tpu_torch.passes.sampling import (
     reproject_bilinear,
     screen_uv_grid,
 )
-# vkr_tpu's name here (ssr.py:45); the march defines it
+from vkr_tpu_torch.passes import ssr_blur_kernel
+# vkr_tpu's names here (ssr.py:45, :780); R2's module and the march
+# define them
+from vkr_tpu_torch.passes.ssr_blur_kernel import MAX_BLUR_RADIUS  # noqa: F401
 from vkr_tpu_torch.passes.ssr_march import MAX_T  # noqa: F401
 
 PI = math.pi
@@ -495,9 +498,6 @@ class SSRBlurParams(NamedTuple):
     disable_blur: bool = False
 
 
-MAX_BLUR_RADIUS = 11  # sigma <= 4 -> r = floor(12 - eps)
-
-
 @register("sssr_blur")
 def ssr_blur(reflections, depth_half, normal_half, material_full, history,
              velocity_half, prev_depth_half, params: SSRBlurParams,
@@ -505,16 +505,13 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
              band_h: "int | None" = None):
     """blur.comp: per-pixel roughness-adaptive gaussian (sigma in
     [0.4, 4]) with depth/normal bilateral weights, then velocity-validated
-    history blend (0.1). Returns (h, w, 3). The reprojections go through
-    K5, or its plain version with use_kernel_gather=False.
+    history blend (0.1). Returns (h, w, 3).
 
-    The 23x23 taps run as 23 row steps, each taking its 23 column offsets
-    as one stacked (23, h, w) tensor op (about 350 launches instead of
-    529 eager taps). vkr_tpu's fori_loop adds the 529 taps one by one;
-    here each row's 23 taps are summed first, then added to the running
-    sum. The colour therefore differs from vkr_tpu's by float32
-    reassociation only: a few ulps of the weight sum, under 1e-5 on
-    colours in [0, 1] (tests/test_torch_ssr.py holds it there).
+    The 23x23 bilateral gather is R2 (ssr_blur_kernel.ssr_blur,
+    csrc/ssr_blur.cu on the card), which adds the 529 taps in vkr_tpu's
+    fori_loop order; this pass computes its sigma plane and decodes the
+    normals once for it. The gather and the reprojection go through R2
+    and K5, or their plain versions with use_kernel_gather=False.
 
     row0/band_h (band mode, vkr_tpu ssr.py:786): rows [row0, row0 +
     band_h) from whole-frame inputs, with a MAX_BLUR_RADIUS halo that
@@ -532,53 +529,13 @@ def ssr_blur(reflections, depth_half, normal_half, material_full, history,
     sigma = 0.4 + (4.0 - 0.4) * roughness
     if params.disable_blur:
         sigma = torch.full_like(sigma, 0.35)
-    r_pix = torch.floor(3.0 * sigma - 0.01)
-
-    center_normal = decode_normal(band_slice(normal_half, row0, h))
-    # blur.comp's gaussian prefactor 1/(2 pi sigma^2) multiplies every
-    # tap equally and cancels in color/weight_sum — not computed.
-    e = 2.0 * sigma * sigma
-
-    pad = MAX_BLUR_RADIUS
-    side = 2 * pad + 1
-
-    def halo(a):
-        # rows [r0 - pad, r0 + h + pad), columns padded, the frame's edges
-        # replicated
-        return _pad_edge(_pad_edge(a, 0, pad)[r0:r0 + h + 2 * pad], 1, pad)
-
-    refl_p = halo(reflections)
-    depth_p = halo(depth_half)
-    # decode the octahedral normals once on the padded array, not per tap
-    normal_p = decode_normal(halo(normal_half))
+    blur = (ssr_blur_kernel.ssr_blur if use_kernel_gather
+            else ssr_blur_kernel.ssr_blur_reference)
+    color = blur(
+        reflections.contiguous(), depth_half.contiguous(),
+        decode_normal(normal_half).contiguous(), sigma.contiguous(),
+        row0=r0)
     depth_c = band_slice(depth_half, row0, h)
-    depth_abs = depth_c.abs().clamp(min=1e-20)
-    fi = torch.arange(-pad, pad + 1, dtype=torch.float32,
-                      device=dev)[:, None, None]
-    in_ri = fi.abs() <= r_pix  # (side, h, w)
-
-    color = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    weight_sum = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    for j in range(-pad, pad + 1):
-        fj = float(j)
-        rows = slice(pad + j, pad + j + h)
-        # (h, side, w) windows of the padded rows -> (side, h, w): the
-        # column offsets i = -pad..pad as a leading dim
-        p_depth = depth_p[rows].unfold(1, w, 1).permute(1, 0, 2)
-        p_norm = normal_p[rows].unfold(1, w, 1).permute(1, 0, 3, 2)
-        p_refl = refl_p[rows].unfold(1, w, 1).permute(1, 0, 3, 2)
-        in_r = in_ri & (abs(fj) <= r_pix)
-        bw = torch.clamp(1.0 - 1000.0 * (depth_c - p_depth).abs()
-                         / depth_abs, min=0.0)
-        nw = torch.clamp((center_normal * p_norm).sum(-1), min=0.0)
-        wgt = torch.exp(-(fi * fi + fj * fj) / e) * bw * nw
-        wgt = torch.where(in_r, wgt, 0.0)
-        color = color + (p_refl * wgt[..., None]).sum(0)
-        weight_sum = weight_sum + wgt.sum(0)
-    # the dropped gaussian prefactor g = 1/(2 pi sigma^2) rescales the
-    # blur.comp weight floor: max(g*ws, 0.001) == g * max(ws, 0.001/g)
-    floor = 0.001 * (2.0 * math.pi) * sigma * sigma
-    color = color / torch.maximum(weight_sum, floor)[..., None]
 
     # history reprojection (blur.comp:82-106)
     velocity = band_slice(velocity_half, row0, h)
