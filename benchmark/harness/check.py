@@ -20,14 +20,21 @@ tensor, the largest in its group.
   state     every FrameState field the frame returns: TAA history, GTAO
             accumulation and previous AO, SSR history, previous depth
             and its half-res mip, previous view-projection, frame index
-  overflow  the bin pairs dropped, exactly
+  overflow  the bin pairs dropped, exactly (with probe GI also by the
+            probe grid's cube faces)
+  probe     with probe GI: the probe grid's colours and packed depth
+            pyramids (frame 0), and aux's probe image
 and against the independent chain (reference/plain_chain.py), which
 judges each stage (SSR and GTAO on the frame's own G-buffer, shading and
 TAA on the frozen frame's G-buffer, AO and SSR):
   ind_ssr     the blurred SSR and its history, and the half-res depth
+              (with probe GI: composed with the frame's probe image)
   ind_ao      the accumulated AO, its history and the previous AO
   ind_colour  the final colour (shading and TAA) and the TAA history
-The limits (LIMITS) and the readings they were set from are in PERF.md.
+  ind_probe   with probe GI: the probe image, and the SSR image composed
+              with it
+The limits (LIMITS, PROBE_LIMITS; limits_of) and the readings they were
+set from are in PERF.md.
 
 Keeping a frame costs the window a copy to pinned host memory on a side
 stream, which runs beside the next frame; the frame after that waits on
@@ -46,6 +53,8 @@ INDEPENDENT = ("ind_ssr", "ind_ao", "ind_colour")
 LIMITS = {"colour": 1e-3, "gbuffer": 1e-3, "ssr": 1e-3, "ao": 1e-3,
           "state": 1e-3, "overflow": 0, "ind_ssr": 1e-3, "ind_ao": 5e-3,
           "ind_colour": 1e-3}
+# the probe groups, read only where the configuration has probe GI
+PROBE_LIMITS = {"probe": 1e-3, "ind_probe": 1e-3}
 STATE_FIELDS = ("prev_depth", "prev_depth_half", "taa_history", "gtao_accum",
                 "gtao_prev", "ssr_history", "prev_mvp", "frame_index")
 GBUFFER_PLANES = ("albedo", "normal", "material", "velocity", "depth")
@@ -56,11 +65,27 @@ def outputs(colour, state, aux) -> dict:
     the program's and the reference's have the same fields."""
     out = {"colour": colour, "ssr": aux["ssr"], "ao": aux["ao"],
            "overflow": aux["overflow"]}
+    if aux.get("probe") is not None:
+        out["probe"] = aux["probe"]
     for k in GBUFFER_PLANES:
         out[f"gbuffer.{k}"] = getattr(aux["gbuffer"], k)
     for k in STATE_FIELDS:
         out[f"state.{k}"] = getattr(state, k)
     return out
+
+
+def grid_outputs(grid) -> dict:
+    """The probe grid's tensors compared at frame 0, the program's and the
+    reference's alike."""
+    return {"probe.colors": grid.colors, "probe.depth_flat": grid.depth_flat,
+            "overflow.probe_faces": grid.face_overflow}
+
+
+def limits_of(config: dict) -> dict:
+    """The numbers a configuration's cells are held to, with their limits."""
+    if config["render"].get("enable_probes"):
+        return {**LIMITS, **PROBE_LIMITS}
+    return LIMITS
 
 
 def group(name: str) -> str:
@@ -81,14 +106,19 @@ def rel_l2(p, r) -> float:
 
 def compare(prog: dict, ref: dict) -> dict:
     """{group: reading} of one frame."""
+    import torch
+
     out = {g: 0.0 for g in GROUPS}
     for name, r in ref.items():
         g = group(name)
         if g == "overflow":
-            out["overflow"] = abs(int(prog[name]) - int(r))
+            gap = int((torch.as_tensor(prog[name]).long().cpu()
+                       - torch.as_tensor(r).long().cpu()).abs().sum())
+            out["overflow"] = max(out.get("overflow", 0), gap)
         else:
             e = rel_l2(prog[name], r)
-            out[g] = e if not e <= out[g] else out[g]
+            worst_yet = out.get(g, 0.0)
+            out[g] = e if not e <= worst_yet else worst_yet
     return out
 
 
@@ -102,6 +132,16 @@ def compare_groups(prog: dict, expected: dict) -> dict:
             e = rel_l2(prog[name], r)
             out[g] = e if not e <= out[g] else out[g]
     return out
+
+
+def probe_fill(probe, rays) -> float:
+    """The share of the pixels the SSR trace left empty (rays w = 1) that
+    a probe hit fills."""
+    import torch
+
+    empty = torch.as_tensor(rays)[..., 3].cpu() >= 1.0
+    hit = torch.as_tensor(probe)[..., 3].cpu() > 0.5
+    return float((empty & hit).sum()) / max(int(empty.sum()), 1)
 
 
 def worst(readings) -> dict:

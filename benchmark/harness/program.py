@@ -10,13 +10,15 @@ A configuration file (benchmark/configs/<config>.json) names:
              times its image sizes), with columns, tessellation, tex_size
   tri_grid   optional: resolution and cap of build_scene_tri_grid, which
              feeds ray-traced GTAO
+  probe_grid optional: margin and probe_y of frame.build_probe_grid, the
+             octahedral probe grid that probe GI (enable_probes) reads
   band       optional: ranks and backend of the band frame
              (parallel/band.render_frame_banded), one rank per card
 Besides these, a configuration names itself (name, source, reduced,
 chips, why). build() refuses any other key, another scene kind, and a
-render setting the harness does not build for (probe GI, which needs a
-probe grid; ray-traced GTAO without a tri_grid), so that a cell runs
-what its file states.
+render setting the harness does not build for (probe GI without a
+probe_grid, or a probe_grid without probe GI; ray-traced GTAO without a
+tri_grid), so that a cell runs what its file states.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ class Built:
     ssr_res: object
     tri_grid: object       # TriGrid or None
     scene_load_s: float
+    probe_grid: object = None      # ProbeGrid or None
+    probe_grid_s: float = None     # its build alone, synchronised
 
 
 def render_config(config: dict):
@@ -73,7 +77,8 @@ def write_inputs(config: dict, seed: int, tmp: str) -> "str | None":
 
 
 CONFIG_KEYS = {"name", "source", "reduced", "chips", "why", "scene", "render",
-               "tri_grid", "band"}
+               "tri_grid", "band", "probe_grid"}
+PROBE_GRID_KEYS = {"margin", "probe_y"}
 SCENE_KINDS = {"colonnade": {"kind", "columns", "tessellation", "tex_size"},
                "sponza_colonnade": {"kind", "columns", "tessellation",
                                     "tex_size", "standin_scale"}}
@@ -93,16 +98,25 @@ def honoured(config: dict):
         raise ValueError(f"scene keys the harness does not run: "
                          f"{sorted(set(sc) - SCENE_KINDS[sc['kind']])}")
     r = config["render"]
-    if r.get("enable_probes"):
-        raise ValueError("enable_probes: the harness builds no probe grid")
+    if r.get("enable_probes") and "probe_grid" not in config:
+        raise ValueError("enable_probes without a probe_grid entry renders "
+                         "the probeless frame")
+    if "probe_grid" in config:
+        if not r.get("enable_probes"):
+            raise ValueError("a probe_grid entry without enable_probes: the "
+                             "frame would not read the grid")
+        if set(config["probe_grid"]) != PROBE_GRID_KEYS:
+            raise ValueError(f"probe_grid keys {sorted(config['probe_grid'])}"
+                             f", not {sorted(PROBE_GRID_KEYS)}")
     if r.get("gtao", {}).get("use_ray_query") and "tri_grid" not in config:
         raise ValueError("gtao.use_ray_query without a tri_grid entry "
                          "renders the MIS frame")
 
 
 def build(config: dict, assets_root, device, sync) -> Built:
-    """Scene, upload, LUTs and scene grid on `device`, timed to the end of
-    their device work (sync())."""
+    """Scene, upload, probe grid, LUTs and scene grid on `device`, timed to
+    the end of their device work (sync()); the probe grid is also timed
+    alone."""
     from vkr_tpu_torch import frame
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.scene import procedural
@@ -121,6 +135,14 @@ def build(config: dict, assets_root, device, sync) -> Built:
     else:
         raise ValueError(f"scene kind {sc['kind']!r}")
     scene = upload_scene(scene_cpu, device)
+    probe_grid = probe_grid_s = None
+    if "probe_grid" in config:
+        sync()
+        t_grid = time.perf_counter()
+        probe_grid = frame.build_probe_grid(scene_cpu, cfg, device=device,
+                                            **config["probe_grid"])
+        sync()
+        probe_grid_s = time.perf_counter() - t_grid
     ssr_res = frame.build_ssr_resources(cfg.ssr.lut_size, device=device)
     tri_grid = None
     if "tri_grid" in config:
@@ -130,7 +152,8 @@ def build(config: dict, assets_root, device, sync) -> Built:
             device=device)
     sync()
     return Built(cfg=cfg, scene=scene, ssr_res=ssr_res, tri_grid=tri_grid,
-                 scene_load_s=time.perf_counter() - t0)
+                 scene_load_s=time.perf_counter() - t0,
+                 probe_grid=probe_grid, probe_grid_s=probe_grid_s)
 
 
 def initial_state(cfg, device):
@@ -165,12 +188,13 @@ def frame_fn(built: Built, group=None, device=None):
 
     if group is None:
         return FnRuns(lambda s, st, c: frame.render_frame(
-            s, st, c, built.ssr_res, built.cfg, tri_grid=built.tri_grid))
+            s, st, c, built.ssr_res, built.cfg, tri_grid=built.tri_grid,
+            probe_grid=built.probe_grid))
     from vkr_tpu_torch.parallel import band
 
     return FnRuns(lambda s, st, c: band.render_frame_banded(
         s, st, c, built.ssr_res, built.cfg, group, device=device,
-        tri_grid=built.tri_grid))
+        tri_grid=built.tri_grid, probe_grid=built.probe_grid))
 
 
 def captured(name, fn, built, state, cam):
@@ -230,16 +254,26 @@ def recording_gathers(log):
             setattr(gather_kernel, n, fn)
 
 
+def _rigid_inverse(view):
+    """The inverse of a rigid view matrix, [R^T | -R^T t], on its device."""
+    r, t = view[:3, :3], view[:3, 3]
+    top = torch.cat([r.T, (-r.T @ t)[:, None]], 1)
+    return torch.cat([top, torch.eye(4, dtype=view.dtype,
+                                     device=view.device)[3:]], 0)
+
+
 def segment_ms(built, state, cam, reps, device):
-    """Device ms of the frame's three segments, each captured alone by
-    cached_jit (the G-buffer through registry "gbuf_opaque_taa",
-    frame.frame_mid, frame.frame_tail) and replayed `reps` times back to
-    back between two CUDA events."""
+    """Device ms of the frame's segments, each captured alone by cached_jit
+    (the G-buffer through registry "gbuf_opaque_taa", frame.frame_mid,
+    frame.frame_tail; with a probe grid also the probe trace through
+    registry "trace_probe" on the frame's half-res depth and normals) and
+    replayed `reps` times back to back between two CUDA events."""
     from vkr_tpu_torch import frame
     from vkr_tpu_torch.core import registry
     from vkr_tpu_torch.core.aot import cached_jit
 
     cfg, ssr_res, grid = built.cfg, built.ssr_res, built.tri_grid
+    probes = built.probe_grid
     jit_gbuf = cached_jit("bench_gbuffer", lambda s, c: registry.get(
         "gbuf_opaque_taa")(
             s, c.mvp, c.prev_mvp, c.jitter, width=cfg.width,
@@ -248,15 +282,27 @@ def segment_ms(built, state, cam, reps, device):
             trilinear=cfg.trilinear_textures), (built.scene, cam))
     gbuf = jit_gbuf(built.scene, cam)
     jit_mid = cached_jit("bench_mid", lambda gb, st, c: frame.frame_mid(
-        gb, st, c, ssr_res, cfg, tri_grid=grid), (gbuf, state, cam))
+        gb, st, c, ssr_res, cfg, tri_grid=grid, probe_grid=probes),
+        (gbuf, state, cam))
     mid = jit_mid(gbuf, state, cam)
     jit_tail = cached_jit("bench_tail", lambda gb, m, st, c: frame.frame_tail(
         gb, m, st, c, ssr_res, cfg), (gbuf, mid, state, cam))
     jit_tail(gbuf, mid, state, cam)
+    segments = [("gbuffer", lambda: jit_gbuf(built.scene, cam)),
+                ("ssr_gtao", lambda: jit_mid(gbuf, state, cam)),
+                ("shade_taa", lambda: jit_tail(gbuf, mid, state, cam))]
+    if probes is not None:
+        hiz = registry.get("downsample_hiz")(gbuf.depth, gbuf.normal,
+                                             gbuf.velocity)
+        half = (hiz.mips[0], hiz.normal_half)
+        jit_probe = cached_jit("bench_probe_trace", lambda d, n, c: (
+            registry.get("trace_probe")(
+                d, n, probes, _rigid_inverse(c.view), cfg.camera.fovy,
+                cfg.aspect, cfg.camera.znear, cfg.camera.zfar)),
+            (*half, cam))
+        segments.append(("probe_trace", lambda: jit_probe(*half, cam)))
     out = {}
-    for name, fn in (("gbuffer", lambda: jit_gbuf(built.scene, cam)),
-                     ("ssr_gtao", lambda: jit_mid(gbuf, state, cam)),
-                     ("shade_taa", lambda: jit_tail(gbuf, mid, state, cam))):
+    for name, fn in segments:
         fn()
         torch.cuda.synchronize(device)
         start = torch.cuda.Event(enable_timing=True)

@@ -100,17 +100,22 @@ def reference_check(config, assets, kept0, kept, pair_starts, traffic, seed,
     program carried into i. The independent chain: each of those frames,
     its SSR and GTAO from the frame's own G-buffer and carried state (into
     i + 1: the one frame i left), its shading and TAA from the frozen
-    frame's. Returns (the worst reading of each number, the frames
-    compared).
-    control: the reference in the control's precision (TF32) in the
-    program's place, against the reference itself."""
+    frame's. With probe GI, frame 0 also compares the program's probe
+    grid with the reference's own. Returns (the worst reading of each
+    number, the frames compared).
+    control: the reference in the control's precision (TF32), its probe
+    grid too, in the program's place, against the reference itself."""
     import ref_world
 
     t0 = time.perf_counter()
     world = ref_world.build(config, assets, device)
     judge = ref_world.Independent(world, device)
-    log(f"reference: scene, LUTs and grid built in "
+    log(f"reference: scene, LUTs and grids built in "
         f"{time.perf_counter() - t0:.3f} s")
+    control_grid = None
+    if control and world.probe_grid is not None:
+        with ref_world.tf32():
+            control_grid = ref_world.probe_grid(world, device)
 
     def views(k):
         return traffic.view(seed, k), traffic.view(seed, max(k - 1, 0))
@@ -121,17 +126,23 @@ def reference_check(config, assets, kept0, kept, pair_starts, traffic, seed,
             at_frame(None if tf32 else k)
             with ref_world.tf32() if tf32 else contextlib.nullcontext():
                 return ref_world.render(world, state, *views(k), k, device,
-                                        traffic.jitter)
+                                        traffic.jitter,
+                                        grid=control_grid if tf32 else None)
 
         def state_of(out):
             return {f: out[f"state.{f}"] for f in check.STATE_FIELDS}
 
         spent = {"independent": 0.0}
+        fills = []
 
         def independent(prog, state_in, k, frozen, frozen_state):
             t = time.perf_counter()
-            out = check.compare_groups(prog, judge.expected(
-                prog, state_in, *views(k), march[k], frozen, frozen_state))
+            expected = judge.expected(prog, state_in, *views(k), march[k],
+                                      frozen, frozen_state)
+            out = check.compare_groups(prog, expected)
+            if "ind_probe" in expected:
+                fills.append(check.probe_fill(prog["probe"],
+                                              march[k]["rays"]))
             spent["independent"] += time.perf_counter() - t
             return out
 
@@ -142,8 +153,12 @@ def reference_check(config, assets, kept0, kept, pair_starts, traffic, seed,
         if control:
             kept0 = check.outputs(*frame(ref_world.initial_state(
                 world, device), 0, tf32=True))
+            if control_grid is not None:
+                kept0.update(check.grid_outputs(control_grid))
         init_fields = {f: getattr(init, f) for f in check.STATE_FIELDS}
         ref0 = check.outputs(*start)
+        if world.probe_grid is not None:
+            ref0.update(check.grid_outputs(world.probe_grid))
         readings.append(check.compare(kept0, ref0))
         readings.append(independent(kept0, init_fields, 0, ref0,
                                     init_fields))
@@ -170,7 +185,13 @@ def reference_check(config, assets, kept0, kept, pair_starts, traffic, seed,
     log(f"reference: {len(readings)} frames compared in "
         f"{time.perf_counter() - t0:.3f} s, the independent chain's "
         f"{spent['independent']:.3f} s of it")
-    return check.worst(readings), len(readings) // 2
+    out = check.worst(readings)
+    if fills:
+        # not compared: the least share of SSR-empty pixels probes fill
+        out["probe_fill_min"] = min(fills)
+        log(f"probe hits fill {fills} of the SSR-empty pixels, frame by "
+            f"frame")
+    return out, len(readings) // 2
 
 
 def warm_up(frames: Frames, traffic, device) -> float:
@@ -224,8 +245,10 @@ def run_cell(cell, seed, seconds, traced, device, t_process, *,
                                              frames.state, cam0)
             colour, frames.state, aux, _ = program.call(
                 frames.render, built, frames.state, cam0)
-        kept0 = {k: t.cpu().clone() for k, t in
-                 check.outputs(colour, frames.state, aux).items()}
+        kept0 = check.outputs(colour, frames.state, aux)
+        if built.probe_grid is not None:
+            kept0.update(check.grid_outputs(built.probe_grid))
+        kept0 = {k: t.cpu().clone() for k, t in kept0.items()}
         capture_s = getattr(frames.render, "capture_seconds", None)
         # the check's host buffers, then the warm-up frames
         frames.keeper.reserve("state", program.state_tensors(frames.state),
@@ -251,7 +274,8 @@ def run_cell(cell, seed, seconds, traced, device, t_process, *,
             f"{win.failed} overflowed; {window.describe(win)}")
 
         ctx = types.SimpleNamespace(
-            scene_load_s=built.scene_load_s, capture_s=capture_s,
+            scene_load_s=built.scene_load_s, probe_grid_s=built.probe_grid_s,
+            capture_s=capture_s,
             host_call_s=[win.host_call_s], segments_ms=None,
             gather_bytes_per_frame=None, ranks=[])
         breakdown = None

@@ -65,7 +65,8 @@ def main(argv=None):
         r = out["readings"]
         print(json.dumps({"workload": cell.name, "seed": seed,
                           "control": args.control,
-                          "correct": check.verdict(r),
+                          "correct": check.verdict(
+                              r, check.limits_of(cell.config)),
                           "readings": {k: result.finite(v)
                                        for k, v in r.items()},
                           "frames": out["window"].frames,

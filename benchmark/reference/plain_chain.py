@@ -1,18 +1,22 @@
 """A second, independent reference of the frame's image-space chain, in
-plain PyTorch: hi-Z, the SSR filter and blur, MIS GTAO and ray-traced
-GTAO (the scene grid and its any-hit walk), the GTAO filter and
-temporal accumulation, deferred shading and the TAA resolve, with the
-two LUTs they read.
+plain PyTorch: hi-Z, the SSR filter and blur, probe GI (the octahedral
+maps and depth pyramids from the probes' cube faces, the probe trace and
+its composition into the SSR image), MIS GTAO and ray-traced GTAO (the
+scene grid and its any-hit walk), the GTAO filter and temporal
+accumulation, deferred shading and the TAA resolve, with the two LUTs
+they read.
 
 Written from vk-renderer's shaders as the JAX package `vkr_tpu` states
-them (passes/downsample.py, ssr.py, gtao.py, shading.py, taa.py,
-sampling.py, scene/accel.py, mathlib/), not from the port: each pass is a direct
+them (passes/downsample.py, ssr.py, probes.py, gtao.py, shading.py,
+taa.py, sampling.py, frame.py, scene/accel.py, mathlib/), not from the
+port: each pass is a direct
 per-pixel formulation (one bilinear gather per tap, clamp-to-edge),
-without the port's packed layouts, fused gathers or kernels. Two
+without the port's packed layouts, fused gathers or kernels. Three
 places follow the JAX package's arithmetic where a rounding decides a
 discrete choice: the 2x upsample's 0.25/0.75 blends, whose ties pick
-the AO and reflection texel, and the pdf table's fused multiply-adds
-near its pole.
+the AO and reflection texel, the pdf table's fused multiply-adds near
+its pole, and the probe march (its operations in their order, the
+depth pyramids packed as it packs them), whose hits a rounding flips.
 
 It judges a frame stage by stage. The SSR and GTAO stages start from
 the judged frame's own G-buffer and the state carried into it (teacher
@@ -22,7 +26,8 @@ products the control (TF32 products, which leave these passes' 3x3
 products in float32) would not move them. So a pass of the chain that
 departs from the shaders' semantics shows in the stage that holds it,
 whatever the frozen frame does. Two stages it does not write again, and the
-frozen frame alone judges: the raster (the G-buffer), and the SSR
+frozen frame alone judges: the raster (the G-buffer and the probes' cube
+faces, which it takes from the frozen frame's grid), and the SSR
 trace's hi-Z march, whose rays and occlusion estimate it takes from the
 frozen frame rendered at the same camera and frame index. The march
 leaves a ray that finds no surface wherever its last step ended, and
@@ -820,6 +825,289 @@ def tangent_of(n):
     return _norm(t)
 
 
+# ---------------------------------------------------------------- probe GI
+# vkr_tpu/passes/probes.py and frame.compose_probe_reflections: the cube
+# faces resampled to octahedral maps, the min pyramid of their planar
+# depth, and the reflected ray marched through up to 4 neighbouring
+# probes in up to 4 octant segments each, neighbours and segments walked
+# in the JAX package's loop order. Where a Python number is divided by a
+# tensor, one division, as XLA computes it (PyTorch would multiply by the
+# reciprocal).
+
+PROBE_ZNEAR, PROBE_ZFAR = 0.05, 80.0
+PROBE_STEPS = 25
+MAX_T = 3.402823466e38
+
+
+def _over(num: float, t):
+    """num / t, one division."""
+    return torch.full_like(t, num) / t
+
+
+def _to_int(x):
+    """float -> int32 toward zero, saturating as XLA's cast does."""
+    return x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
+
+
+def encode_oct(n):
+    """Unit vector -> octahedral uv in [0, 1]^2 (octahedral.glsl
+    oct_encode)."""
+    l1 = n[..., 0].abs() + n[..., 1].abs() + n[..., 2].abs()
+    xy = n[..., :2] / l1[..., None]
+    folded = (1.0 - xy.flip(-1).abs()) * torch.where(xy >= 0.0, 1.0, -1.0)
+    xy = torch.where((n[..., 2] < 0.0)[..., None], folded, xy)
+    return 0.5 * xy + 0.5
+
+
+def encode_oct_depth(z):
+    """Planar depth along the octant diagonal (octahedral.glsl:70-72)."""
+    f, n = PROBE_ZFAR, PROBE_ZNEAR
+    return f / (f - n) + _over(f * n, (-z) * (f - n))
+
+
+def oct_center(uv):
+    """The octant diagonal through uv, sign(0) = 0 as in GLSL."""
+    u = 2.0 * (uv - 0.5)
+    v = torch.cat([u, (1.0 - u[..., 0].abs() - u[..., 1].abs())[..., None]],
+                  -1)
+    s = torch.where(v >= 0.0, 1.0, -1.0)
+    s = torch.where(v == 0.0, 0.0, s)
+    return s / torch.linalg.vector_norm(s, dim=-1, keepdim=True).clamp_min(
+        1e-20)
+
+
+def sample_cube(faces, d):
+    """samplerCube: the face of the dominant axis, bilinear within it.
+    faces (6, S, S, C) in +x, -x, +y, -y, +z, -z order; d (..., 3)."""
+    x, y, z = d.unbind(-1)
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = ~is_x & (ay >= az)
+    face = torch.where(is_x, torch.where(x > 0, 0, 1),
+                       torch.where(is_y, torch.where(y > 0, 2, 3),
+                                   torch.where(z > 0, 4, 5)))
+    ma = torch.where(is_x, ax, torch.where(is_y, ay, az)).clamp_min(1e-20)
+    sc = torch.where(is_x, torch.where(x > 0, -z, z),
+                     torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    tc = torch.where(is_x, -y,
+                     torch.where(is_y, torch.where(y > 0, z, -z), -y))
+    uv = torch.stack([(sc / ma + 1.0) * 0.5, (tc / ma + 1.0) * 0.5], -1)
+    out = sample_uv(faces[0], uv)
+    for f in range(1, 6):
+        out = torch.where((face == f)[..., None], sample_uv(faces[f], uv),
+                          out)
+    return out
+
+
+def cube_to_oct(colour_faces, dist_faces, size):
+    """cube2oct/shader.comp: the octahedral colour and planar depth at
+    uv = texel / size (no half-texel offset)."""
+    xs = torch.arange(size, dtype=F32, device=colour_faces.device) / size
+    uv = torch.stack([xs.expand(size, size), xs[:, None].expand(size, size)],
+                     -1)
+    d = decode_oct(uv)
+    colour = sample_cube(colour_faces, d)
+    dist = sample_cube(dist_faces[..., None], d)[..., 0]
+    planar = (d * dist[..., None] * oct_center(uv)).sum(-1)
+    return colour, encode_oct_depth(planar.clamp(PROBE_ZNEAR, PROBE_ZFAR))
+
+
+def min_pyramid(depth):
+    """probe_downsample: the min of each 2x2, down to one texel."""
+    mips = [depth]
+    while min(mips[-1].shape) > 1:
+        h, w = mips[-1].shape
+        mips.append(mips[-1][: h // 2 * 2, : w // 2 * 2].reshape(
+            h // 2, 2, w // 2, 2).amin(dim=(1, 3)))
+    return mips
+
+
+class Probes:
+    """The probe grid worked out from its cube faces: per probe the
+    octahedral colour, and its depth pyramid packed mip after mip."""
+
+    def __init__(self, faces, probe_min, probe_max, grid_size, oct_size,
+                 device):
+        colours, flats = [], []
+        for colour_faces, dist_faces in faces:
+            colour, depth = cube_to_oct(colour_faces.to(device),
+                                        dist_faces.to(device), oct_size)
+            mips = min_pyramid(depth)
+            colours.append(colour)
+            flats.append(torch.cat([m.reshape(-1) for m in mips]))
+        self.sizes = [int(m.shape[0]) for m in mips]
+        self.offsets = torch.as_tensor(
+            np.cumsum([0] + [s * s for s in self.sizes])[:-1], device=device)
+        self.size_t = torch.as_tensor(self.sizes, device=device)
+        self.colours = torch.stack(colours)
+        self.flat = torch.stack(flats)
+        self.pmin = torch.as_tensor(probe_min, dtype=F32, device=device)
+        self.pmax = torch.as_tensor(probe_max, dtype=F32, device=device)
+        self.n = grid_size
+        # 2^-m for m = -1 .. PROBE_STEPS + 1, exact
+        self.scale = torch.tensor([2.0 ** -m for m in range(
+            -1, PROBE_STEPS + 2)], dtype=F32, device=device)
+
+    def depth(self, probe, mip, x, y):
+        """Texel (x, y) of mip `mip` of each lane's probe, clamped."""
+        s = self.size_t[mip.long()]
+        xi = torch.minimum(x.clamp_min(0), s - 1)
+        yi = torch.minimum(y.clamp_min(0), s - 1)
+        idx = (probe.clamp(0, len(self.flat) - 1).long() * self.flat.shape[1]
+               + self.offsets[mip.long()] + yi * s + xi)
+        return self.flat.reshape(-1)[idx]
+
+    def colour(self, probe, uv):
+        """Bilinear colour of each lane's probe at octahedral uv."""
+        p, s = self.colours.shape[:2]
+        flat = self.colours.reshape(p * s * s, 3)
+        x, y = uv[..., 0] * s - 0.5, uv[..., 1] * s - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+        x0, y0 = _to_int(x0), _to_int(y0)
+        base = probe.clamp(0, p - 1).long() * (s * s)
+
+        def tap(xi, yi):
+            return flat[base + yi.clamp(0, s - 1) * s + xi.clamp(0, s - 1)]
+
+        top = tap(x0, y0) * (1 - fx) + tap(x0 + 1, y0) * fx
+        bot = tap(x0, y0 + 1) * (1 - fx) + tap(x0 + 1, y0 + 1) * fx
+        return top * (1 - fy) + bot * fy
+
+
+def _inv(d):
+    return torch.where(d != 0.0, 1.0 / torch.where(d == 0.0, 1.0, d), MAX_T)
+
+
+def probe_march(probes: Probes, probe, origin, direction, steps):
+    """hierarchical_raymarch through one probe's octahedral depth
+    pyramid, t clamped to 1 (trace_probe/shader.comp:218-268). Returns
+    the stop point and whether the walk left mip 0 within `steps`."""
+    base = float(probes.sizes[0])
+    n_mips = len(probes.sizes)
+    inv = _inv(direction)
+    neg = direction[..., :2] < 0
+    uv_offset = torch.where(neg, -0.005 / base, 0.005 / base)
+    floor_offset = torch.where(neg, 0.0, 1.0)
+    plane = (torch.floor(base * origin[..., :2]) + floor_offset) / base
+    t0 = (plane + uv_offset - origin[..., :2]) * inv[..., :2]
+    t = torch.minimum(t0[..., 0], t0[..., 1])
+    pos = origin + t[..., None] * direction
+    mip = torch.zeros(origin.shape[:-1], dtype=torch.int32,
+                      device=origin.device)
+    done = torch.zeros_like(mip, dtype=torch.bool)
+    iters = torch.zeros_like(mip)
+    for i in range(steps):
+        res = base * probes.scale[(mip + 1).clamp(0, len(probes.scale) - 1)
+                                  .long()]
+        at = res[..., None] * pos[..., :2]
+        surface = probes.depth(probe, mip.clamp(0, n_mips - 1),
+                               _to_int(at[..., 0]), _to_int(at[..., 1]))
+        plane = (torch.floor(at) + floor_offset) / res[..., None] + uv_offset
+        t_xy = (plane - origin[..., :2]) * inv[..., :2]
+        t_z = torch.where(direction[..., 2] > 0,
+                          (surface - origin[..., 2]) * inv[..., 2], MAX_T)
+        t_min = torch.minimum(torch.minimum(torch.minimum(
+            t_xy[..., 0], t_xy[..., 1]), t_z), torch.ones_like(t_z))
+        above = surface > pos[..., 2]
+        skipped = (t_min != t_z) & above
+        new_t = torch.where(above, t_min, t).clamp(-1e20, 1e20)
+        new_mip = mip + torch.where(skipped, 1, -1).to(torch.int32)
+        live = ~done
+        pos = torch.where(live[..., None], origin + new_t[..., None]
+                          * direction, pos)
+        t = torch.where(live, new_t, t)
+        mip = torch.where(live, new_mip, mip)
+        done = done | (new_mip < 0)
+        iters = torch.where(live, i + 1, iters)
+    iters = torch.where(done, iters, steps + 1)
+    pos = torch.where(torch.isfinite(pos), pos, 0.0).clamp(-1e6, 1e6)
+    return pos, iters <= steps
+
+
+def trace_segment(probes: Probes, probe, origin, r, t0, t1,
+                  steps=PROBE_STEPS):
+    """trace_segment_hi (trace_probe/shader.comp:270-323): 0 miss, 1 hit,
+    2 cannot tell; and the octahedral uv where the march stopped."""
+    eps = 0.001
+    p0 = origin + r * (t0 + eps)[..., None]
+    p1 = origin + r * (t1 - eps)[..., None]
+    p0 = torch.where((((p1 - p0) ** 2).sum(-1) < 0.001)[..., None], r, p0)
+    o0 = encode_oct(_norm(p0))
+    o1 = encode_oct(_norm(p1))
+    front = oct_center(0.5 * (o0 + o1))
+    d0 = encode_oct_depth((p0 * front).sum(-1).clamp_min(1e-6)) - 0.0005
+    d1 = encode_oct_depth((p1 * front).sum(-1).clamp_min(1e-6))
+    start = torch.cat([o0, d0[..., None]], -1)
+    stop, valid = probe_march(probes, probe, start,
+                              torch.cat([o1, d1[..., None]], -1) - start,
+                              steps)
+    size = probes.sizes[0]
+    sampled = probes.depth(probe, torch.zeros_like(probe),
+                           _to_int(stop[..., 0] * size),
+                           _to_int(stop[..., 1] * size))
+    z = stop[..., 2]
+    code = torch.where(z > sampled + 0.0005, 2,
+                       torch.where(z > sampled - 0.0005, 1, 0))
+    code = torch.where(~valid | (z > 1.0), 0, code)
+    return code, stop[..., :2]
+
+
+def probe_trace(depth_h, normal_h, probes: Probes, c2w, lens,
+                steps=PROBE_STEPS):
+    """ProbeTracePass (trace_probe/shader.comp): each half-res pixel's
+    reflected ray against the 4 probes around it; a probe's first segment
+    that hits (1) or cannot tell (2) settles the pixel, and only a hit
+    gives it the probe's colour. Returns (h, w, 4): colour and 1 where a
+    probe hit, else 0."""
+    h, w = depth_h.shape
+    n = decode_oct(normal_h)
+    eye = c2w[:3, 3]
+    pos = to_world(lens.view_pos(pixel_centers(h, w, depth_h.device),
+                                 depth_h), c2w) + 1e-6 * n
+    v = _norm(pos - eye)
+    pos = pos - 1e-6 * v
+    r = v - 2.0 * _dot(v, n)[..., None] * n
+    gs = probes.n
+    step = (probes.pmax - probes.pmin) / torch.full_like(
+        probes.pmin, max(gs - 1, 1))
+    coord = ((pos - probes.pmin) / torch.where(step.abs() < 1e-9, 1.0, step)
+             ).clamp(0.0, gs - 2 if gs > 1 else 0)
+    sx = _to_int(torch.floor(coord[..., 0]))
+    sy = _to_int(torch.floor(coord[..., 2]))
+    out = torch.zeros((h, w, 4), dtype=F32, device=depth_h.device)
+    settled = torch.zeros((h, w), dtype=torch.bool, device=depth_h.device)
+    inv_r = _inv(r)
+    for i in range(4 if gs > 1 else 1):
+        gx, gy = sx + (i & 1), sy + ((i >> 1) & 1)
+        probe = (gy * gs + gx).clamp(0, gs * gs - 1)
+        centre = probes.pmin + torch.stack(
+            [gx.to(F32), torch.zeros_like(gx, dtype=F32), gy.to(F32)],
+            -1) * step
+        origin = pos - centre
+        cuts = torch.sort(-origin * inv_r, dim=-1).values.clamp(1e-6, 30.0)
+        bounds = [torch.full_like(cuts[..., 0], 1e-6), cuts[..., 0],
+                  cuts[..., 1], cuts[..., 2],
+                  torch.full_like(cuts[..., 0], 30.0)]
+        for s in range(4):
+            ok = (bounds[s + 1] - bounds[s]).abs() >= 0.002
+            code, uv = trace_segment(probes, probe, origin, r, bounds[s],
+                                     bounds[s + 1], steps)
+            hit = (code == 1) & ok & ~settled
+            out = torch.where(hit[..., None], torch.cat(
+                [probes.colour(probe, uv), torch.ones_like(uv[..., :1])],
+                -1), out)
+            settled = settled | hit | ((code == 2) & ok)
+    return torch.where((depth_h >= 1.0)[..., None], 0.0, out)
+
+
+def compose_probes(ssr, rays, probe):
+    """The probes' reflections in the pixels the SSR trace found empty
+    (rays w = 1)."""
+    return torch.where(rays[..., 3:4] >= 1.0, probe[..., :3] * probe[..., 3:4],
+                       ssr)
+
+
 # ------------------------------------------------------------ the chain
 
 class Tables:
@@ -832,14 +1120,18 @@ class Tables:
 
 def chain(frame: dict, state_in: dict, view, prev_view, mvp, march: dict,
           cfg, tables: Tables, grid: "Grid | None", frozen: dict,
-          frozen_state: dict) -> dict:
+          frozen_state: dict, probes: "Probes | None" = None) -> dict:
     """The image-space chain of one frame, stage by stage (see the module
     docstring). frame: the judged frame's tensors by check.outputs'
     names; state_in: the FrameState fields carried into it; march: the
     frozen frame's SSR march outputs, "rays" and "ssr_occ"; grid: the
     scene's, for ray-traced GTAO (MIS GTAO without); frozen,
     frozen_state: the frozen frame's tensors and the state carried into
-    it, which shading and TAA start from.
+    it, which shading and TAA start from; probes: the probe grid, for
+    probe GI. With probes the SSR image is composed with the frame's own
+    probe image (ind_ssr), and the chain's probe image and the SSR image
+    composed with it form ind_probe: a rounding can flip a probe hit, and
+    SSR's number should not read it.
     Returns the tensors to compare with the frame's, by group and
     name."""
     g = {k: frame[f"gbuffer.{k}"] for k in
@@ -856,6 +1148,12 @@ def chain(frame: dict, state_in: dict, view, prev_view, mvp, march: dict,
     ssr = ssr_blur(refl, depth_h, normal_h, g["material"],
                    state_in["ssr_history"], vel_h, state_in["prev_depth_half"],
                    c2w, prev_c2w, lens, cfg.ssr.max_roughness)
+    ind_probe = None
+    if probes is not None:
+        probe = probe_trace(depth_h, normal_h, probes, c2w, lens)
+        ind_probe = {"probe": probe,
+                     "ssr": compose_probes(ssr, march["rays"], probe)}
+        ssr = compose_probes(ssr, march["rays"], frame["probe"])
     if grid is None:
         raw = gtao_mis(depth_h, normal_h, g["material"], tables.pdf,
                        march["ssr_occ"], normal_mat, lens, base_angle(index),
@@ -877,8 +1175,11 @@ def chain(frame: dict, state_in: dict, view, prev_view, mvp, march: dict,
                    cfg.shading.min_roughness, cfg.shading.max_roughness)
     final = taa(frozen_state["taa_history"], frozen_state["prev_depth"],
                 f["depth"], f["velocity"], colour, c2w, prev_c2w, lens)
-    return {"ind_ssr": {"ssr": ssr, "state.ssr_history": ssr,
-                        "state.prev_depth_half": depth_h},
-            "ind_ao": {"ao": accum[..., 0], "state.gtao_prev": accum[..., 0],
-                       "state.gtao_accum": accum},
-            "ind_colour": {"colour": final, "state.taa_history": final}}
+    out = {"ind_ssr": {"ssr": ssr, "state.ssr_history": ssr,
+                       "state.prev_depth_half": depth_h},
+           "ind_ao": {"ao": accum[..., 0], "state.gtao_prev": accum[..., 0],
+                      "state.gtao_accum": accum},
+           "ind_colour": {"colour": final, "state.taa_history": final}}
+    if ind_probe is not None:
+        out["ind_probe"] = ind_probe
+    return out

@@ -2,10 +2,11 @@
 
 Two references. The frozen plain renderer (vkr_ref) builds its own scene
 from the raw inputs (the procedural geometry, the stand-in's PNG and
-JPEG files), its own LUTs and scene grid, and renders a frame eagerly
-with every kernel's plain version. The independent chain (plain_chain)
-judges the frame's image-space passes stage by stage, with the frozen
-frame's SSR march outputs (`recording`). Neither imports anything of the
+JPEG files), its own LUTs, scene grid and probe grid, and renders a
+frame eagerly with every kernel's plain version. The independent chain
+(plain_chain) judges the frame's image-space passes stage by stage, with
+the frozen frame's SSR march outputs (`recording`) and the frozen
+grid's cube faces. Neither imports anything of the
 program or takes anything the program made.
 
 Of the Sponza texture set the reference decodes only the textures a
@@ -30,6 +31,7 @@ from vkr_ref import frame as ref_frame
 from vkr_ref.config import RenderConfig
 from vkr_ref.core import registry
 from vkr_ref.core.framestate import FrameState
+from vkr_ref.passes import probes as ref_probes
 from vkr_ref.passes.gbuffer import upload_scene
 from vkr_ref.scene import gltf as ref_gltf
 from vkr_ref.scene import procedural, resample
@@ -47,6 +49,11 @@ class World:
     tri_grid: object
     world_tris: object = None     # (T, 3, 3) world-space triangles
     grid_size: tuple = None       # the grid's (resolution, cap)
+    scene_cpu: object = None      # the CompiledScene, for a probe grid
+    probe_args: dict = None       # the configuration's probe_grid entry
+    probe_grid: object = None     # the frozen frame's ProbeGrid or None
+    probe_faces: list = None      # its probes' (colour, distance) faces
+    probe_bounds: tuple = None    # the grid's corners (min, max)
 
 
 def _materials(doc):
@@ -106,20 +113,54 @@ def sponza_colonnade(assets_root, columns, tessellation, tex_size):
 def judged(cfg: RenderConfig):
     """Raise ValueError where the independent chain would not judge the
     frame the configuration renders: it writes SSR, GTAO (MIS or
-    ray-traced) and TAA, all on, and the shaded colour."""
+    ray-traced) and TAA, all on, probe GI on or off, and the shaded
+    colour."""
     r = cfg
     missing = [k for k, on in (("enable_ssr", r.enable_ssr),
                                ("enable_gtao", r.enable_gtao),
                                ("enable_taa", r.enable_taa)) if not on]
-    if missing or r.enable_probes or r.show_ao_only:
+    if missing or r.show_ao_only:
         raise ValueError(f"the independent chain judges the frame with SSR, "
-                         f"GTAO and TAA on, no probes, shaded: {missing}")
+                         f"GTAO and TAA on, shaded: {missing}")
     if not (r.gtao.mis or r.gtao.use_ray_query):
         raise ValueError("the independent chain has no plain GTAO main pass")
     if not (r.ssr.accumulate and r.ssr.use_blur and r.ssr.normalize_filter
             and r.ssr.bilateral_filter) or r.gtao.reflections_only:
         raise ValueError("the independent chain writes the default SSR "
                          "filter, blur and accumulation only")
+
+
+def probe_bounds(scene_cpu, margin: float, probe_y: float) -> tuple:
+    """The probe grid's corners over the scene's xz bounds, as
+    frame.build_probe_grid places them (probe_renderer.cpp:290-384)."""
+    pos = np.asarray(scene_cpu.positions, np.float32)
+    lo, hi = pos.min(axis=0), pos.max(axis=0)
+    return (np.array([lo[0] + margin, probe_y, lo[2] + margin], np.float32),
+            np.array([hi[0] - margin, probe_y, hi[2] - margin], np.float32))
+
+
+def probe_grid(world: World, device, faces: "list | None" = None):
+    """The frozen frame's probe grid from its own scene: 6 cube faces a
+    probe through K1's plain version, resampled and pyramided. faces, if
+    given, receives each probe's (colour, distance) faces in grid
+    order."""
+    real = ref_probes.render_probe_cubemap
+
+    def rec(*args, **kw):
+        out = real(*args, **kw)
+        faces.append((out[0], out[1]))
+        return out
+
+    if faces is not None:
+        ref_probes.render_probe_cubemap = rec
+    try:
+        pg = world.probe_args
+        return ref_frame.build_probe_grid(world.scene_cpu, world.cfg,
+                                          margin=pg["margin"],
+                                          probe_y=pg["probe_y"],
+                                          device=device)
+    finally:
+        ref_probes.render_probe_cubemap = real
 
 
 def build(config: dict, assets_root, device) -> World:
@@ -147,11 +188,19 @@ def build(config: dict, assets_root, device) -> World:
         world = np.einsum("vij,vj->vi", m[:, :3, :3], pos) + m[:, :3, 3]
         world_tris = world[np.asarray(scene_cpu.tri_indices).reshape(-1, 3)]
         grid_size = (tg["resolution"], tg["cap"])
-    return World(cfg=cfg, scene=upload_scene(scene_cpu, device),
-                 ssr_res=ref_frame.build_ssr_resources(cfg.ssr.lut_size,
-                                                       device=device),
-                 tri_grid=tri_grid, world_tris=world_tris,
-                 grid_size=grid_size)
+    world = World(cfg=cfg, scene=upload_scene(scene_cpu, device),
+                  ssr_res=ref_frame.build_ssr_resources(cfg.ssr.lut_size,
+                                                        device=device),
+                  tri_grid=tri_grid, world_tris=world_tris,
+                  grid_size=grid_size)
+    if cfg.enable_probes:
+        pg = config["probe_grid"]
+        world.scene_cpu, world.probe_args = scene_cpu, pg
+        world.probe_bounds = probe_bounds(scene_cpu, pg["margin"],
+                                          pg["probe_y"])
+        world.probe_faces = []
+        world.probe_grid = probe_grid(world, device, world.probe_faces)
+    return world
 
 
 def initial_state(world: World, device) -> FrameState:
@@ -180,14 +229,16 @@ def tf32():
 
 
 def render(world: World, state: FrameState, view, prev_view, k: int,
-           device, jitter: bool = True):
-    """Frame k: (colour, new state, aux) of the plain frame."""
+           device, jitter: bool = True, grid=None):
+    """Frame k: (colour, new state, aux) of the plain frame; grid: a probe
+    grid in place of the world's."""
     cam = ref_frame.camera_frame(world.cfg, view, prev_view, k, device,
                                  use_jitter=jitter)
     with torch.no_grad():
-        return ref_frame.render_frame(world.scene, state, cam,
-                                      world.ssr_res, world.cfg,
-                                      tri_grid=world.tri_grid)
+        return ref_frame.render_frame(
+            world.scene, state, cam, world.ssr_res, world.cfg,
+            tri_grid=world.tri_grid,
+            probe_grid=world.probe_grid if grid is None else grid)
 
 
 @contextlib.contextmanager
@@ -224,6 +275,12 @@ class Independent:
         if world.world_tris is not None and world.cfg.gtao.use_ray_query:
             self.grid = plain_chain.Grid(world.world_tris, *world.grid_size,
                                          device)
+        self.probes = None
+        if world.probe_faces:
+            c = world.cfg.probes
+            self.probes = plain_chain.Probes(world.probe_faces,
+                                             *world.probe_bounds, c.grid,
+                                             c.oct_size, device)
         c = world.cfg
         tg = np.tan(np.float32(c.camera.fovy) / np.float32(2.0))
         proj = np.zeros((4, 4), np.float32)
@@ -253,4 +310,4 @@ class Independent:
                 t(view), t(np.asarray(prev_view, np.float32)), t(mvp),
                 {k: t(v) for k, v in march.items()}, cfg, self.tables,
                 self.grid, {k: t(v) for k, v in frozen.items()},
-                {k: t(v) for k, v in frozen_state.items()})
+                {k: t(v) for k, v in frozen_state.items()}, self.probes)

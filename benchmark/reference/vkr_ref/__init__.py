@@ -1,9 +1,11 @@
 """The benchmark's plain reference renderer: a frozen copy of the port's
 frame code as it stood at commit 19870451 (vkr_tpu_torch's config.py,
 frame.py, core/{constants,formats,framestate,graph,registry}.py,
-mathlib/, passes/, raster/ and scene/{accel,assets,gltf,jpeg,procedural,
-resample,scene}.py), with the package renamed vkr_ref. It imports nothing
-of the program, and a later change to the program does not move it.
+mathlib/, passes/ (probes.py among them: the probe grid's cube faces go
+through K1's plain version), raster/ and scene/{accel,assets,gltf,jpeg,
+procedural,resample,scene}.py), with the package renamed vkr_ref. It
+imports nothing of the program, and a later change to the program does
+not move it.
 
 What the copy changes, and nothing else:
   * every kernel wrapper (K1/K7 raster/gbuf_kernel.py and kernel.py, the

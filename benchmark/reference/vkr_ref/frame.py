@@ -6,11 +6,11 @@ accumulate) -> deferred shading -> TAA resolve. The reference's end-of-frame
 image remaps (main.cpp:416-420) become the returned FrameState.
 
 Kept for the benchmark: the default RenderConfig (SSR on, MIS GTAO), the
-frame with SSR off, ray-traced GTAO (gtao.use_ray_query with a grid from
-build_scene_tri_grid) and trilinear material textures
+frame with SSR off, probe GI (enable_probes with a grid from
+build_probe_grid, BASELINE config 5), ray-traced GTAO (gtao.use_ray_query
+with a grid from build_scene_tri_grid) and trilinear material textures
 (trilinear_textures), on procedural scenes and on glTF scenes from
-scene.load_scene, uniform or at native texture sizes. Probe GI is not
-kept: a frame with enable_probes raises.
+scene.load_scene, uniform or at native texture sizes.
 
 Every pass is built through the registry (core/registry.get, the
 reference's shader manifest) under add_task with the reference's task
@@ -44,6 +44,7 @@ from vkr_ref.core.graph import add_task
 from vkr_ref.mathlib.brdf import halton23_table
 from vkr_ref.mathlib.transforms import perspective, taa_jitter_sequence
 from vkr_ref.passes import gtao as _gtao
+from vkr_ref.passes import probes as _probes
 from vkr_ref.passes import shading as _shading
 from vkr_ref.passes import ssr as _ssr
 from vkr_ref.passes import taa as _taa
@@ -169,6 +170,26 @@ def camera_frame(cfg: RenderConfig, view, prev_view, frame_index: int,
                        prev_mvp=mats[3], jitter=flat[64:66])
 
 
+def build_probe_grid(scene_cpu, cfg: RenderConfig, margin: float = 0.5,
+                     probe_y: float = 1.5, use_kernels: bool = True,
+                     device=_ssr.CUDA) -> _probes.ProbeGrid:
+    """Render the octahedral probe grid over the scene's xz bounds on
+    `device`, the card unless the caller asks for another (start-up task,
+    like the reference's render_probe_grid call site,
+    probe_renderer.cpp:290-384). scene_cpu: CompiledScene (host arrays for
+    the bounds); the device scene is uploaded here. use_kernels=False
+    renders the faces through the brute-force G-buffer."""
+    pos = np.asarray(scene_cpu.positions)
+    lo = pos.min(axis=0) if len(pos) else np.zeros(3)
+    hi = pos.max(axis=0) if len(pos) else np.zeros(3)
+    pmin = np.array([lo[0] + margin, probe_y, lo[2] + margin], np.float32)
+    pmax = np.array([hi[0] - margin, probe_y, hi[2] - margin], np.float32)
+    return _probes.render_probe_grid(
+        upload_scene(scene_cpu, device), pmin, pmax, cfg.probes.grid,
+        cube_size=cfg.probes.cube_size, oct_size=cfg.probes.oct_size,
+        oracle=not use_kernels)
+
+
 def build_scene_tri_grid(scene_cpu, resolution: int = 48, cap: int = 24,
                          device=_ssr.CUDA) -> TriGrid:
     """The uniform-grid acceleration structure over the scene's world-space
@@ -193,13 +214,27 @@ def _rt_direction_table(count: int, device) -> torch.Tensor:
     return torch.as_tensor(_gtao.ao_ray_directions(count), device=device)
 
 
+def compose_probe_reflections(ssr_blurred, rays, probe_rgb):
+    """Fill SSR-empty pixels with probe-GI reflections.
+
+    "Empty" is decided by the trace's validity channel (rays w = source
+    depth, 1.0 = no hit), not by the blurred colour being black: a
+    legitimately black valid reflection survives. The reference never
+    composes both (probes are not in its main loop, trace_probe/
+    shader.comp:73-84); this fill is vkr_tpu's extension for
+    cfg.enable_probes + enable_ssr (PARITY.md)."""
+    return torch.where(rays[..., 3:4] >= 1.0, probe_rgb, ssr_blurred)
+
+
 def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
                  ssr_res: SSRResources, cfg: RenderConfig, *,
-                 tri_grid=None, use_kernels: bool = True,
+                 probe_grid=None, tri_grid=None, use_kernels: bool = True,
                  tuning: Tuning = None):
     """One frame: returns (final color (H, W, 3), new FrameState, aux).
 
-    tri_grid: the
+    probe_grid: the start-up ProbeGrid (build_probe_grid); with
+    cfg.enable_probes it feeds indirect reflections into shading. Without
+    one the frame is the probeless frame, as in vkr_tpu. tri_grid: the
     start-up TriGrid (build_scene_tri_grid); with cfg.gtao.use_ray_query
     GTAO's main pass is gtao_rt over it. Without one the main pass is the
     one the frame takes with use_ray_query off, as in vkr_tpu.
@@ -216,13 +251,13 @@ def render_frame(scene: SceneDevice, state: FrameState, cam: CameraFrame,
             oracle=not use_kernels,
         ),
     )
-    return shade_frame(gbuf, state, cam, ssr_res, cfg,
+    return shade_frame(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                        tri_grid=tri_grid, use_kernels=use_kernels,
                        tuning=tuning)
 
 
 def shade_frame(gbuf, state: FrameState, cam: CameraFrame,
-                ssr_res: SSRResources, cfg: RenderConfig, *,
+                ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None,
                 tri_grid=None, use_kernels: bool = True,
                 tuning: Tuning = None, band=None, gather_fn=None):
     """The image-space chain after the G-buffer (hi-Z -> SSR -> GTAO ->
@@ -238,7 +273,7 @@ def shade_frame(gbuf, state: FrameState, cam: CameraFrame,
     other go in one call, one host step of a captured gloo frame). hi-Z
     and the histories stay whole on every caller. row0 and band_h must be
     even. The result is whole. band=None is the one-device frame."""
-    mid = frame_mid(gbuf, state, cam, ssr_res, cfg,
+    mid = frame_mid(gbuf, state, cam, ssr_res, cfg, probe_grid=probe_grid,
                     tri_grid=tri_grid, use_kernels=use_kernels,
                     tuning=tuning, band=band, gather_fn=gather_fn)
     return frame_tail(gbuf, mid, state, cam, ssr_res, cfg,
@@ -259,10 +294,10 @@ def _banding(band, gather_fn):
 
 
 def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
-              ssr_res: SSRResources, cfg: RenderConfig, *,
+              ssr_res: SSRResources, cfg: RenderConfig, *, probe_grid=None,
               tri_grid=None, use_kernels: bool = True,
               tuning: Tuning = None, band=None, gather_fn=None):
-    """hi-Z downsample -> SSR (trace/filter/blur) -> GTAO
+    """hi-Z downsample -> SSR (trace/filter/blur) -> probe GI -> GTAO
     (main/filter/accumulate). Returns the dict of products the tail
     consumes. band/gather_fn: shade_frame's (vkr_tpu frame.py:242)."""
     h, w = cfg.height, cfg.width
@@ -303,6 +338,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
                 frame_random, ssr_res.halton,
                 max_iterations=cfg.ssr.max_iterations,
                 use_kernel=use_kernels, **hb))
+        rays_band = rays
         rays, ssr_occ = g(rays, ssr_occ)
         reflections = g(add_task(
             "SSSR_filter",
@@ -331,9 +367,26 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
         ssr_blurred = torch.zeros((hb.get("band_h", h // 2), w // 2, 3),
                                   dtype=torch.float32, device=dev)
 
-    if cfg.enable_probes:
-        raise ValueError("probe GI is not kept in the benchmark's frame")
-    ssr_blurred = g(ssr_blurred)
+    # ---- Probe GI -> indirect reflections (BASELINE config 5) ----
+    # The reference's ProbeTracePass writes the reflections image deferred
+    # shading reads (trace_probe/shader.comp:73-84 -> defered_shading/
+    # shader.frag:92). With SSR also on, probe hits fill the pixels SSR
+    # left empty.
+    probe_refl = None
+    if cfg.enable_probes and probe_grid is not None:
+        probe_refl = add_task(
+            "TraceProbes",
+            lambda: registry.get("trace_probe")(
+                depth_half, hiz.normal_half, probe_grid, inv_view,
+                cfg.camera.fovy, cfg.aspect, cfg.camera.znear,
+                cfg.camera.zfar, **hb))
+        probe_rgb = probe_refl[..., :3] * probe_refl[..., 3:4]
+        ssr_blurred = (compose_probe_reflections(ssr_blurred, rays_band,
+                                                 probe_rgb)
+                       if cfg.enable_ssr else probe_rgb)
+        probe_refl, ssr_blurred = g(probe_refl, ssr_blurred)
+    else:
+        ssr_blurred = g(ssr_blurred)
 
     if cfg.enable_gtao:
         gp = _gtao.GTAOParams(
@@ -398,7 +451,7 @@ def frame_mid(gbuf, state: FrameState, cam: CameraFrame,
                                device=dev)
     return {"depth_half": depth_half, "ssr_blurred": ssr_blurred,
             "gtao_accum": gtao_accum, "occlusion": occlusion,
-            "ssr_rays": rays if cfg.enable_ssr else None}
+            "probe": probe_refl, "ssr_rays": rays if cfg.enable_ssr else None}
 
 
 def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
@@ -459,9 +512,9 @@ def frame_tail(gbuf, mid, state: FrameState, cam: CameraFrame,
     aux = {"gbuffer": gbuf, "hiz_depth": depth_half,
            "ssr": mid["ssr_blurred"], "ao": occlusion,
            "overflow": gbuf.overflow,
-           # the SSR trace's rays (w = 1: no hit), or None where the pass
-           # did not run
-           "ssr_rays": mid["ssr_rays"]}
+           # the probe trace (H/2, W/2, 4) and the SSR trace's rays (w = 1:
+           # no hit), or None where the pass did not run
+           "probe": mid["probe"], "ssr_rays": mid["ssr_rays"]}
     return final, new_state, aux
 
 

@@ -121,8 +121,9 @@ def main(argv=None, *, device=None, root=ROOT, t_process=None, hook=None):
     if args.trace and ranks:
         busy = sum(r["busy_s"] for r in ranks) / len(ranks)
         window_s = sum(r["window_s"] for r in ranks) / len(ranks)
+    limits = check.limits_of(cell.config)
     line = {
-        "correct": check.verdict(out["readings"]),
+        "correct": check.verdict(out["readings"], limits),
         "attempted": out["window"].frames,
         "failed": out["window"].failed,
         "metrics": metrics,
@@ -134,7 +135,7 @@ def main(argv=None, *, device=None, root=ROOT, t_process=None, hook=None):
     if args.trace and out.get("breakdown"):
         line["breakdown"] = out["breakdown"]
     result.log(f"compared {out['n_checked']} frames with the reference")
-    return result.emit(line, check.checks_line(out["readings"]))
+    return result.emit(line, check.checks_line(out["readings"], limits))
 
 
 if __name__ == "__main__":

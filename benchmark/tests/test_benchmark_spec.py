@@ -155,7 +155,8 @@ def _config(name="sponza_tex_1440p"):
 
 
 @pytest.mark.parametrize("name", ["sponza_tex_1440p", "colonnade_rt_1440p",
-                                  "colonnade_band4_1440p"])
+                                  "colonnade_band4_1440p",
+                                  "sponza_probes_1440p"])
 def test_every_configuration_file_is_run_as_stated(name):
     import ref_world
     from vkr_ref.config import RenderConfig
@@ -168,7 +169,8 @@ def test_every_configuration_file_is_run_as_stated(name):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda c: c.update(probe_grid={"margin": 0.5}), "keys"),
+    (lambda c: c.update(probe_grid={"margin": 0.5}), "enable_probes"),
+    (lambda c: c.update(shadow_map={"size": 1024}), "keys"),
     (lambda c: c["scene"].update(kind="gltf"), "scene kind"),
     (lambda c: c["scene"].update(path="Sponza.gltf"), "scene keys"),
     (lambda c: c["render"].update(enable_probes=True), "probe"),
