@@ -1,309 +1,125 @@
 #!/usr/bin/env python3
-"""Smoke run of vkr_tpu_torch on one CUDA card.
+"""Card check of vkr_tpu_torch on one CUDA card: each phase below fails
+on a wrong result, and the last line is printed only when all pass.
 
     python3 chip_smoke.py
 
-1. Needs a CUDA card (exits 1 without one) and prints nvidia-smi's name and
-   power limit of the card. (`python3 chip_smoke.py --multi-card`, on a
-   host of several cards, runs only the multi-device phase below over
-   NCCL, one rank per card, with 8 band frames eager and captured, the
-   captured band frame one graph per rank with its gathers inside, and
-   prints the median ms per band frame of frames 2..7 of each against
-   the one-device frame's, eager and replayed, on card 0.)
-2. Builds the hand-written CUDA kernels (vkr_tpu_torch/csrc, nvcc into
-   vkr_tpu_torch/build/, one nvcc per source, all in parallel) and the
-   native asset pipeline (vkr_tpu_torch/native, c++) and prints the build
-   seconds, and the SASS instruction count and loop-body sizes
-   of K1/K7's and the march's kernels (cuobjdump -sass).
-3. Main phase: renders 8 frames of the bench orbit at 1920x1080 on the
-   procedural colonnade (columns=24, tessellation=80, tex_size=1024:
-   314,988 triangles, 96 alpha-MASK) with the default RenderConfig (SSR on,
-   MIS GTAO). Launch counters are cleared just before and read just after;
-   every kernel of the path must have launched (per frame at least K1 x3,
-   the march x1, K4 x1, K5 x3, K6 x1, R2 x1). Fails unless each frame
-   covers >= 98% of the pixels, drops no bin pair and is finite on every
-   channel, SSR included. Prints the median frame time (synchronised
-   host clock, the first two frames excluded as warm-up). Frame 1 renders
-   under a PassGraph (every pass is built through the registry under
-   add_task): fails unless its records name vkr_tpu's default chain in
-   order, and prints the dump's first lines.
-3b. Traced phase: the frame as vkr_tpu runs it, traced once and
-   replayed: core/aot.py:cached_jit captures render_frame into CUDA
-   graphs (the FrameState donated). On this colonnade, bench.py's
-   16-column colonnade (columns=16, tessellation=64, tex_size=512) and,
-   after its phase, the Sponza stand-in: 8 frames of the bench orbit
-   eagerly and through cached_jit; fails unless every traced frame's
-   colour, FrameState fields and aux tensors equal the eager frame's bit
-   for bit, overflow is 0 on every replay, frame 2's eager body at the
-   captured bin-pair capacities runs under
-   torch.cuda.set_sync_debug_mode("error"), and one profiled replay runs
-   K1's walk x3, the march, K4, K5 x3, K6 and R2 by their CUDA symbol
-   names.
-   The same on 3 frames of the SSR-off frame (after its phase), the probe
-   frame (after its phase; a replay must also run P10 once by symbol),
-   the ray-traced GTAO frame (after its phase;
-   a replay must also run R1 x8 by symbol, and its timing is printed too)
-   and the glTF phase's trilinear frame. Prints,
-   beside the card's name and limit, capture seconds, graph nodes per
-   frame, a replay's device ms, host dispatch ms per replay, the serial
-   wall medians of eager, traced, traced and eager blocks of 6 frames, and
-   the graph pools' bytes.
-4. SSR-off phase: 3 frames of the same orbit with enable_ssr=False (the
-   single-strategy GTAO pass), with its own counters and checks.
-5. Shadow phase: the colonnade's 1024^2 shadow map from a light at
-   shading's LIGHT_POS through K7; counters cleared before, read after.
-   Fails unless it launched K7, covers >= 50% of the texels and is finite.
-6. Probe phase (probe GI, BASELINE config 5): builds the default probe
-   grid (4x4 probes, 96 cubemap faces of 128^2 through K1, octahedral maps
-   of 256^2) with build_probe_grid and prints its start-up time and each
-   face's covered share; fails unless every face drops no bin pair. Then
-   renders 3 frames of RenderConfig(enable_probes=True) (SSR on) with the
-   grid, frame 2 measured, with the main phase's checks (P10,
-   csrc/probe_trace.cu, must also launch once a frame), and fails unless
-   probe hits fill part of the pixels SSR left empty in every frame.
-7. RT phase (ray-traced GTAO): builds the scene grid with
-   build_scene_tri_grid at vkr_tpu's defaults (resolution 48, cap 24) and
-   prints its build seconds, dims, dropped (triangle, cell) pairs and
-   device bytes. Renders 3 frames of RenderConfig() with
-   gtao.use_ray_query (SSR on) over the grid, frame 2 measured, with the
-   main phase's checks (K4 must not launch: gtao_rt replaces the MIS
-   pass; R1, csrc/ray_any_hit.cu, must launch 8 times a frame), and
-   fails unless each frame's AO differs from the main phase's MIS AO of
-   the same frame. Prints the peak device memory of the RT frames and the
-   gtao_rt pass's stream ms in frame 2, and keeps R1's 8 calls of frame 1
-   for the kernel phase. Then the RT frame's traced phase (3b).
-8. Variants phase: on main frame 1's half-res depth and normals (full-res
-   depth for SSAO) at 1080p, times gtao_main_exact, gtao_main_dense,
-   gtao_normal_space, gtao_main_deinterleaved, both modes of
-   gtao_reproject and ssao, and prints each one's mean. Holds the K4 pass
-   gtao_main_window against gtao_main_exact to vkr_tpu's bound for its
-   own pair (max 1e-3, mean 5e-5) on vkr_tpu's analytic close-range
-   corner at 540x960, and to the mean bound on main frame 1, where far
-   depths amplify the taps' rounding past the max bound for vkr_tpu's own
-   pair too.
-9. Runtime phase: renders frames 0..5 of the main orbit, checkpoints the
-   FrameState after frame 4 (core/checkpoint.py) and loads it on the card;
-   fails unless frame 5 rendered from it equals the uninterrupted frame 5
-   bit for bit (colour and every FrameState field). Writes the last main
-   frame's colour with save_png and its depth with save_depth_csv
-   (core/readback.py) and fails unless the PNG decodes, through the
-   port's decode_png, to the pixels save_png computed. Times a cold and a
-   warm build_ssr_resources through a temporary VKR_DISK_CACHE and fails
-   unless both give the main phase's tensors. Prints sizes and seconds.
-10. Manifest phase: fails unless every one of vkr_tpu's 41 registered
-   names resolves in the port (MANIFEST_NAMES), then runs the passes no
-   frame calls through registry.get on main frame 1's products at full
-   width: the screen-trace trio on the 1080p depth, normals and colour;
-   simple SSR ('ssr') on the hi-Z pyramid and the half-res colour; the
-   tile classification (threshold at the median tile roughness) and plane
-   regression on the 1080p material and depth; the indirect trace of
-   both reflection types; perlin, rotations and texdraw at 1080p;
-   gen_mipmaps of the colour; a SamplesMarker heatmap of the SSR rays.
-   Fails unless each output is finite with vkr_tpu's shape (the plane
-   regression's error may overflow to +inf on at most 0.1% of the tiles,
-   as vkr_tpu's does where a tile's fit is near singular), simple SSR
-   hits in more than 1% of the pixels, and the tile lists' counts add up
-   to the tile count. Prints each pass's stream ms (its second call).
-11. glTF phase: writes the main phase's colonnade as .gltf + .bin + 8 PNG
-   textures (rows under all five PNG filters) into a temporary directory,
-   textures 0, 1, 2, 5, 6 at 1024x1024 (REPEAT) and 3, 4, 7 at 2048x512
-   (CLAMP), made from the colonnade's own images; loads it with
-   load_scene(tex_size=1024, native_sizes=True) and uploads it, printing
-   the write, PNG decode, compile and upload seconds and the texture bytes
-   on the card; fails unless it has 314,988 triangles (96 alpha-MASK),
-   the native shapes (2048x512 halved to 1024x256) and every material
-   paired. Renders 3 frames of RenderConfig(trilinear_textures=True) with
-   the main phase's checks and 3 with trilinear off, and fails unless
-   trilinear changed the albedo of more than 1% of the pixels of every
-   frame. One G-buffer (frame 2) also goes through the indexed front end
-   (the corner tables dropped): K1's depth and ids must equal the corner
-   path's on its 3 calls, its attributes within 1e-6 + 1e-6 |x|.
-11b. JPEG glTF phase: the glTF phase's colonnade written again (.gltf +
-   .bin) with its 8 textures taken from the committed JPEGs of
-   tests/torch_images (tests/torch_images/make_images.py: the same images
-   and sizes, quality 75; baseline and progressive, 4:2:0, 4:2:2 and 4:4:4,
-   optimised tables, restart markers, greyscale, CMYK), loaded with
-   load_scene(tex_size=1024, native_sizes=True) through the port's JPEG
-   decoder; fails unless every decoded texture's SHA-256 equals the
-   committed digest of PIL's convert("RGBA") (digests.json). Prints the
-   decode seconds per texture and in total, and the upload seconds.
-   Renders 3 frames of the bench orbit with RenderConfig() and the main
-   phase's checks, and fails unless K1 x3, the march, K4, K5 x3 and K6
-   launched in each frame; frame 2 runs under torch.profiler (device ms,
-   kernels and copies). Then main frame 0 through aot.cached_jit must
-   equal the direct call bit for bit. (The main phase prints the 1024^2
-   PDF LUT's non-finite texels and fails unless there are none.)
-11c. Sponza phase: bench.py's default workload,
-   sponza_colonnade_scene(columns=24, tessellation=80, tex_size=1024),
-   on a stand-in in Sponza's layout (write_sponza_standin: Sponza.gltf
-   with 25 materials and 69 images, the committed JPEGs of
-   tests/torch_images and seeded PNGs of every form at 512², 1024²,
-   2048x1024 and 256x512) in a temporary directory that VKR_ASSETS names
-   for the phase. Fails unless every JPEG (the 8 colonnade textures and
-   the item-18 forms PIL decodes: YCCK, arithmetic, lossless) decodes to
-   its digest of PIL's bytes on this host, and unless the scene has
-   314,988 triangles, 69 textures of 1024² and samples at most 12 of
-   them. Prints, beside the card's name and power limit, the decode
-   seconds (PNG, JPEG, the item-18 forms), the Pillow-BILINEAR resize,
-   compile_scene and upload seconds and the texture bytes on the card.
-   Renders 3 frames of the bench orbit with RenderConfig() and the main
-   phase's checks, and fails unless K1 x3, the march, K4, K5 x3 and K6
-   launched in each frame; frame 2 runs under torch.profiler (device ms,
-   kernels and copies). Prints the phase's seconds.
-11d. P10 phase (p10_phase): the probe trace on probe_orbit's frame,
-   BASELINE config 5 at 2560x1440 on the Sponza phase's stand-in with the
-   default 4x4 grid of 256^2 maps; frame 1's probe_trace call recorded.
-   On the whole 720x1280 half-res frame and on the band of rank 1 of 4
-   (rows 180-359, which must also equal the whole call's rows), P10's
-   image and each pixel's settling pair and code must equal the plain
-   march's bit for bit, probe_trace's must equal probe_trace_reference's,
-   with one launch a call. Prints P10's kernel, plain and bound ms (work_of:
-   the pairs and steps this run's data marches up to each pixel's settling
-   pair, P10_OPS a step), probe_trace's ms with the PyTorch part of its
-   prelude, the engagement counter (pairs marched per pixel; the shares of
-   pixels settling at the first pair, later, never) and the kernel's registers
-   and spills. Then the whole frame's inputs with rows 0-15 made sky and
-   the normals of rows 16-31 NaN, on that grid and on a 2x2 grid of the
-   same scene: P10 must equal the plain march bit for bit there too, with
-   sky and never-settling pixels present.
-12. Bench phase: vkr_tpu_torch/tools/bench.py, bench.py's program, run as
-   a user runs it (`python -m vkr_tpu_torch.tools.bench`, a subprocess
-   each) at its defaults, 1920x1080 and 16 frames, with BENCH_BREAKDOWN=1:
-   BENCH_SCENE=sponza_tex on the Sponza phase's stand-in (VKR_ASSETS),
-   BENCH_SCENE=colonnade with frames in flight and with BENCH_PIPELINE=0
-   in turns (in flight, serial, serial, in flight), and BENCH_FRAMES=1. Fails unless the first three exit 0 with bench.py's
-   four keys on the last stdout line (vs_baseline = round(value / 16, 3)),
-   the stats line (coverage >= 0.98, 15 frames) and the three breakdown
-   lines on stderr, no 'breakdown failed', and K1 x3, the march, K4, K5 x3
-   and K6 launched in each timed frame (the tool's launch line); and
-   unless BENCH_FRAMES=1 exits 1 with bench.py's range error and no scene
-   built. Prints each run's headline, stats line, breakdown, scene+LUTs
-   and compile+first seconds and wall seconds, and the colonnade's
-   medians in flight against serial.
-13. Tools phase: the user entry points (vkr_tpu_torch/tools) as a user
-   calls them. render --scene colonnade at 1920x1080, 8 frames, --orbit
-   0.01 through the kernels (K1, the march, K4, K5 and K6 must launch,
-   coverage >= 0.98, the PNG decodes to 1080x1920) and with --no-kernels
-   (no launch; the colour PSNR between the two is printed); load_scene of
-   the glTF phase's scene in uniform mode (--tex-size 512) through the
-   native library and through the numpy plain versions (mips equal, both
-   seconds printed) and render of it; parity --size 64 (each figure
-   finite and at most PARITY_MAX_DROP_DB below PARITY_64_CPU_DB, or both
-   at least PARITY_HIGH_DB) and --size 256; profile at 1080p, --reps 8,
-   each of its ten passes captured by cached_jit, and again eagerly, then
-   its passes (profile.run_passes) each captured against the eager pass
-   on the same inputs: both graphs' outputs bit-equal (a NaN equal to the
-   same NaN), and K1, the march, K4, K5 and K6 launched by the captures
-   (each pass's captured and eager ms, capture seconds and launches, and
-   the allocator's reserve with the ten captures alive, printed); and
-   --scene sponza (--tex-size 512, --reps 2) on the Sponza phase's
-   stand-in;
-   scene_info on the glTF file; the viewer on a free port with
-   --max-frames 6, driven over HTTP (a slider, 2, j, r: each must reach
-   the next frame) with its ms per frame printed; the showcase into a
-   temporary directory (a GIF89a of 32 frames at a third of the size and
-   the 1080p still). The viewer, showcase and parity run their frames
-   through cached_jit (captured) and again eagerly (cached_jit handing fn
-   back): the viewer's PNG bytes, showcase's GIF and still and parity's
-   reports must be equal, the viewer must capture at frames 0, 2 and 4
-   only (a new toggle combination, after the reload; the slider and j
-   take none); each tool's ms or seconds print beside the eager run's,
-   with the bytes each viewer capture adds to the allocator's reserve.
-   Then the viewer twice more without a client: a forced bin overflow
-   (raster/setup.PAIR_HEADROOM 1.0, frames 0-1 looking steeply up the
-   hall, then the preset's view, jitter off) must make it capture anew
-   once, at frame 3, and go on, every frame from there equal, colour and
-   state, to the eager frame on its inputs; and ten toggle combinations,
-   more than viewer.MAX_CAPTURES, must keep the allocator's reserve within
-   MAX_CAPTURES x the largest capture.
-13b. Entry phase: vkr_tpu_torch/tools/entry.py, __graft_entry__.py's
-   counterpart. entry()'s 128x128 frame of the 3-column colonnade (SSR
-   max_iterations 16) on the card, captured by cached_jit with the state
-   donated: 3 calls equal to the eager fn on clones of the same inputs
-   (colour and every FrameState field bit for bit), the eager frames'
-   exact bin-pair counts within the capture's capacities, and one profiled
-   replay running K1, the march, K4, K5 and K6 by CUDA symbol as often as
-   the capture recorded them (its device ms printed). Then
-   dryrun_multichip(4): 4 rank processes sharing this card in a gloo
-   group render vkr_tpu's sharded views and its band frame, each captured
-   by cached_jit and bit-equal to its eager call, against each rank's
-   one-device frame; fails unless both of vkr_tpu's OK lines print. Prints the phase's and the dry run's seconds.
-14. Multi-device phase (vkr_tpu_torch/parallel): first a probe of NCCL
-   with 2 ranks on this card (it prints what NCCL says; it refuses ranks
-   that share a card). Then 4 ranks, processes on this one card in a gloo
-   group,
-   render frames 0-2 of the bench orbit banded (render_frame_banded, 270
-   rows each); fails unless the G-buffer and prev_depth equal the main
-   phase's frames bit for bit, the colour and TAA history are within 1e-6
-   (vkr_tpu's bound), and every rank launched K1, the march, K4, K5 and K6
-   in every frame. Rank 1 captures its kernel calls (band offset 270 rows,
-   135 at half res) and holds each against its plain version with the
-   kernel phase's tolerances, with their times and bounds, and runs its
-   band of the opaque layer through K7 against the whole frame's rows.
-   Then each rank renders frames 0-2 again through core/aot.py:cached_jit
-   (the state donated): the band frame captured as 10 graph segments with
-   its 9 gloo gathers as host steps between them, each frame bit-equal to
-   the rank's eager band frame (so to the main phase's frames as above),
-   overflow 0, one profiled replay running K1 x3, the march, K4, K5 x3
-   and K6 by CUDA symbol; it prints per rank the segments and host steps
-   a graph, graph nodes over the segments, capture s, ms per call and
-   the host steps' ms of it, the replay's device ms (4 processes sharing
-   the card), the reserve. A forced overflow follows (PAIR_HEADROOM 1.0,
-   jitter off, the viewer's steep view for frames 0-1 and the preset's
-   from 2): every rank must raise BinOverflow at frame 3 for the same
-   call, capture anew there and equal the eager band frame from there.
-   Then 4 ranks render 4 orbit views (render_views_sharded), each within
-   1e-6 of that view's one-device frame, and again captured (two
-   segments), two calls bit-equal to the eager calls. Prints the ms per
-   band frame of 4 ranks sharing one card (no speed-up figure), the
-   gather ms, each rank's launches and peak memory.
-15. Kernel phase: every kernel call of main frame 1 and of the shadow phase,
-   K1's opaque and masked calls on the first probe face, and R1's 8 calls
-   of RT frame 1, captured with their inputs, are run again through the
-   kernel and through its plain PyTorch version on the card; each pair
-   must agree within the stated tolerance (R1: equal hits; a ray whose hit
-   differs is printed by index and must give the kernel's hit when the
-   plain walk is run again with fma_exact, a once-rounded fma, in place
-   of _fma: a float32 tie of _fma's float64 sum). Prints both times (CUDA events), the time of one PyTorch
-   library call computing the same function where there is one, and the
-   roofline bound from this run's inputs (K1 and K7: the pair rows' raster
-   fields, the winning rows' resolve fields, the kept pixels' outputs and
-   4 planes per pair-pixel the pair covers). For K5 it also times an empty
-   kernel on K5's grid. R1 also on a per-ray and a 0-d t_max tensor (hits
-   equal to the plain version's), its walk transcribed (rt_walk: hits
-   equal to the plain version's, slot tests per ray, where each test
-   ends), the SIMT efficiency of its lane map against three others, its
-   slot loop's SASS size, registers and spills, and the instruction-issue
-   estimate; with VKR_R1_PARENT naming another commit's
-   csrc/ray_any_hit.cu of a C interface it knows (build_r1_parent), that
-   kernel's hits and its ms a frame against this one's in turns (parent,
-   change, change, parent). Also prints each
-   K1/K7 call's pairs per tile and
-   the (pair, 8x16 patch) items its patch reject keeps, against the
-   covered pair-pixels, and the march's steps per ray and SIMT efficiency
-   under one-ray-per-lane warps of 32x1, 8x4 and 4x8 rays. Then stress
-   calls, K1 and K7 held to their plain versions on one tile of many
-   chunks with equal depths and +0.0/-0.0 depths: 8x128 with 20,480 pairs,
-   and 8x512 (four cells) with 2,048 pairs, K1 there with a peel floor.
-   R2 (csrc/ssr_blur.cu) on the benchmark cells' frame (r2_phase):
-   frames 0 and 1 of the orbit at 2560x1440, frame 1's blur call held
-   bit for bit to its plain version, on the whole frame and on the band
-   of rank 1 of 4 (rows 180-359 at half res, which must also equal the
-   whole call's rows), with kernel, plain and bound ms, the pixels by
-   radius, and registers and spills.
-16. Renders the main phase's 8 frames, the probe phase's 3, the RT
-   phase's 3, the glTF phase's 3 trilinear frames, the JPEG glTF
-   phase's 3 and the Sponza phase's 3 with the plain versions
-   substituted for the kernels, prints each phase's worst dB, and
-   requires >= 40 dB PSNR on every G-buffer channel, the SSR (with probe
-   reflections composed in the probe frames), the AO and the final colour
-   of every frame.
-17. Prints one JSON line {"kernels": [...]}, with a row of its own for K1
-   on the probe faces (times per face, launches per start-up), P10's row
-   from the P10 phase's whole frame (launches over the probe phase) and a
-   "(band)" row for each kernel of the band frame (rank 1's calls; its
-   launches summed over the 4 ranks' 3 frames), and, last, the line
-   {"ok": true, "device": {...}}.
+It times no frame: frame times are the benchmark's (benchmark/run.py;
+--trace 1 splits the frame by segment and by pass). What it times is each
+kernel alone, beside its plain version and its bound (phase 15), and the
+seconds of start-up and of the tools. Most phases render the bench orbit
+at 1920x1080 on the procedural colonnade (columns=24, tessellation=80,
+tex_size=1024: 314,988 triangles, 96 alpha-MASK) with the default
+RenderConfig (SSR on, MIS GTAO). "The main phase's checks" are: each frame
+covers >= 98% of the pixels, drops no bin pair, is finite on every channel
+(SSR included), and every kernel of its path launched (per frame at least
+K1 x3, the march, K4, K5 x3, K6 and R2; MIN_LAUNCHES_PER_FRAME and the
+phase's own table).
+
+1. Needs a CUDA card (exits 1 without one); prints nvidia-smi's name and
+   power limit. `python3 chip_smoke.py --multi-card`, on a host of several
+   cards, runs only phase 14 over NCCL, one rank per card, 8 band frames
+   eager and captured (one graph per rank, its gathers inside).
+2. Builds the CUDA kernels (vkr_tpu_torch/csrc, nvcc into
+   vkr_tpu_torch/build/) and the native asset pipeline (c++); prints the
+   SASS instruction count and loop-body sizes of K1/K7's and the march's
+   kernels (cuobjdump -sass). The 1024^2 PDF LUT must have no non-finite
+   texel.
+3. Main phase: 8 frames with the main phase's checks. Frame 1 renders
+   under a PassGraph, whose records must name vkr_tpu's default chain.
+3b. Traced phase (traced_phase): the frame through core/aot.py:cached_jit
+   (captured into CUDA graphs, the FrameState donated) against the eager
+   frame, every output tensor bit for bit, overflow 0 on every replay;
+   frame 2's eager body at the captured capacities under
+   set_sync_debug_mode("error"); one profiled replay runs each kernel by
+   its CUDA symbol (P10 in the probe frame, R1 x8 in the RT frame). On
+   this colonnade, bench.py's 16-column colonnade and the Sponza stand-in
+   (8 frames), and the SSR-off, probe, RT and glTF trilinear frames (3).
+4. SSR-off phase: 3 frames of enable_ssr=False; neither the march nor R2
+   may launch.
+5. Shadow phase: the 1024^2 shadow map through K7: finite, >= 50%
+   covered.
+6. Probe phase (BASELINE config 5): build_probe_grid's 96 cubemap faces
+   through K1 drop no bin pair; 3 frames of enable_probes=True with the
+   main phase's checks and P10 once a frame; probe hits must fill part of
+   the pixels SSR left empty in every frame.
+7. RT phase: build_scene_tri_grid at vkr_tpu's defaults (48, 24); 3
+   frames of gtao.use_ray_query with the main phase's checks, K4 never
+   and R1 8 times in every frame, the AO differing from the MIS frame's.
+   R1's 8 calls of frame 1 go to the kernel phase.
+8. Variants phase: gtao_main_exact, _dense, gtao_normal_space,
+   _deinterleaved, gtao_reproject (both modes) and ssao on main frame 1:
+   finite, their input's shape. K4's pass gtao_main_window against
+   gtao_main_exact within vkr_tpu's bounds (max 1e-3, mean 5e-5) on
+   vkr_tpu's close-range corner, and within the mean bound on frame 1.
+9. Runtime phase: frame 5 resumed from a checkpoint of frame 4 equals the
+   uninterrupted frame bit for bit; save_png decodes to its pixels; the
+   depth CSV has a header and a line per row; a cold and a warm build_ssr_resources
+   through a disk cache give the main phase's LUTs.
+10. Manifest phase: all 41 of vkr_tpu's registered names resolve; the
+   passes no frame calls run through registry.get on main frame 1's
+   products at 1080p, finite with vkr_tpu's shapes (simple SSR hits > 1%
+   of the pixels, the tile lists add up, tile_regression's error +inf on
+   at most 0.1% of the tiles, the heatmap counts its window's rays).
+11. glTF phase: the colonnade written as .gltf + .bin + 8 PNG (all five
+   row filters; 1024^2 REPEAT and 2048x512 CLAMP) and loaded with native
+   sizes: its triangles, texture shapes and pairing; 3 trilinear frames
+   with the main phase's checks, trilinear moving the albedo of > 1% of
+   the pixels; the indexed front end's K1 depth and ids equal to the
+   corner path's.
+11b. JPEG glTF phase: the same scene with the 8 committed JPEGs of
+   tests/torch_images, each decoded to its digest of PIL's
+   convert("RGBA"); 3 frames with the main phase's checks, each frame's
+   own launches; main frame 0 through cached_jit equal to the direct call.
+11c. Sponza phase: bench.py's default workload on the stand-in
+   (write_sponza_standin: 25 materials, 69 images) under VKR_ASSETS: every
+   JPEG to PIL's digest, 69 textures of 1024^2, at most 12 sampled; 3
+   frames with the main phase's checks and each frame's own launches.
+11d. P10 phase (p10_phase): probe_orbit's frame at 2560x1440 on the
+   stand-in; frame 1's probe_trace call, whole and as the band of rank 1
+   of 4, bit for bit against its plain version (image, settling pair and
+   code), one launch a call; then with sky rows and NaN normals on a 4x4
+   and a 2x2 grid. Prints P10's kernel, plain and bound ms and its
+   engagement counter.
+12. Bench phase: `python -m vkr_tpu_torch.tools.bench` at its defaults
+   with BENCH_BREAKDOWN=1, on sponza_tex (the stand-in), the colonnade in
+   flight and serial: exit 0, bench.py's four keys, the stats line, the
+   breakdown, every kernel launched in each timed frame; BENCH_FRAMES=1
+   exits 1 with bench.py's range error before building a scene.
+13. Tools phase: render (through the kernels and --no-kernels), render and
+   load_scene of the glTF scene (the native library's mips equal numpy's),
+   parity at 64 (within PARITY_MAX_DROP_DB of PARITY_64_CPU_DB) and 256,
+   profile (profile_phase: each pass captured bit-equal to the eager pass;
+   --scene sponza), scene_info, the viewer over HTTP and the showcase. The
+   viewer, showcase and parity run captured and eagerly, and their
+   outputs must be equal. The viewer also runs a forced bin overflow (it
+   captures anew once and goes on equal to the eager frames) and ten
+   toggle combinations (the reserve stays within MAX_CAPTURES captures).
+13b. Entry phase: tools/entry.py's frame captured, 3 calls equal to the
+   eager fn, pair counts within the capacities, each kernel by symbol in a
+   profiled replay; dryrun_multichip(4) prints both of vkr_tpu's OK lines.
+14. Multi-device phase: an NCCL probe of 2 ranks on this card (printed,
+   not held); 4 gloo ranks on this card render 3 band frames, the
+   G-buffer and prev_depth equal to the main phase's bit for bit, colour
+   and TAA history within 1e-6; rank 1 holds its band kernel calls and a
+   K7 band to their plain versions; each rank's band frame captured
+   bit-equal to its eager one (10 segments, 9 host steps) and a forced
+   overflow that every rank raises at the same call; 4 views within 1e-6
+   of the one-device frames, and captured, bit-equal.
+15. Kernel phase: every kernel call of main frame 1 and of the shadow map,
+   K1 on the first probe face and R1's 8 calls of RT frame 1, through the
+   kernel and its plain version on the card, within compare()'s
+   tolerance; prints kernel, plain, library and bound ms (time_ms,
+   work_of) and the engagement counts (pairs per tile, patch-reject
+   items, march steps and SIMT efficiency). K1/K7 stress tiles of many
+   chunks with equal and -0.0 depths; R1 with t_max tensors and its walk
+   transcribed (rt_walk); R2 on the 1440p frame, whole and banded, bit for
+   bit (r2_phase).
+16. The main, probe, RT, glTF, JPEG glTF and Sponza frames again with the
+   plain versions substituted: >= 40 dB on every channel of every frame.
+17. Prints {"kernels": [...]}, a row a kernel (K1 on the probe faces, P10
+   and each band kernel rows of their own), then {"ok": true, "device":
+   {...}}.
 
 Any failed check exits non-zero before the last line is printed.
 """
@@ -323,6 +139,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from vkr_tpu_torch.tools.entry import _free_port, same_bits
 
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
@@ -560,29 +378,22 @@ def recording(log, limit=None, only=None):
 def render(scene, res, cfg, device, n_frames, on_frame=None,
            probe_grid=None, tri_grid=None):
     """The bench loop (bench.py): frame i sees orbit view i after view i-1.
-    Returns per-frame outputs and per-frame seconds. With a probe grid, an
-    output also holds the share of the pixels SSR left empty that a probe
-    hit filled."""
-    import torch
-
+    Returns per-frame outputs. With a probe grid, an output also holds the
+    share of the pixels SSR left empty that a probe hit filled."""
     from vkr_tpu_torch.core.framestate import FrameState
     from vkr_tpu_torch.frame import camera_frame, render_frame
     from vkr_tpu_torch.scene.orbit import bench_orbit_view
 
     state = FrameState.initial(cfg.height, cfg.width, device)
-    outs, secs = [], []
+    outs = []
     for i in range(n_frames):
         cam = camera_frame(cfg, bench_orbit_view(i),
                            bench_orbit_view(max(i - 1, 0)), i, device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with (on_frame(i) if on_frame is not None
               else contextlib.nullcontext()):
             color, state, aux = render_frame(scene, state, cam, res, cfg,
                                              probe_grid=probe_grid,
                                              tri_grid=tri_grid)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
         g = aux["gbuffer"]
         out = {k: getattr(g, k) for k in FRAME_CHANNELS[:5]}
         out.update(ssr=aux["ssr"], ao=aux["ao"], color=color,
@@ -592,35 +403,7 @@ def render(scene, res, cfg, device, n_frames, on_frame=None,
             out["probe_filled"] = float(
                 (empty & (aux["probe"][..., 3] > 0.0)).sum() / empty.sum())
         outs.append(out)
-    return outs, secs
-
-
-class StreamTimer:
-    """Record a CUDA event pair around each call of mod.attr while the
-    block runs; stream ms of the calls in `log`."""
-
-    def __init__(self, mod, attr, log):
-        self.mod, self.attr, self.log = mod, attr, log
-
-    def __enter__(self):
-        import torch
-
-        fn = self.saved = getattr(self.mod, self.attr)
-
-        def timed(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            end.synchronize()
-            self.log.append(start.elapsed_time(end))
-            return out
-        setattr(self.mod, self.attr, timed)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.mod, self.attr, self.saved)
+    return outs
 
 
 def check_frames(outs, launches, n_frames, min_per_frame, label):
@@ -640,15 +423,6 @@ def check_frames(outs, launches, n_frames, min_per_frame, label):
         check(launches.get(name, 0) >= per_frame * n_frames,
               f"{label}: {name} launched {launches.get(name, 0)} times in "
               f"{n_frames} frames")
-
-
-def print_medians(label, secs):
-    median_ms = statistics.median(s * 1e3 for s in secs[WARMUP_FRAMES:])
-    print(f"{label} frame ms: median {median_ms:.3f} over frames "
-          f"{WARMUP_FRAMES}..{len(secs) - 1} "
-          f"{[round(s * 1e3, 3) for s in secs[WARMUP_FRAMES:]]}; warm-up "
-          f"{[round(s * 1e3, 3) for s in secs[:WARMUP_FRAMES]]}")
-    return median_ms
 
 
 def psnr(a, b) -> float:
@@ -1259,87 +1033,6 @@ def res_usage(path, kernel="ray_any_hit_kernel"):
     raise SmokeFailure(f"cuobjdump -res-usage: no {kernel} in {path}")
 
 
-# The C interfaces of csrc/ray_any_hit.cu that build_r1_parent calls, by
-# the parameter types of vkr_ray_any_hit (c_params): PR 15's (commit
-# 9169a07: triangle ids, then vertices; a float t_max) and this tree's
-# (slot records and spans; a t_max pointer and its stride). A source
-# named by VKR_R1_PARENT is timed against this tree's kernel in turns.
-R1_PR15_PARAMS = ("const float*", "const float*", "float", "int",
-                  "const float*", "const int*", "const float*",
-                  "const float*", "int", "int", "int", "int", "int",
-                  "unsigned char*", "void*")
-R1_PARENT_ENV = "VKR_R1_PARENT"
-
-
-def c_params(src, name="vkr_ray_any_hit"):
-    """The parameter types of `name`'s extern "C" definition in the CUDA
-    source `src`, in order, names and spacing dropped ("const float*")."""
-    m = re.search(r'extern\s+"C"\s+int\s+' + name + r"\s*\(([^)]*)\)",
-                  open(src).read())
-    check(m is not None, f'{src}: no extern "C" int {name}(...)')
-    return tuple(" ".join(re.sub(r"\w+\s*$", "", p).replace("*", " * ")
-                          .split()).replace(" *", "*")
-                 for p in m.group(1).split(","))
-
-
-def build_r1_parent(src):
-    """Another commit's R1 built with this tree's flags from `src` into
-    vkr_tpu_torch/build/ (keyed by its bytes): (library path,
-    call(grid, origin, direction, t_max, max_steps) -> hits). Fails
-    unless its vkr_ray_any_hit has PR 15's interface or this tree's."""
-    import ctypes
-    import hashlib
-
-    import torch
-
-    from vkr_tpu_torch import kernels
-    from vkr_tpu_torch.scene import accel
-
-    params = c_params(src)
-    pr15 = params == R1_PR15_PARAMS
-    check(pr15 or params == c_params(kernels.CSRC / "ray_any_hit.cu"),
-          f"{src}: vkr_ray_any_hit{params} has neither PR 15's interface "
-          f"nor this tree's, the two build_r1_parent can call")
-    out = kernels.BUILD / ("libray_any_hit_parent-" + hashlib.blake2b(
-        open(src, "rb").read(), digest_size=8).hexdigest() + ".so")
-    if not out.exists():
-        kernels.BUILD.mkdir(parents=True, exist_ok=True)
-        run = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-                              "-o", str(out), str(src)],
-                             capture_output=True, text=True, timeout=600)
-        check(run.returncode == 0, f"nvcc {src}: {run.stdout}{run.stderr}")
-    lib = ctypes.CDLL(str(out))
-    lib.vkr_ray_any_hit.argtypes = [
-        ctypes.c_void_p if p.endswith("*") else
-        {"int": ctypes.c_int, "float": ctypes.c_float}[p] for p in params]
-    lib.vkr_ray_any_hit.restype = ctypes.c_int
-
-    def call(grid, origin, direction, t_max, max_steps=None):
-        lead = origin.shape[:-1]
-        o = origin.reshape(-1, 3).contiguous()
-        d = direction.reshape(-1, 3).contiguous()
-        hit = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
-        steps = sum(grid.dims) if max_steps is None else int(max_steps)
-        if pr15:
-            check(not isinstance(t_max, torch.Tensor),
-                  "PR 15's R1 takes a float t_max")
-            args = (o, d, float(t_max), o.shape[0], grid.tri_verts,
-                    grid.cell_tris, grid.grid_min, grid.cell_size,
-                    *grid.dims, int(grid.cap), steps, hit)
-        else:
-            value, per_ray, stride = accel._kernel_t_max(t_max, lead)
-            args = (o, d, value, per_ray, stride, o.shape[0], grid.records,
-                    grid.spans, grid.grid_min, grid.cell_size, *grid.dims,
-                    steps, hit)
-        kernels.check(lib.vkr_ray_any_hit(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args),
-            torch.cuda.current_stream().cuda_stream), "R1 parent")
-        return hit.reshape(lead)
-    return out, call
-
-
-R1_TIME_BUDGET_S = 0.2  # time_ms's budget per call in the R1 phase
 R1_TMAX_SEED = 16
 ISSUE_PER_CLOCK = 132 * 4 * 32  # SMs x warp instructions x lanes a clock
 
@@ -1652,9 +1345,7 @@ def r1_phase(calls):
     against (one direction of 32 pixels of a row, of 8x4 pixels, of 8x4
     pixels of one dither class); the slot loop's SASS size, registers and
     spills; the operations the tests need by where they end (the bound's),
-    against PR 15's count; the instruction-issue estimate; with
-    VKR_R1_PARENT, that kernel's hits and its time per frame against this
-    one's, in turns (parent, change, change, parent)."""
+    against MT_FLOPS_PR15's count; the instruction-issue estimate."""
     import torch
 
     from vkr_tpu_torch import kernels
@@ -1732,30 +1423,6 @@ def r1_phase(calls):
           f"frame at full SIMT efficiency, "
           f"{est_ms / simt['ray order (this kernel)']:.4f} "
           f"ms at this map's ({CARD})")
-
-    parent_src = os.environ.get(R1_PARENT_ENV)
-    if not parent_src:
-        print(f"R1 parent: {R1_PARENT_ENV} not set, no comparison")
-        return
-    path, parent = build_r1_parent(parent_src)
-    for _, args, ckw in calls:
-        check(torch.equal(parent(*args, **ckw),
-                          accel.ray_any_hit(*args, **ckw)),
-              "R1: the parent kernel's hits differ from this one's")
-    size, rcp, per = slot_test_loop(path)
-    usage = res_usage(path)
-    print(f"R1 parent ({path.name}): hits equal on all {len(calls)} calls; "
-          f"slot loop {size} instructions, {rcp} reciprocal(s): {per:.1f} a"
-          f" test; loop bodies {sass_loops(path)['ray_any_hit_kernel'][1]}; "
-          f"{usage}")
-    wrappers = {"parent": parent, "change": accel.ray_any_hit}
-    times = []
-    for label in ("parent", "change", "change", "parent"):
-        ms = sum(time_ms(wrappers[label], args, ckw, R1_TIME_BUDGET_S)
-                 for _, args, ckw in calls)
-        times.append((label, ms))
-    print(f"R1 ms a frame ({len(calls)} calls) in turns on {CARD}: "
-          + ", ".join(f"{label} {ms:.4f}" for label, ms in times))
 
 
 def stress_rows(device, n_pairs, w, seed):
@@ -1876,18 +1543,6 @@ def library_call(name, args, kw):
         return F.grid_sample(src, grid, mode="bilinear",
                              padding_mode="border", align_corners=False)
     return call
-
-
-def k5_empty_grid(img):
-    """An empty kernel launched on K5's grid for img: the part of K5's time
-    that no kernel body can remove (csrc/window_gather.cu)."""
-    import torch
-
-    from vkr_tpu_torch import kernels
-
-    h, w = img.shape[:2]
-    kernels.check(kernels.library("window_gather").vkr_window_gather_empty(
-        h, w, torch.cuda.current_stream().cuda_stream), "K5 empty grid")
 
 
 def corner_scene(h, w, device):
@@ -2085,28 +1740,19 @@ def gltf_textures(images):
     return out, wraps
 
 
-class HostTimer:
-    """Host seconds of each call of mod.attr while the block runs (and its
-    results, where a list for them is given)."""
+@contextlib.contextmanager
+def returns(mod, attr, log):
+    """Keep what each call of mod.attr returns while the block runs."""
+    fn = getattr(mod, attr)
 
-    def __init__(self, mod, attr, log, results=None):
-        self.mod, self.attr, self.log, self.results = mod, attr, log, results
-
-    def __enter__(self):
-        fn = self.saved = getattr(self.mod, self.attr)
-
-        def timed(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            self.log.append(time.perf_counter() - t0)
-            if self.results is not None:
-                self.results.append(out)
-            return out
-        setattr(self.mod, self.attr, timed)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.mod, self.attr, self.saved)
+    def kept(*args, **kw):
+        log.append(fn(*args, **kw))
+        return log[-1]
+    setattr(mod, attr, kept)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, fn)
 
 
 def gltf_phase(cfg, res, device, tmp):
@@ -2120,7 +1766,6 @@ def gltf_phase(cfg, res, device, tmp):
     from vkr_tpu_torch.passes import gbuffer as gbuffer_mod
     from vkr_tpu_torch.passes.gbuffer import render_gbuffer, upload_scene
     from vkr_tpu_torch.raster import gbuf_kernel
-    from vkr_tpu_torch.scene import gltf as gltf_mod
     from vkr_tpu_torch.scene import scene as scene_mod
     from vkr_tpu_torch.scene.procedural import build_colonnade
     from vkr_tpu_torch.frame import camera_frame
@@ -2133,12 +1778,9 @@ def gltf_phase(cfg, res, device, tmp):
     write_s = time.perf_counter() - t0
     file_bytes = sum(os.path.getsize(os.path.join(tmp, f))
                      for f in os.listdir(tmp))
-    decode_s, compile_s = [], []
     t0 = time.perf_counter()
-    with HostTimer(gltf_mod, "_decode_image", decode_s), \
-            HostTimer(scene_mod, "compile_scene", compile_s):
-        scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
-                                        native_sizes=True)
+    scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
+                                    native_sizes=True)
     load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2153,9 +1795,8 @@ def gltf_phase(cfg, res, device, tmp):
     shapes = [im.shape[:2] for im in scene_np.tex_images]
     print(f"gltf: wrote {path.rsplit('/', 1)[-1]} + .bin + "
           f"{len(images)} PNG ({file_bytes} bytes, rows under filters "
-          f"{GLTF_FILTERS}) in {write_s:.3f} s; load_scene {load_s:.3f} s "
-          f"(PNG decode {sum(decode_s):.3f} s for {len(decode_s)} images, "
-          f"compile_scene {sum(compile_s):.3f} s); upload {upload_s:.3f} s; "
+          f"{GLTF_FILTERS}) in {write_s:.3f} s; load_scene {load_s:.3f} s; "
+          f"upload {upload_s:.3f} s; "
           f"{n_tri} triangles ({len(scene.tri_masked_mat)} alpha-MASK); "
           f"native textures {shapes}, {tex.n_levels} levels, pairs "
           f"{tex.paired}; texture bytes on the card {tex_bytes}")
@@ -2168,10 +1809,10 @@ def gltf_phase(cfg, res, device, tmp):
 
     cfg_gltf = dataclasses.replace(cfg, trilinear_textures=True)
     kernels.LAUNCHES.clear()
-    outs, secs = render(scene, res, cfg_gltf, device, GLTF_FRAMES)
+    outs = render(scene, res, cfg_gltf, device, GLTF_FRAMES)
     launches = dict(kernels.LAUNCHES)
     check_frames(outs, launches, GLTF_FRAMES, MIN_LAUNCHES_PER_FRAME, "gltf")
-    bilinear, bilinear_secs = render(scene, res, cfg, device, GLTF_FRAMES)
+    bilinear = render(scene, res, cfg, device, GLTF_FRAMES)
     share = [float((o["albedo"] != b["albedo"]).any(-1).float().mean())
              for o, b in zip(outs, bilinear)]
     check(min(share) > MIN_TRILINEAR_SHARE, f"gltf: trilinear changed the "
@@ -2182,8 +1823,6 @@ def gltf_phase(cfg, res, device, tmp):
           f"GTAO), launches {launches}; share of pixels whose albedo "
           f"trilinear changed per frame {[round(x, 4) for x in share]} "
           f"(depth unchanged: {same_geometry})")
-    print_medians("gltf", secs)
-    print_medians("gltf (bilinear)", bilinear_secs)
 
     # one G-buffer through the indexed front end, K1's outputs recorded
     i = WARMUP_FRAMES
@@ -2307,7 +1946,6 @@ TRACED_SYMBOLS = {"gbuf_tiles": "walk_kernel<true>",
                   "probe_trace": "probe_trace_kernel"}
 TRACED_FRAMES = 8
 TRACED_OTHER_FRAMES = 3  # the SSR-off, trilinear and probe frames
-TRACED_TIMED = 6  # serial frames per block of the interleaved timing
 SYNC_FRAME = 2
 
 
@@ -2381,16 +2019,14 @@ def profiled_replay(label, call, symbols):
 
 
 def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
-                 probe_grid=None, tri_grid=None, timing=False):
+                 probe_grid=None, tri_grid=None):
     """The frame through core/aot.py:cached_jit (captured, replayed, the
     FrameState donated) against the eager frame: n_frames of the bench
     orbit, every output tensor bit-equal per frame, overflow 0 on every
     replay; frame SYNC_FRAME's eager body at the captured capacities under
     set_sync_debug_mode("error"); one replay under torch.profiler, whose
     kernels must hold each of `symbols` (wrapper -> launches) by its CUDA
-    name. timing: host dispatch ms per replay and the interleaved wall
-    medians (eager, traced, traced, eager), TRACED_TIMED serial frames
-    each. Returns a dict of what it measured."""
+    name. Returns the phase's seconds."""
     import torch
 
     from vkr_tpu_torch.core.aot import CapturedFrame, cached_jit
@@ -2451,78 +2087,29 @@ def traced_phase(label, scene, res, cfg, device, n_frames, symbols,
     pool_bytes = torch.cuda.memory_reserved() - reserved
     del eager
 
-    result = {}
-    if timing:
-        dispatch, blocks = [], []
-        for mode in ("eager", "traced", "traced", "eager"):
-            walls = []
-            for i in range(TRACED_TIMED):
-                c = cam(n_frames + i)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if mode == "traced":
-                    color, state, aux = frame(scene, state, c)
-                    dispatch.append(time.perf_counter() - t0)
-                else:
-                    fn(scene, FrameState.initial(HEIGHT, WIDTH, device), c)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            blocks.append((mode, statistics.median(walls) * 1e3))
-        # a call's host time split: the argument copies (CapturedFrame
-        # ._load) and graph.replay(), the rest of a call around them
-        load, replay = [], []
-        for i in range(TRACED_TIMED):
-            c = cam(n_frames + TRACED_TIMED + i)
-            torch.cuda.synchronize()
-            g = 1 - frame._last
-            t0 = time.perf_counter()
-            frame._load((scene, state, c), g)
-            t1 = time.perf_counter()
-            frame._slots[g][0].replay()
-            load.append(t1 - t0)
-            replay.append(time.perf_counter() - t1)
-            torch.cuda.synchronize()
-            frame._last, state = g, frame._sets[1 - g]
-            frame._returned = state
-        result.update(dispatch_ms=statistics.median(dispatch) * 1e3,
-                      load_ms=statistics.median(load) * 1e3,
-                      replay_ms=statistics.median(replay) * 1e3,
-                      blocks=blocks)
-    # a torch.profiler run leaves the host's launches slower: it comes last
-    c = cam(n_frames + 2 * TRACED_TIMED)
+    c = cam(n_frames)
     device_ms, n_ops, seen, (color, state, aux) = profiled_replay(
         f"traced {label}", lambda: frame(scene, state, c), symbols)
-    nodes = graph_nodes(frame)
-    result.update(capture_s=frame.capture_seconds, nodes=nodes,
-                  device_ms=device_ms, ops=n_ops, pool_bytes=pool_bytes,
-                  capacities=frame.capacities, counts=counts[0],
-                  symbols=seen)
     check(int(aux["overflow"]) == 0, f"traced {label}: overflow in the "
-          "timed and profiled replays")
-    result["phase_s"] = time.perf_counter() - t_phase
+          "profiled replay")
+    phase_s = time.perf_counter() - t_phase
     print(f"traced {label}: {n_frames} frames through cached_jit equal the "
           f"eager frames bit for bit (colour, FrameState, aux), overflow 0; "
           f"frame {SYNC_FRAME}'s body clean under set_sync_debug_mode"
-          f"('error'); capture {result['capture_s']:.3f} s (warm-up and two "
-          f"graphs), graph nodes per frame {nodes}, a replay's device "
-          f"{device_ms:.3f} ms in {n_ops} kernels and copies, kernels by "
-          f"symbol {seen}, graph pools and buffers {pool_bytes} bytes, "
-          f"bin-pair capacities {frame.capacities} for the capture frame's "
-          f"{counts[0]}" + (
-              f"; host ms per call {result['dispatch_ms']:.3f} (argument "
-              f"copies {result['load_ms']:.3f}, graph.replay() "
-              f"{result['replay_ms']:.3f}), "
-              f"serial wall medians (eager, traced, traced, eager) "
-              f"{[round(ms, 3) for _, ms in result['blocks']]} ms"
-              if timing else "") + f"; {result['phase_s']:.1f} s")
-    return result
+          f"('error'); capture {frame.capture_seconds:.3f} s (warm-up and "
+          f"two graphs), graph nodes per frame {graph_nodes(frame)}, a "
+          f"replay's device {device_ms:.3f} ms in {n_ops} kernels and "
+          f"copies, kernels by symbol {seen}, graph pools and buffers "
+          f"{pool_bytes} bytes, bin-pair capacities {frame.capacities} for "
+          f"the capture frame's {counts[0]}; {phase_s:.1f} s")
+    return phase_s
 
 
 def jpeg_gltf_phase(cfg, res, device, tmp):
     """The glTF phase's colonnade with the committed JPEG textures: every
     decoded texture held to PIL's digest, JPEG_FRAMES default frames with
-    the main phase's checks and each frame's own launches, frame 2 under
-    torch.profiler. Returns (scene, outputs)."""
+    the main phase's checks and each frame's own launches. Returns (scene,
+    outputs)."""
     import hashlib
 
     import numpy as np
@@ -2548,9 +2135,9 @@ def jpeg_gltf_phase(cfg, res, device, tmp):
           f"jpeg gltf: {len(jpegs)} JPEGs for {len(src.images)} textures")
     path = write_gltf(tmp, src, jpegs, wraps, name="jpeg")
 
-    decoded, decode_s = [], []
+    decoded = []
     t0 = time.perf_counter()
-    with HostTimer(gltf_mod, "_decode_image", decode_s, decoded):
+    with returns(gltf_mod, "_decode_image", decoded):
         scene_np = scene_mod.load_scene(path, tex_size=SCENE["tex_size"],
                                         native_sizes=True)
     load_s = time.perf_counter() - t0
@@ -2575,24 +2162,15 @@ def jpeg_gltf_phase(cfg, res, device, tmp):
                       f"{len(data)} bytes"
                       for (_, name), data in zip(files, jpegs))
           + f"), each decoded to PIL's digest ({digests['made_with']}); "
-          f"decode s per texture {[round(x, 3) for x in decode_s]}, total "
-          f"{sum(decode_s):.3f} s; load_scene {load_s:.3f} s; upload "
+          f"load_scene {load_s:.3f} s; upload "
           f"{upload_s:.3f} s; {n_tri} triangles; native textures {shapes}")
     check(n_tri == SCENE_TRIANGLES and shapes == GLTF_NATIVE
           and scene.tex.paired, f"jpeg gltf: {n_tri} triangles, native "
           f"shapes {shapes}, pairs {scene.tex.paired}")
 
-    # the profiler's first start sets up CUPTI for seconds: not in a frame
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]):
-        torch.ones(1, device=device).add_(1)
-        torch.cuda.synchronize()
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    hook = FrameLaunches(lambda i: prof if i == WARMUP_FRAMES
-                         else contextlib.nullcontext())
+    hook = FrameLaunches()
     kernels.LAUNCHES.clear()
-    outs, secs = render(scene, res, cfg, device, JPEG_FRAMES, on_frame=hook)
+    outs = render(scene, res, cfg, device, JPEG_FRAMES, on_frame=hook)
     launches = dict(kernels.LAUNCHES)
     check_frames(outs, launches, JPEG_FRAMES, MIN_LAUNCHES_PER_FRAME,
                  "jpeg gltf")
@@ -2600,15 +2178,10 @@ def jpeg_gltf_phase(cfg, res, device, tmp):
         for name, n in MIN_LAUNCHES_PER_FRAME.items():
             check(per.get(name, 0) >= n, f"jpeg gltf frame {i}: {name} "
                   f"launched {per.get(name, 0)} times")
-    device_ms, n_kernels = device_time(prof)
     print(f"jpeg gltf: {JPEG_FRAMES} frames (RenderConfig(), SSR on, MIS "
           f"GTAO), coverage "
           f"{[round(float((o['depth'] < 1.0).float().mean()), 4) for o in outs]}"
-          f", overflow 0, launches per frame {hook.per_frame}; frame "
-          f"{WARMUP_FRAMES} under torch.profiler: {device_ms:.3f} device ms "
-          f"in {n_kernels} kernels and copies, "
-          f"{secs[WARMUP_FRAMES] * 1e3:.3f} ms host wall (profiled)")
-    print_medians("jpeg gltf", secs)
+          f", overflow 0, launches per frame {hook.per_frame}")
     return scene, outs
 
 
@@ -2782,10 +2355,10 @@ def sponza_phase(res, cfg, device, root):
     """bench.py's default workload, sponza_colonnade_scene(columns=24,
     tessellation=80, tex_size=1024), on the stand-in written into root
     (VKR_ASSETS set to it for the phase): every committed JPEG held to
-    its digest of PIL's bytes, decode, resize, compile and upload seconds
-    and the texture bytes on the card printed, SPONZA_FRAMES default
-    frames with the main phase's checks and each frame's own launches,
-    frame 2 under torch.profiler. Returns (scene, outputs)."""
+    its digest of PIL's bytes, the scene's and upload seconds and the
+    texture bytes on the card printed, SPONZA_FRAMES default frames with
+    the main phase's checks and each frame's own launches. Returns (scene,
+    outputs)."""
     import hashlib
 
     import numpy as np
@@ -2795,21 +2368,18 @@ def sponza_phase(res, cfg, device, root):
     from vkr_tpu_torch.passes.gbuffer import upload_scene
     from vkr_tpu_torch.scene import gltf as gltf_mod
     from vkr_tpu_torch.scene import procedural as proc_mod
-    from vkr_tpu_torch.scene import resample as resample_mod
 
     phase_t0 = time.perf_counter()
     path, info = write_sponza_standin(root, seed=0)
     write_s = time.perf_counter() - phase_t0
     with open(os.path.join(JPEG_DIR, "digests.json")) as f:
         digests = json.load(f)
-    decode_s, decoded, resize_s, compile_s = [], [], [], []
+    decoded = []
     saved = os.environ.get("VKR_ASSETS")
     os.environ["VKR_ASSETS"] = root
     try:
         t0 = time.perf_counter()
-        with HostTimer(gltf_mod, "_decode_image", decode_s, decoded), \
-                HostTimer(resample_mod, "pil_bilinear_resize", resize_s), \
-                HostTimer(proc_mod, "compile_scene", compile_s):
+        with returns(gltf_mod, "_decode_image", decoded):
             scene_np = proc_mod.sponza_colonnade_scene(
                 columns=SCENE["columns"], tessellation=SCENE["tessellation"],
                 tex_size=SPONZA_TEX)
@@ -2821,7 +2391,6 @@ def sponza_phase(res, cfg, device, root):
             os.environ["VKR_ASSETS"] = saved
     check(len(decoded) == SPONZA_IMAGES, f"sponza: {len(decoded)} images "
           f"decoded of {SPONZA_IMAGES}")
-    jpeg_s = {}
     for i, img in enumerate(decoded):
         kind = info["kinds"][i]
         if not kind.startswith("JPEG "):
@@ -2833,9 +2402,6 @@ def sponza_phase(res, cfg, device, root):
               and got == want["rgba_sha256"],
               f"sponza: {name} ({want['form']}) decoded to {img.shape} "
               f"{got}, not PIL's {want['rgba_sha256']}")
-        jpeg_s[name] = decode_s[i]
-    png_s = sum(t for i, t in enumerate(decode_s)
-                if info["kinds"][i].startswith("PNG "))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scene = upload_scene(scene_np, device)
@@ -2850,18 +2416,12 @@ def sponza_phase(res, cfg, device, root):
     sampled = sorted({int(t) for m in used for t in (
         scene_np.mat_albedo_tex[m], scene_np.mat_mr_tex[m]) if t >= 0})
     level0 = SPONZA_IMAGES * SPONZA_TEX * SPONZA_TEX * 4
-    item18 = {k: round(v, 4) for k, v in jpeg_s.items()
-              if k.startswith("item18_")}
     print(f"sponza ({CARD}): stand-in Sponza/glTF/Sponza.gltf, "
           f"{len(scene_np.mat_albedo_tex)} materials, {SPONZA_IMAGES} images "
           f"({info['pngs']} PNG, {info['jpegs']} JPEG; "
           f"{info['file_bytes']} bytes) written in {write_s:.3f} s; every "
-          f"JPEG decoded to PIL's digest ({digests['made_with']}); decode "
-          f"{sum(decode_s):.3f} s for {len(decode_s)} images (PNG "
-          f"{png_s:.3f} s, JPEG {sum(jpeg_s.values()):.3f} s, the item-18 "
-          f"forms {sum(item18.values()):.3f} s: {item18}); resize "
-          f"{sum(resize_s):.3f} s; compile_scene {sum(compile_s):.3f} s; "
-          f"sponza_colonnade_scene {build_s:.3f} s in all; upload "
+          f"JPEG decoded to PIL's digest ({digests['made_with']}); "
+          f"sponza_colonnade_scene {build_s:.3f} s; upload "
           f"{upload_s:.3f} s; {n_tri} triangles "
           f"({len(scene.tri_masked_mat)} alpha-MASK), {len(used)} materials "
           f"drawn sampling {len(sampled)} of the {SPONZA_IMAGES} textures "
@@ -2878,13 +2438,9 @@ def sponza_phase(res, cfg, device, root):
           f"{len(scene_np.mat_albedo_tex)} materials, {len(sampled)} "
           "textures sampled")
 
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    hook = FrameLaunches(lambda i: prof if i == WARMUP_FRAMES
-                         else contextlib.nullcontext())
+    hook = FrameLaunches()
     kernels.LAUNCHES.clear()
-    outs, secs = render(scene, res, cfg, device, SPONZA_FRAMES,
-                        on_frame=hook)
+    outs = render(scene, res, cfg, device, SPONZA_FRAMES, on_frame=hook)
     launches = dict(kernels.LAUNCHES)
     check_frames(outs, launches, SPONZA_FRAMES, MIN_LAUNCHES_PER_FRAME,
                  "sponza")
@@ -2892,29 +2448,20 @@ def sponza_phase(res, cfg, device, root):
         for name, n in MIN_LAUNCHES_PER_FRAME.items():
             check(per.get(name, 0) >= n, f"sponza frame {i}: {name} "
                   f"launched {per.get(name, 0)} times")
-    device_ms, n_kernels = device_time(prof)
     print(f"sponza: {SPONZA_FRAMES} frames (RenderConfig(), SSR on, MIS "
           f"GTAO), coverage "
           f"{[round(float((o['depth'] < 1.0).float().mean()), 4) for o in outs]}"
-          f", overflow 0, launches per frame {hook.per_frame}; frame "
-          f"{WARMUP_FRAMES} under torch.profiler: {device_ms:.3f} device ms "
-          f"in {n_kernels} kernels and copies, "
-          f"{secs[WARMUP_FRAMES] * 1e3:.3f} ms host wall (profiled)")
-    print_medians("sponza", secs)
+          f", overflow 0, launches per frame {hook.per_frame}")
     print(f"sponza: phase {time.perf_counter() - phase_t0:.1f} s")
     return scene, outs
 
 
-# (label, BENCH_* settings, VKR_ASSETS at the stand-in); the colonnade
-# runs with frames in flight and serial in turns: 1, 0, 0, 1
-BENCH_PIPELINED = {"BENCH_SCENE": "colonnade"}
-BENCH_SERIAL = {"BENCH_SCENE": "colonnade", "BENCH_PIPELINE": "0"}
+# (label, BENCH_* settings, VKR_ASSETS at the stand-in)
 BENCH_RUNS = (
     ("sponza_tex (stand-in)", {"BENCH_SCENE": "sponza_tex"}, True),
-    ("colonnade", BENCH_PIPELINED, False),
-    ("colonnade, serial", BENCH_SERIAL, False),
-    ("colonnade, serial, 2nd", BENCH_SERIAL, False),
-    ("colonnade, 2nd", BENCH_PIPELINED, False),
+    ("colonnade", {"BENCH_SCENE": "colonnade"}, False),
+    ("colonnade, serial", {"BENCH_SCENE": "colonnade", "BENCH_PIPELINE": "0"},
+     False),
     ("BENCH_FRAMES=1", {"BENCH_FRAMES": "1"}, False),
 )
 BENCH_TIMED = 15  # completion intervals of the default 16 frames
@@ -2940,8 +2487,7 @@ def bench_phase(sponza_root):
     lines and no 'breakdown failed' on stderr, and every kernel of the
     frame launched in each timed frame (the tool's launch line); and
     unless BENCH_FRAMES=1 exits 1 with bench.py's range error before any
-    scene is built. Returns {label: headline value in ms}."""
-    medians = {}
+    scene is built."""
     for label, settings, assets in BENCH_RUNS:
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("BENCH_")
@@ -2999,13 +2545,6 @@ def bench_phase(sponza_root):
         print(f"bench ({label}; {CARD}): {last}; {stats.group(0)}; "
               f"{'; '.join(segments)}; {'; '.join(start)}; launches "
               f"{launches}; {wall_s:.1f} s wall")
-        medians[label] = head["value"]
-    pipelined = [medians["colonnade"], medians["colonnade, 2nd"]]
-    serial = [medians["colonnade, serial"], medians["colonnade, serial, 2nd"]]
-    print(f"bench: colonnade medians, frames in flight {pipelined} ms, "
-          f"serial {serial} ms, in turns; ratio of the sums "
-          f"{sum(pipelined) / sum(serial):.4f}")
-    return medians
 
 
 TOOLS_FRAMES = 8
@@ -3019,14 +2558,6 @@ VIEWER_INPUT = (("slider weight_ratio 2.5, temporal rays 4",
                 ("toggle 2 (SSR off)", {"toggle": "2"}),
                 ("toggle j (jitter off)", {"toggle": "j"}),
                 ("r (hot reload)", {"toggle": "r"}))
-
-
-def _free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @contextlib.contextmanager
@@ -3354,19 +2885,6 @@ PROFILE_REPS = 8
 SLICE_KERNELS = ("gbuf_tiles", "hierarchical_march",
                    "window_gather_bilinear_multi", "window_gather_bilinear",
                    "taa_history_gather", "ssr_blur")
-
-
-def same_bits(a, b) -> bool:
-    """Equal shape, type and bits: a NaN (ssr_trace's pdf of a ray that
-    missed) equals the same NaN."""
-    import torch
-
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.is_floating_point():
-        kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-        a, b = (t.view(kind[t.element_size()]) for t in (a, b))
-    return torch.equal(a, b)
 
 
 def profile_phase(size, device, sponza_root):
@@ -3845,8 +3363,7 @@ def runtime_phase(scene, res, cfg, device, last):
 def manifest_phase(cfg, device, f0, f1):
     """Every vkr_tpu manifest name resolves in the port; the passes that no
     frame calls run through registry.get on main frame 1's products at
-    full width, each checked for vkr_tpu's shape and finite values, with
-    its stream ms."""
+    full width, each checked for vkr_tpu's shape and finite values."""
     import torch
 
     from vkr_tpu_torch.core import registry
@@ -3879,24 +3396,12 @@ def manifest_phase(cfg, device, f0, f1):
     color_half = downsample_full_to_half(f1["color"])
     results = {}
 
-    def timed(label, fn, *args, **kw):
-        """The second call's stream ms (the first loads the PyTorch kernels
-        that have not run yet in this process)."""
-        fn(*args, **kw)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args, **kw)
-        end.record()
-        end.synchronize()
-        results[label] = (out, start.elapsed_time(end))
-        return out
-
     def run(label, name, *args, **kw):
-        return timed(label, registry.get(name), *args, **kw)
+        results[label] = registry.get(name)(*args, **kw)
+        return results[label]
 
     def shaped(label, shape):
-        out = results[label][0]
+        out = results[label]
         check(tuple(out.shape) == shape and bool(torch.isfinite(
             out.float()).all()), f"manifest: {label} has shape "
             f"{tuple(out.shape)} (want {shape}) or is not finite")
@@ -3962,7 +3467,7 @@ def manifest_phase(cfg, device, f0, f1):
     shaped("texdraw", (HEIGHT, WIDTH, 3))
     from vkr_tpu_torch.passes.util_passes import gen_mipmaps
 
-    mips = timed("gen_mipmaps", gen_mipmaps, f1["color"])
+    mips = gen_mipmaps(f1["color"])
     # one level per halving of the short side, down to one texel
     check(len(mips) == min(HEIGHT, WIDTH).bit_length()
           and min(mips[-1].shape[:2]) == 1
@@ -3972,13 +3477,7 @@ def manifest_phase(cfg, device, f0, f1):
     marker = SamplesMarker(hh, hw, (0.5, 0.5, 0.5 + 8 / hw, 0.5 + 8 / hh),
                            device=device)
     src = screen_uv_grid(hh, hw, device)
-
-    def heatmap(src, fetch):
-        marker.clear()
-        return marker.trace(src, fetch)
-
-    heat = timed("SamplesMarker (SSR rays)", heatmap, src,
-                 f1["ssr_rays"][..., :2])
+    heat = marker.trace(src, f1["ssr_rays"][..., :2])
     x0, y0, x1, y1 = marker.window
     in_window = int(((src[..., 0] >= x0) & (src[..., 0] <= x1)
                      & (src[..., 1] >= y0) & (src[..., 1] <= y1)).sum())
@@ -3992,17 +3491,13 @@ def manifest_phase(cfg, device, f0, f1):
           f"{glossy_value:.4f}); heatmap {int(heat.sum())} fetches of the "
           f"{in_window} rays in its window; tile_regression's error "
           f"overflowed on {overflowed} of {ty * tx} tiles")
-    print("manifest passes, stream ms at 1080p (main frame "
-          f"{CAPTURE_FRAME}): " + "; ".join(
-              f"{label} {ms:.3f}" for label, (_, ms) in results.items()))
 
 
 # ---- multi-device phase: the band frame and view parallelism, ranks on
 # one card through gloo
 BAND_RANKS = 4
 BAND_FRAMES = 3
-# --multi-card: the band frames of the NCCL run, enough for a median over
-# frames WARMUP_FRAMES..
+# --multi-card: the band frames of the NCCL run
 MULTI_CARD_FRAMES = 8
 # host steps a graph of the band frame captured under gloo (its grouped
 # gathers, parallel/band.py), one segment more
@@ -4102,8 +3597,8 @@ def band_rank(rank, n, port, tmp, backend):
     history to tmp; BAND_CAPTURE_RANK captures its kernel calls in frame
     CAPTURE_FRAME and holds them to their plain versions afterwards, and
     rasterises its band of the opaque layer through K7 against the whole
-    frame's rows. Returns the rank's seconds, gather seconds, launches,
-    peak memory and, from the capture rank, its cases."""
+    frame's rows. Returns the rank's launches, peak memory and, from the
+    capture rank, its cases."""
     import torch
     import torch.distributed as dist
 
@@ -4114,25 +3609,18 @@ def band_rank(rank, n, port, tmp, backend):
 
     device, scene, cfg, res = _rank_setup(rank, n, port, backend)
     state = FrameState.initial(HEIGHT, WIDTH, device)
-    captured, secs, gather_s, eager = [], [], [], []
+    captured, eager = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
     kernels.LAUNCHES.clear()
     for i in range(n_frames(backend)):
         cam = _orbit_cam(cfg, i, device)
-        stats = {}
         capture = rank == BAND_CAPTURE_RANK and i == CAPTURE_FRAME
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with (Substitute(recording(captured)) if capture
               else contextlib.nullcontext()):
             color, state, aux = render_frame_banded(
-                scene, state, cam, res, cfg, device=device, stats=stats)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        gather_s.append(stats["gather_s"])
+                scene, state, cam, res, cfg, device=device)
         # on the host, out of the peak device memory the run prints
         eager.append(_frame_tensors(color, state, aux, "cpu"))
         if rank == 0:
@@ -4142,8 +3630,7 @@ def band_rank(rank, n, port, tmp, backend):
                          .cpu(), prev_depth=state.prev_depth.cpu(),
                          overflow=int(aux["overflow"]))
             torch.save(frame, os.path.join(tmp, f"band{i}.pt"))
-    out = {"secs": secs, "gather_s": gather_s, "gathers": stats["gathers"],
-           "launches": dict(kernels.LAUNCHES),
+    out = {"launches": dict(kernels.LAUNCHES),
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "row0": band_rows(HEIGHT)[0]}
     out["captured"] = band_captured(scene, cfg, res, device, eager)
@@ -4171,11 +3658,8 @@ def band_captured(scene, cfg, res, device, eager):
     overflow 0; then one replay under torch.profiler, which must run K1
     x3, the march, K4, K5 x3 and K6 by CUDA symbol, and the graph's nodes
     over its segments. Returns segments and host steps a graph, capture
-    s, ms per call (each followed by a synchronize), host-step ms per
-    call, the profiled replay's device ms and kernels by symbol, graph
-    nodes, the reserve and the part of it the capture added. The ranks
-    meet at a barrier before each timed call, as the eager frames do: a
-    collective waits for the slowest rank's host work between calls."""
+    s, the profiled replay's device ms and kernels by symbol, graph nodes,
+    the reserve and the part of it the capture added."""
     import torch
     import torch.distributed as dist
 
@@ -4195,16 +3679,9 @@ def band_captured(scene, cfg, res, device, eager):
                            donate_argnums=(1,))
     check(isinstance(frame, aot.CapturedFrame),
           "band: cached_jit did not capture the band frame")
-    walls, steps = [], []
     for i, want in enumerate(eager):
-        c = _orbit_cam(cfg, i, device)
-        dist.barrier()
+        color, state, aux = frame(scene, state, _orbit_cam(cfg, i, device))
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        color, state, aux = frame(scene, state, c)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        steps.append(frame.step_seconds * 1e3)
         got = _frame_tensors(color, state, aux, "cpu")
         check(len(got) == len(want) and all(
             same_bits(a, b) for a, b in zip(got, want)),
@@ -4222,8 +3699,8 @@ def band_captured(scene, cfg, res, device, eager):
     device_ms, n_ops, seen, _ = profiled_replay(
         "captured band frame", lambda: frame(scene, state, c), symbols)
     out = {"segments": frame.segments, "host_steps": frame.host_steps,
-           "capture_s": frame.capture_seconds, "walls": walls,
-           "step_ms": steps, "device_ms": device_ms, "ops": n_ops,
+           "capture_s": frame.capture_seconds, "device_ms": device_ms,
+           "ops": n_ops,
            "symbols": seen, "nodes": graph_nodes(frame),
            "reserved": reserved, "capture_bytes": reserved - before,
            "capacities": frame.capacities}
@@ -4365,12 +3842,10 @@ def view_rank(rank, n, port, tmp, backend):
     torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
     kernels.LAUNCHES.clear()
-    t0 = time.perf_counter()
     colors, new_states = render_views_sharded(scene, states, cams, res, cfg,
                                               mesh)
     torch.cuda.synchronize()
-    out = {"secs": time.perf_counter() - t0,
-           "launches": dict(kernels.LAUNCHES),
+    out = {"launches": dict(kernels.LAUNCHES),
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "frame_index": new_states.frame_index.tolist()}
     if rank == 0:
@@ -4387,10 +3862,8 @@ def views_captured(scene, cfg, res, mesh, cams, colors, new_states):
     state donated: its first call (fresh states) bit-equal to the eager
     call's (colors, new_states), its second (on the first's states) to an
     eager call on the same states. Returns segments and host steps a
-    graph, capture s, the second call's ms (after a barrier) and host-step
-    ms, reserve."""
+    graph, capture s, reserve."""
     import torch
-    import torch.distributed as dist
 
     from vkr_tpu_torch.core import aot
     from vkr_tpu_torch.core.framestate import FrameState
@@ -4413,20 +3886,14 @@ def views_captured(scene, cfg, res, mesh, cams, colors, new_states):
     check(all(same_bits(a, b) for a, b in zip(
         aot._flat(got), aot._flat((colors, new_states)))),
         "views: the first captured call differs from the eager call")
-    want = fn(scene, got[1], cams)
-    want = aot._map(want, torch.clone)
-    dist.barrier()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    want = aot._map(fn(scene, got[1], cams), torch.clone)
     got = frame(scene, got[1], cams)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     check(all(same_bits(a, b) for a, b in zip(aot._flat(got),
                                               aot._flat(want))),
           "views: the second captured call differs from the eager call")
     out = {"segments": frame.segments, "host_steps": frame.host_steps,
-           "capture_s": frame.capture_seconds, "ms": ms,
-           "step_ms": frame.step_seconds * 1e3,
+           "capture_s": frame.capture_seconds,
            "reserved": torch.cuda.memory_reserved(mesh.device)}
     del frame, got, want
     torch.cuda.empty_cache()
@@ -4526,8 +3993,7 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
     BAND_COLOR_ATOL; each view to that view's one-device frame. Every rank
     must launch each kernel of BAND_ROWS in every band frame. Returns
     (the capture rank's (kernel, offset, case, ok, note) band calls, the
-    band run's launches summed over the ranks, the ms per band frame of
-    the slowest rank, eager and captured).
+    band run's launches summed over the ranks).
 
     Each rank then runs the band frame captured by cached_jit on the same
     frames (band_captured: under gloo BAND_HOST_STEPS host steps between
@@ -4607,11 +4073,8 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
               f"frames bit for bit (colour, FrameState, aux), overflow 0; "
               f"{cap['segments']} segments and {cap['host_steps']} host "
               f"steps a graph, graph nodes {cap['nodes']}; capture "
-              f"{cap['capture_s']:.3f} s (warm-up and two graphs); ms per "
-              f"call {[round(t, 3) for t in cap['walls']]} (the first with "
-              f"the capture), of it host steps "
-              f"{[round(t, 3) for t in cap['step_ms']]}; a profiled "
-              f"replay's device {cap['device_ms']:.3f} ms in {cap['ops']} "
+              f"{cap['capture_s']:.3f} s (warm-up and two graphs); a "
+              f"profiled replay's device {cap['device_ms']:.3f} ms in {cap['ops']} "
               f"kernels and copies, kernels by symbol {cap['symbols']}; "
               f"reserve {cap['reserved']} bytes ({cap['capture_bytes']} "
               f"added by the capture); bin-pair capacities "
@@ -4649,32 +4112,16 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
             f"view rank {r}: {cap['segments']} segments")
         print(f"view rank {r}, captured by cached_jit: two calls equal to "
               f"the eager calls bit for bit; {cap['segments']} segments; "
-              f"capture {cap['capture_s']:.3f} s; the second call "
-              f"{cap['ms']:.3f} ms, of it host steps {cap['step_ms']:.3f}; "
-              f"reserve {cap['reserved']} bytes")
-    frame_ms = [max(out["secs"][i] for out in ranks) * 1e3
-                for i in range(n_frames(backend))]
-    captured_ms = [max(out["captured"]["walls"][i] for out in ranks)
-                   for i in range(n_frames(backend))]
-    gather_ms = [max(out["gather_s"][i] for out in ranks) * 1e3
-                 for i in range(n_frames(backend))]
-    layout = ("sharing one card (gloo, bands staged through host memory; "
-              "this shows no speed-up)" if backend == "gloo"
-              else "on a card each (NCCL)")
-    print(f"band: {n_ranks} ranks {layout}, {WIDTH}x{HEIGHT}, "
-          f"ms per band frame (slowest rank) {[round(t, 3) for t in frame_ms]}"
-          f" (frame {CAPTURE_FRAME} with rank {BAND_CAPTURE_RANK}'s capture), "
-          f"of it in {ranks[0]['gathers']} gathers per frame "
-          f"{[round(t, 3) for t in gather_ms]} ms")
+              f"capture {cap['capture_s']:.3f} s; reserve {cap['reserved']} "
+              "bytes")
     for r, out in enumerate(ranks):
         last = out["row0"] + HEIGHT // n_ranks - 1
         print(f"band rank {r} (rows {out['row0']}..{last}): launches "
               f"{out['launches']}, peak device memory {out['peak_bytes']} "
               "bytes")
     print(f"views: {n_ranks} ranks, one orbit view each: max |diff| to "
-          f"the one-device frames {view_diff}; ms per rank "
-          f"{[round(o['secs'] * 1e3, 3) for o in view_ranks]}; peak device "
-          f"memory {[o['peak_bytes'] for o in view_ranks]} bytes")
+          f"the one-device frames {view_diff}; peak device memory "
+          f"{[o['peak_bytes'] for o in view_ranks]} bytes")
 
     equal, k7_case, k7_ok = ranks[BAND_CAPTURE_RANK]["k7"]
     print(f"kernel rasterize_tiles band [{k7_case['shape']}]: the band's "
@@ -4706,43 +4153,13 @@ def multi_device_phase(scene, res, cfg, device, outs, backend="gloo",
     for out in ranks:
         for k, v in out["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return cases, launches, frame_ms, captured_ms
-
-
-def one_device_replay_ms(scene, res, cfg, device, n):
-    """The default frame through cached_jit on one card: the median ms per
-    call, each followed by a synchronize, over frames WARMUP_FRAMES..n-1
-    of the bench orbit."""
-    import torch
-
-    from vkr_tpu_torch.core import aot
-    from vkr_tpu_torch.core.framestate import FrameState
-    from vkr_tpu_torch.frame import render_frame
-
-    def fn(s, st, c):
-        return render_frame(s, st, c, res, cfg)
-
-    state = FrameState.initial(HEIGHT, WIDTH, device)
-    frame = aot.cached_jit("one device", fn, (scene, state,
-                                              _orbit_cam(cfg, 0, device)),
-                           donate_argnums=(1,))
-    walls = []
-    for i in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state, _ = frame(scene, state, _orbit_cam(cfg, i, device))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    del frame, state
-    torch.cuda.empty_cache()
-    return statistics.median(walls[WARMUP_FRAMES:])
+    return cases, launches
 
 
 def multi_card_main() -> int:
     """`python3 chip_smoke.py --multi-card`, on a host with several cards:
     the multi-device phase over NCCL, one rank per card, against the
-    one-device frames rendered on card 0 in the same run, with the ms per
-    band frame beside the one-device frame's."""
+    one-device frames rendered on card 0 in the same run."""
     import torch
 
     if not cards():
@@ -4761,24 +4178,11 @@ def multi_card_main() -> int:
     scene = upload_scene(colonnade_scene(**SCENE), device)
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     res = build_ssr_resources(cfg.ssr.lut_size, device)
-    outs, secs = render(scene, res, cfg, device, MULTI_CARD_FRAMES)
-    replay_ms = one_device_replay_ms(scene, res, cfg, device,
-                                     MULTI_CARD_FRAMES)
-    _, launches, frame_ms, captured_ms = multi_device_phase(
-        scene, res, cfg, device, outs, backend="nccl", n_ranks=n)
-    one_ms = print_medians("one-device (card 0)", secs)
-    band_ms = statistics.median(frame_ms[WARMUP_FRAMES:])
-    captured_band_ms = statistics.median(captured_ms[WARMUP_FRAMES:])
-    print(f"band frame on {n} cards: median {band_ms:.3f} ms over frames "
-          f"{WARMUP_FRAMES}..{len(frame_ms) - 1} against the one-device "
-          f"frame's {one_ms:.3f} ms (ratio {one_ms / band_ms:.3f}); band "
-          f"launches summed over the ranks {launches}")
-    print(f"band frame on {n} cards captured by cached_jit (NCCL inside "
-          f"the graph): median {captured_band_ms:.3f} ms per frame over "
-          f"frames {WARMUP_FRAMES}..{len(captured_ms) - 1} (slowest rank, "
-          f"a synchronize after each call), against the eager band frame's "
-          f"{band_ms:.3f} ms and the one-device replay's {replay_ms:.3f} "
-          f"ms on {CARD}")
+    outs = render(scene, res, cfg, device, MULTI_CARD_FRAMES)
+    _, launches = multi_device_phase(scene, res, cfg, device, outs,
+                                     backend="nccl", n_ranks=n)
+    print(f"band frame on {n} cards ({CARD}): launches summed over the "
+          f"ranks {launches}")
     ok_line()
     return 0
 
@@ -4881,7 +4285,7 @@ def main() -> int:
         return stack
 
     kernels.LAUNCHES.clear()
-    outs, secs = render(scene, res, cfg, device, N_FRAMES, on_frame=capture)
+    outs = render(scene, res, cfg, device, N_FRAMES, on_frame=capture)
     launches = dict(kernels.LAUNCHES)
     check_frames(outs, launches, N_FRAMES, MIN_LAUNCHES_PER_FRAME, "main")
     chain = [r.name for r in graph.records]
@@ -4896,7 +4300,6 @@ def main() -> int:
           f" (min), overflow 0, SSR max "
           f"{max(float(o['ssr'].max()) for o in outs):.4f}, launches "
           f"{launches}")
-    print_medians("main", secs)
 
     # ---- traced phase: the frame as vkr_tpu runs it, captured and
     # replayed (core/aot.py:cached_jit), against the eager frame, on
@@ -4904,17 +4307,17 @@ def main() -> int:
     # its phase; the SSR-off, probe and trilinear frames after theirs)
     traced = {"colonnade": traced_phase(
         "colonnade", scene, res, cfg, device, TRACED_FRAMES,
-        MIN_LAUNCHES_PER_FRAME, timing=True)}
+        MIN_LAUNCHES_PER_FRAME)}
     scene16 = upload_scene(colonnade_scene(**BENCH_COLONNADE), device)
     traced["16-column colonnade"] = traced_phase(
         "16-column colonnade", scene16, res, cfg, device, TRACED_FRAMES,
-        MIN_LAUNCHES_PER_FRAME, timing=True)
+        MIN_LAUNCHES_PER_FRAME)
     del scene16
 
     # ---- SSR-off phase: the first slice's frame ----
     cfg_off = dataclasses.replace(cfg, enable_ssr=False)
     kernels.LAUNCHES.clear()
-    off_outs, off_secs = render(scene, res, cfg_off, device, SSR_OFF_FRAMES)
+    off_outs = render(scene, res, cfg_off, device, SSR_OFF_FRAMES)
     off_launches = dict(kernels.LAUNCHES)
     check_frames(off_outs, off_launches, SSR_OFF_FRAMES,
                  SSR_OFF_MIN_LAUNCHES_PER_FRAME, "ssr-off")
@@ -4923,7 +4326,6 @@ def main() -> int:
     check("ssr_blur" not in off_launches,
           "ssr-off: R2 launched with SSR off")
     print(f"ssr-off: {SSR_OFF_FRAMES} frames, launches {off_launches}")
-    print_medians("ssr-off", off_secs)
     traced["SSR off"] = traced_phase(
         "SSR off", scene, res, cfg_off, device, TRACED_OTHER_FRAMES,
         SSR_OFF_MIN_LAUNCHES_PER_FRAME)
@@ -4933,11 +4335,7 @@ def main() -> int:
     mvp = torch.as_tensor(light_view_proj(), device=device)
     kernels.LAUNCHES.clear()
     with Substitute(recording(captured)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         shadow = render_shadow_map(scene, mvp, size=SHADOW_SIZE)
-        torch.cuda.synchronize()
-        shadow_s = time.perf_counter() - t0
     shadow_launches = dict(kernels.LAUNCHES)
     check(shadow_launches.get("rasterize_tiles", 0) >= 1,
           f"shadow: rasterize_tiles launched "
@@ -4948,7 +4346,7 @@ def main() -> int:
           and shadow_cov >= MIN_SHADOW_COVERAGE,
           f"shadow: shape {tuple(shadow.shape)}, coverage {shadow_cov:.4f}")
     print(f"shadow: {SHADOW_SIZE}^2 map, coverage {shadow_cov:.4f}, "
-          f"{shadow_s * 1e3:.3f} ms, launches {shadow_launches}")
+          f"launches {shadow_launches}")
     launches["rasterize_tiles"] = shadow_launches["rasterize_tiles"]
 
     # ---- probe phase: probe GI (BASELINE config 5) at start-up and per frame
@@ -4980,8 +4378,8 @@ def main() -> int:
               " ".join(f"{c:.3f}" for c in row)
               for row in grid.face_coverage.tolist()))
     kernels.LAUNCHES.clear()
-    probe_outs, probe_secs = render(scene, res, cfg_probe, device,
-                                    PROBE_FRAMES, probe_grid=grid)
+    probe_outs = render(scene, res, cfg_probe, device, PROBE_FRAMES,
+                        probe_grid=grid)
     probe_launches = dict(kernels.LAUNCHES)
     check_frames(probe_outs, probe_launches, PROBE_FRAMES,
                  PROBE_MIN_LAUNCHES_PER_FRAME, "probe")
@@ -4991,7 +4389,6 @@ def main() -> int:
     print(f"probe: {PROBE_FRAMES} frames (SSR on, probes on), launches "
           f"{probe_launches}; share of SSR-empty pixels filled by a probe "
           f"hit per frame {[round(f, 4) for f in filled]}")
-    print_medians("probe", probe_secs)
     traced["probe"] = traced_phase(
         "probe", scene, res, cfg_probe, device, TRACED_OTHER_FRAMES,
         PROBE_MIN_LAUNCHES_PER_FRAME, probe_grid=grid)
@@ -5017,28 +4414,29 @@ def main() -> int:
           f"{grid_bytes}")
     cfg_rt = dataclasses.replace(cfg, gtao=dataclasses.replace(
         cfg.gtao, use_ray_query=True))
-    rt_pass_ms, rt_captured = [], []
+    rt_captured = []
 
     def rt_hook(i):
         if i == CAPTURE_FRAME:  # R1's calls, for the kernel phase
             return Substitute(recording(rt_captured, only=("ray_any_hit",)))
-        if i == WARMUP_FRAMES:
-            return StreamTimer(gtao_mod, "gtao_rt", rt_pass_ms)
         return contextlib.nullcontext()
+    rt_frames = FrameLaunches(rt_hook)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     kernels.LAUNCHES.clear()
-    rt_outs, rt_secs = render(scene, res, cfg_rt, device, RT_FRAMES,
-                              tri_grid=tri_grid, on_frame=rt_hook)
+    rt_outs = render(scene, res, cfg_rt, device, RT_FRAMES, tri_grid=tri_grid,
+                     on_frame=rt_frames)
     rt_launches = dict(kernels.LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     check_frames(rt_outs, rt_launches, RT_FRAMES, RT_MIN_LAUNCHES_PER_FRAME,
                  "rt")
     check("window_gather_bilinear_multi" not in rt_launches,
           "rt: K4 launched: the MIS pass ran in place of gtao_rt")
-    check(len(rt_pass_ms) == 1, f"rt: gtao_rt ran {len(rt_pass_ms)} times "
-          f"in frame {WARMUP_FRAMES}")
+    # gtao_rt runs R1 once per chunk of its directions: once a frame
+    r1_per_frame = [per.get("ray_any_hit", 0) for per in rt_frames.per_frame]
+    check(r1_per_frame == [RT_MIN_LAUNCHES_PER_FRAME["ray_any_hit"]]
+          * RT_FRAMES, f"rt: R1 launched {r1_per_frame} times a frame")
     ao_diff = [float((o["ao"] - m["ao"]).abs().mean())
                for o, m in zip(rt_outs, outs)]
     check(min(ao_diff) > MIN_RT_AO_DIFF, f"rt: mean |AO - MIS AO| per frame "
@@ -5046,18 +4444,16 @@ def main() -> int:
     print(f"rt: {RT_FRAMES} frames (SSR on, use_ray_query with the grid), "
           f"launches {rt_launches}; mean |AO - main phase's MIS AO| per "
           f"frame {[round(a, 4) for a in ao_diff]}; AO mean "
-          f"{[round(float(o['ao'].mean()), 4) for o in rt_outs]}; gtao_rt "
-          f"stream {rt_pass_ms[0]:.3f} ms in frame {WARMUP_FRAMES}; peak "
+          f"{[round(float(o['ao'].mean()), 4) for o in rt_outs]}; peak "
           f"device memory {peak_bytes} bytes ({base_bytes} allocated before "
           f"the frames)")
-    print_medians("rt", rt_secs)
     check(len(rt_captured) == RT_MIN_LAUNCHES_PER_FRAME["ray_any_hit"],
           f"rt: {len(rt_captured)} ray_any_hit calls recorded in frame "
           f"{CAPTURE_FRAME}")
     launches["ray_any_hit"] = rt_launches["ray_any_hit"]
     traced["RT"] = traced_phase(
         "RT", scene, res, cfg_rt, device, TRACED_OTHER_FRAMES,
-        RT_MIN_LAUNCHES_PER_FRAME, tri_grid=tri_grid, timing=True)
+        RT_MIN_LAUNCHES_PER_FRAME, tri_grid=tri_grid)
 
     # ---- variants phase: the other GTAO passes and SSAO at 1080p
     from vkr_tpu_torch.frame import _inv4, _normal_mat4, camera_frame
@@ -5101,8 +4497,8 @@ def main() -> int:
         check(tuple(out.shape) == tuple(args[0].shape)
               and bool(torch.isfinite(out).all()),
               f"variant {name}: shape {tuple(out.shape)} or not finite")
-        print(f"variant {name} [{tuple(out.shape)}]: "
-              f"{time_ms(fn, args, kw):.3f} ms, mean {float(out.mean()):.4f}")
+        print(f"variant {name} [{tuple(out.shape)}]: mean "
+              f"{float(out.mean()):.4f}")
     # K4's pass against gtao_main_exact: to vkr_tpu's bound on vkr_tpu's
     # own kind of input, the close-range corner, at the half-res size; on
     # main frame 1 the far hall amplifies the taps' rounding (vkr_tpu's own
@@ -5161,11 +4557,11 @@ def main() -> int:
     sponza_scene, sponza_outs = sponza_phase(res, cfg, device, sponza_root)
     traced["Sponza stand-in"] = traced_phase(
         "Sponza stand-in", sponza_scene, res, cfg, device, TRACED_FRAMES,
-        MIN_LAUNCHES_PER_FRAME, timing=True)
+        MIN_LAUNCHES_PER_FRAME)
     # P10 on probe_orbit's frame, on the same stand-in
     p10_cases = p10_phase(device, sponza_root)
-    print(f"traced phase: {sum(t['phase_s'] for t in traced.values()):.1f} "
-          f"s over {list(traced)} on {CARD}")
+    print(f"traced phase: {sum(traced.values()):.1f} s over {list(traced)} "
+          f"on {CARD}")
 
     # ---- bench phase: tools/bench.py as a user runs it, on the stand-in
     # and on the colonnade
@@ -5180,8 +4576,8 @@ def main() -> int:
 
     # ---- multi-device phase: the band frame and view parallelism, ranks
     # on this card
-    band_cases, band_launches, _, _ = multi_device_phase(scene, res, cfg,
-                                                         device, outs)
+    band_cases, band_launches = multi_device_phase(scene, res, cfg, device,
+                                                   outs)
 
     # ---- kernel phase: the captured calls against the plain versions
     plain = plain_versions()
@@ -5202,9 +4598,6 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "library_ms"))
         nbytes, ops = case["bytes"], case["ops"]
         results.setdefault(row, []).append(case)
-        if name == "window_gather_bilinear":
-            note += (f"empty kernel on its grid "
-                     f"{time_ms(k5_empty_grid, (args[0],), {}):.4f} ms")
         if name == "hierarchical_march":
             steps = want[3]
             note += f", sum of iterations {int(steps.sum())}"
@@ -5257,8 +4650,7 @@ def main() -> int:
                                 f"{err}, covered {covered}")
     check(not failures, "kernel disagrees with its plain version: "
           + "; ".join(failures))
-    # R1 beyond its row: t_max tensors, slot tests, lane maps, SASS, the
-    # parent's time in turns where VKR_R1_PARENT names it
+    # R1 beyond its row: t_max tensors, slot tests, lane maps, SASS
     r1_phase(rt_captured)
     # R2 on the benchmark's 1440p frame and one of its bands
     r2_phase(scene, res, device)
@@ -5275,7 +4667,7 @@ def main() -> int:
     # ---- the same frames through the plain versions ----
     kernels.LAUNCHES.clear()
     with Substitute(lambda name, wrapper, p: p):
-        plain_outs, plain_secs = render(scene, res, cfg, device, N_FRAMES)
+        plain_outs = render(scene, res, cfg, device, N_FRAMES)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
     worst = {}
@@ -5284,12 +4676,11 @@ def main() -> int:
             worst[k] = min(worst.get(k, math.inf), psnr(o[k], p[k]))
     print("psnr kernels vs plain versions (dB, min over frames): "
           + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()))
-    print_medians("plain-version", plain_secs)
     for k, v in worst.items():
         check(v >= MIN_PSNR_DB, f"{k}: {v:.2f} dB against the plain "
               f"versions (< {MIN_PSNR_DB})")
     with Substitute(lambda name, wrapper, p: p):
-        plain_probe, _ = render(scene, res, cfg_probe, device, PROBE_FRAMES,
+        plain_probe = render(scene, res, cfg_probe, device, PROBE_FRAMES,
                                 probe_grid=grid)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
@@ -5303,7 +4694,7 @@ def main() -> int:
 
     kernels.LAUNCHES.clear()
     with Substitute(lambda name, wrapper, p: p):
-        plain_rt, _ = render(scene, res, cfg_rt, device, RT_FRAMES,
+        plain_rt = render(scene, res, cfg_rt, device, RT_FRAMES,
                              tri_grid=tri_grid)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
@@ -5316,7 +4707,7 @@ def main() -> int:
               f"versions (< {MIN_PSNR_DB})")
 
     with Substitute(lambda name, wrapper, p: p):
-        plain_gltf, _ = render(gltf_scene, res, cfg_gltf, device,
+        plain_gltf = render(gltf_scene, res, cfg_gltf, device,
                                GLTF_FRAMES)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
@@ -5329,7 +4720,7 @@ def main() -> int:
               f"versions (< {MIN_PSNR_DB})")
 
     with Substitute(lambda name, wrapper, p: p):
-        plain_jpeg, _ = render(jpeg_scene, res, cfg, device, JPEG_FRAMES)
+        plain_jpeg = render(jpeg_scene, res, cfg, device, JPEG_FRAMES)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")
     worst = {k: min(psnr(o[k], p[k]) for o, p in zip(jpeg_outs, plain_jpeg))
@@ -5341,7 +4732,7 @@ def main() -> int:
               f"plain versions (< {MIN_PSNR_DB})")
 
     with Substitute(lambda name, wrapper, p: p):
-        plain_sponza, _ = render(sponza_scene, res, cfg, device,
+        plain_sponza = render(sponza_scene, res, cfg, device,
                                  SPONZA_FRAMES)
     check(sum(kernels.LAUNCHES.values()) == 0,
           "a kernel launched while the plain versions were substituted")

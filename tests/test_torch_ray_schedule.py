@@ -18,9 +18,7 @@ tests check the design contracts it rests on:
   the walk's edge rays (NaN and +-inf origins, +-0.0 direction
   components, per-ray t_max) and on seeded rays, and tests the slots that
   chip_smoke.rt_slot_tests counts;
-- the operations bound charges each test up to where it ends, and the
-  parent kernel's build (chip_smoke.build_r1_parent) takes only the C
-  interfaces it knows.
+- the operations bound charges each test up to where it ends.
 
 Inputs come from numpy with fixed seeds, at small sizes."""
 
@@ -264,31 +262,3 @@ def test_bound_counts_each_test_up_to_its_exit(case):
     assert nbytes == (len(o) * 25 + filled * 48 + t_max.numel() * 4
                       + grid.spans.numel() * 4 + 6 * 4)
 
-
-def test_parent_interface_is_checked(tmp_path):
-    """build_r1_parent reads the parameter types of a source's
-    vkr_ray_any_hit (chip_smoke.c_params) and takes only PR 15's
-    interface or this tree's: any other fails before anything is built
-    or called."""
-    from vkr_tpu_torch import kernels
-
-    mine = chip_smoke.c_params(kernels.CSRC / "ray_any_hit.cu")
-    assert mine[:6] == ("const float*", "const float*", "float",
-                        "const float*", "int", "int")
-    assert len(mine) == 16 and mine[-2:] == ("unsigned char*", "void*")
-    pr15 = tmp_path / "pr15.cu"
-    pr15.write_text(
-        'extern "C" int vkr_ray_any_hit(const float* orig, const float *dir,'
-        '\n    float t_max, int n, const float* tri_verts,\n'
-        '    const int* cell_tris, const float* grid_min,\n'
-        '    const float* cell_size, int sx, int sy, int sz, int cap,\n'
-        '    int max_steps, unsigned char* hit, void* stream) {\n}\n')
-    assert chip_smoke.c_params(pr15) == chip_smoke.R1_PR15_PARAMS
-    other = tmp_path / "other.cu"
-    other.write_text(pr15.read_text().replace("int cap,", "int cap, int k,"))
-    for src, what in ((other, "neither PR 15's interface"),
-                      (tmp_path / "none.cu", "no extern")):
-        if not src.exists():
-            src.write_text("int main() { return 0; }\n")
-        with pytest.raises(chip_smoke.SmokeFailure, match=what):
-            chip_smoke.build_r1_parent(src)

@@ -1,7 +1,6 @@
 """The port's registry (core/registry.py) and pass graph (core/graph.py)
 against vkr_tpu's: the manifest names, what each name resolves to, hot
-reload, the `setattr` swaps that chip_smoke.py and profile_frame.py make,
-and the DAG dump."""
+reload, the `setattr` swaps that chip_smoke.py makes, and the DAG dump."""
 
 import importlib
 import pkgutil

@@ -8,8 +8,8 @@ recently."""
 import pytest
 import torch
 
-from chip_smoke import same_bits
 from test_torch_traced_frame import FakeGraphs
+from vkr_tpu_torch.tools.entry import same_bits
 
 SMALL = ["--tex-size", "32", "--lut-size", "32"]
 

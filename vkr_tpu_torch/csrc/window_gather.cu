@@ -160,10 +160,6 @@ dim3 k5_grid(int h, int w) {
               (unsigned)((h + kK5Rows - 1) / kK5Rows));
 }
 
-// Launches nothing but K5's grid: the floor of K5's time that no kernel
-// body can go under.
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // ch in {1, 2, 3} and h * w * ch < 2^31 (the wrapper checks both). The
@@ -191,13 +187,6 @@ extern "C" int vkr_window_gather(const float* img, int h, int w, int ch,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int vkr_window_gather_empty(int h, int w, void* stream) {
-  if (h > 0 && w > 0)
-    empty_kernel<<<k5_grid(h, w), dim3(kK5ThreadsX, kK5Rows), 0,
-                   (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
